@@ -1,0 +1,84 @@
+"""Task-level model builder (PyTorch).
+
+Port of the `multiview_keypoint` eval path of epipolar_transformers_tpu/
+models/builder.py (reference modeling/model.py:25-493): an epipolar
+PoseResNet `reference` on the target view and its sibling `backbone` on the
+other view (the same module under EPIPOLAR.SHARE_WEIGHTS), then the heatmap
+head and the soft-argmax decode.  At eval with shared weights, the late
+merge and running-stat BN, both views go through ONE 2N-batch trunk call,
+which is numerically the two passes.
+
+Inputs are NCHW tensors; outputs are heatmap_pred (N, J, H, W),
+batch_locs (N, J, 2), score_pred (N, J), corr_pos (N, H, W, 2) and
+depth (N, K, H, W).  Training (ROADMAP A7), MULTITEST and the other tasks
+(ROADMAP A11) raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from epipolar_transformers_tpu.config import Config
+
+from .registry import build_backbone
+
+
+class ModelBuilder(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.DATASETS.TASK != "multiview_keypoint":
+            raise NotImplementedError(
+                f"DATASETS.TASK={cfg.DATASETS.TASK!r} is ROADMAP A11 (the port "
+                "has multiview_keypoint)")
+        self.reference = build_backbone(cfg)
+        if not cfg.EPIPOLAR.SHARE_WEIGHTS:
+            single = cfg.BACKBONE.BODY.replace("epipolarpose", "pose")
+            self.backbone = build_backbone(
+                cfg.replace(BACKBONE=cfg.BACKBONE.replace(BODY=single)))
+
+    @property
+    def sibling(self) -> nn.Module:
+        """The other view's backbone (the reference itself when shared)."""
+        return self.reference if self.cfg.EPIPOLAR.SHARE_WEIGHTS else self.backbone
+
+    def _can_fuse_trunks(self) -> bool:
+        """The 2N-batch trunk is the two passes when they are one function:
+        shared weights, late merge and BN on running statistics."""
+        c = self.cfg
+        return (not self.training and c.EPIPOLAR.SHARE_WEIGHTS
+                and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """
+        Args (inputs dict): img, other_img (N, 3, H, W); KRT, other_KRT (N, 3, 4).
+        Returns the eval output dict.
+        """
+        c = self.cfg
+        if self.training:
+            raise NotImplementedError("training the port is ROADMAP A7")
+        if c.EPIPOLAR.MULTITEST:
+            raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11")
+        if self._can_fuse_trunks():
+            both = torch.cat([inputs["img"], inputs["other_img"]], dim=0)
+            feat_ref, other_features = self.reference.trunk_features(both).chunk(2, dim=0)
+            bb = self.reference.head_from_features(
+                feat_ref, other_features=other_features,
+                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
+        else:
+            other_features = self.sibling.trunk_features(inputs["other_img"])
+            if not c.EPIPOLAR.OTHER_GRAD:
+                other_features = other_features.detach()
+            bb = self.reference(inputs["img"], other_features=other_features,
+                                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
+        out = {"heatmap_pred": bb.heatmaps[-1], "batch_locs": bb.locs,
+               "score_pred": bb.scores}
+        if bb.corr_pos is not None:
+            out["corr_pos"] = bb.corr_pos
+            out["depth"] = bb.depth
+        if bb.sample_locs is not None and c.VIS.EPIPOLAR_LINE:
+            out["sample_locs"] = bb.sample_locs
+        return out

@@ -1,0 +1,70 @@
+"""Build the package's CUDA kernels from its own sources, at first use.
+
+Each `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface and loaded with `ctypes`.  The
+output goes to `build/epipolar_transformers_tpu_torch/` at the repository
+root, keyed by a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one loads the library already built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / PACKAGE_DIR.name
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from `csrc/<name>.cu` lives."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if its library is missing, then load it."""
+    so = library_path(name)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile to a private name and rename, so a concurrent build or an
+        # interrupted one never leaves a truncated library under `so`
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(so))
