@@ -4,39 +4,61 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and `nvcc`; exits non-zero without them, and in a
-directory that does not hold the repository.  Phases, each printed on its
-own lines:
+directory that does not hold the repository.  Phases, in the order they
+run, each printed on its own lines:
 
   1. the card (nvidia-smi name and power limit) and the kernel build time;
-  2. the CUDA epipolar-attention kernel against its plain PyTorch version at
-     the flagship attention shape (B=8, 64x64, K=64, C=256): f32 features on
-     sample locations of the synthetic rig, bf16 features, random locations
-     that cross the image edges, all samples out of range; then priors,
-     priormul, prior similarity and softmax off at a smaller shape;
-  3. the slice: the flagship ModelBuilder (epipolarposeR-50, 256 px, K=64,
-     17 joints, bf16 convolutions) built on the card from a seed, 8 synthetic
-     eval view groups through `engine.tester.predict` (the launch counter
-     must grow by one per forward), then the bench shape (batch 8) through
-     the kernel path and the plain-attention path on the same weights;
-  4. times with CUDA events after warm-up: the attention alone and the slice
-     forward at batch 8, kernel path against plain path, in turns.
+  2. the CUDA epipolar-attention forward kernel against its plain PyTorch
+     version at the flagship attention shape (B=8, 64x64, K=64, C=256): f32
+     features on sample locations of the synthetic rig, bf16 features,
+     random locations that cross the image edges, all samples out of range;
+     then priors, priormul, prior similarity and softmax off at a smaller
+     shape;
+  3. the inference slice: the flagship ModelBuilder (epipolarposeR-50,
+     256 px, K=64, 17 joints, bf16 convolutions) built on the card from a
+     seed, 8 synthetic eval view groups through `engine.tester.predict` (the
+     launch counter must grow by one per forward), then the bench shape
+     (batch 8) through the kernel path and the plain-attention path on the
+     same weights;
+  4. times with CUDA events after warm-up, in turns, kernel path against
+     plain path, before any training: the attention forward alone and the
+     slice forward at batch 8;
+  5. the CUDA backward kernel (through the autograd Function) against
+     autograd of the plain version, at the flagship attention shape: f32
+     with gradients to queries, keys and values, detached keys and values,
+     bf16, edge-crossing locations, all out of range (exactly zero), then
+     priors, priormul and softmax off at the smaller shape;
+  6. the training slice: `engine.trainer.train` on the flagship config for
+     TRAIN_STEPS steps of batch 8 (finite loss every step, one forward and
+     one backward kernel launch per step), a checkpoint and its resume, then
+     one step on the kernel path and one on the plain path from the same
+     weights: under bf16 convolutions the loss and the whole-model gradient
+     are compared, under f32 convolutions every parameter's gradient;
+  4. (continued) times as above: the attention backward alone (with and
+     without the key/value scatter) and the train step at batch 8, and the
+     peak memory of a train step on each path.
 
-The line before the card line is a JSON object with the kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.  Any failed
-check raises.
+The line before the card line is a JSON object with both kernels'
+launches, errors and times; the last line is {"ok": true, "device": {...}}.
+Any failed check raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
 FLAGSHIP_ATTENTION = dict(B=8, H=64, W=64, K=64, C=256)
 BENCH_BATCH = 8
 EVAL_GROUPS = 8
+TRAIN_STEPS = 10
 # f32: both sides compute in f32 (TF32 off); they differ only in summation
 # order, ~1e-6 relative at C=256.
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -48,7 +70,29 @@ BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 # by f32 rounding, which can flip single bf16 roundings downstream (2^-8)
 SLICE_HEATMAP_TOL = dict(rtol=2e-2, atol=2e-2)
 MIN_AGREEMENT = 0.99
+# gradients, kernel against autograd of the plain version: f32 differs in
+# summation order (and the scatter's atomics add in a run-dependent order);
+# bf16 as the forward, the plain version rounding G and n to bf16.  The atol
+# is relative to each gradient's max.
+GRAD_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+# one train step, kernel path against plain path from the same weights:
+# the loss, and under f32 convolutions each parameter gradient's relative L2
+# error.  Under bf16 convolutions any f32-level difference (the backward's
+# atomics add in a run-dependent order) is amplified through the trunk:
+# either path against itself differs by ~0.013-0.015 over the whole model
+# and up to ~0.03 on single parameters, so bf16 holds the whole-model error
+# within STEP_BF16_NOISE_FACTOR times the kernel path's own spread in the
+# same run, and never below STEP_GRAD_REL_L2
+STEP_LOSS_RTOL = 2e-2
+STEP_GRAD_REL_L2 = 2e-2
+STEP_BF16_NOISE_FACTOR = 1.5
+# feeds the zero-init BN, which runs on batch statistics in training and
+# removes any constant shift: its true gradient is 0 on both paths
+ZERO_GRAD_PARAMS = ("reference.epipolar_sampler.z.bias",)
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
+BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
+                     "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
 
 
 def log(msg: str) -> None:
@@ -218,6 +262,21 @@ def randomize(model, images, seed):
             m.eval()
 
 
+@contextlib.contextmanager
+def attention_path(model, plain: bool):
+    """Run `model`'s epipolar layer through the plain version (plain) or
+    the kernels, on the same weights."""
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    sampler = model.reference.epipolar_sampler
+    sampler.attention = (attn.epipolar_attention_plain_batch if plain
+                         else attn.epipolar_attention_batch)
+    try:
+        yield
+    finally:
+        del sampler.attention
+
+
 def slice_phase(cfg, device):
     """The main path: 8 eval view groups through predict, then the bench
     batch through the kernel and plain paths.  Returns what timing needs."""
@@ -257,16 +316,9 @@ def slice_phase(cfg, device):
     log(f"  predict: {EVAL_GROUPS} view groups of {V} views, all outputs finite with "
         f"the expected shapes; kernel launches {launches} (one per forward)")
 
-    sampler = model.reference.epipolar_sampler
-
     def forward(plain: bool):
-        sampler.attention = (attn.epipolar_attention_plain_batch if plain
-                             else attn.epipolar_attention_batch)
-        try:
-            with torch.inference_mode():
-                return model(bench)
-        finally:
-            del sampler.attention
+        with attention_path(model, plain), torch.inference_mode():
+            return model(bench)
 
     got, want = forward(False), forward(True)
     e_hm = close("slice heatmap_pred", got["heatmap_pred"], want["heatmap_pred"],
@@ -276,6 +328,242 @@ def slice_phase(cfg, device):
     log(f"  bench batch {BENCH_BATCH}: kernel vs plain path heatmap_pred max abs err "
         f"{e_hm:.3g}, batch_locs within 1 px {ok_locs:.4f}, depth within f32 tol")
     return launches, forward
+
+
+def attention_grads(fn, feats, locs, params, prior=None, need_kv=True):
+    """Gradients of sum(out * r), r fixed by SEED, with respect to the query,
+    key and value features (keys and values only when need_kv)."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(i == 0 or need_kv) for i, t in enumerate(feats)]
+    out = fn(*leaves, locs, params, prior)[0]
+    gen = torch.Generator(device=out.device).manual_seed(SEED + 1)
+    r = torch.randn(out.shape, device=out.device, generator=gen)
+    (out.float() * r).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def close_grads(name, got, want, rtol, atol):
+    """`close` for each of dfeat1/dother1/dother2 with atol x its max;
+    returns the largest max abs error."""
+    err = 0.0
+    for which, g, w in zip(("dfeat1", "dother1", "dother2"), got, want):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"{name} {which}: a gradient nobody asked for")
+            continue
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err = max(err, close(f"{name} {which}", g, w, rtol, atol * scale))
+    return err
+
+
+def backward_phase(cfg, device):
+    """Backward kernel against autograd of the plain version; returns the
+    f32 flagship max abs error."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    s = FLAGSHIP_ATTENTION
+    B, H, W, K, C = s["B"], s["H"], s["W"], s["K"], s["C"]
+
+    def feats(b, h, w, c, dtype):
+        return [torch.randn(b, h, w, c, device=device, generator=gen).to(dtype)
+                for _ in range(3)]
+
+    def check(name, f, locs, params, prior=None, tol=GRAD_F32_TOL, need_kv=True):
+        before = attn.BACKWARD_LAUNCHES
+        got = attention_grads(attn.epipolar_attention_batch, f, locs, params, prior, need_kv)
+        if attn.BACKWARD_LAUNCHES != before + 1:
+            raise AssertionError(f"{name}: {attn.BACKWARD_LAUNCHES - before} backward launches")
+        want = attention_grads(attn.epipolar_attention_plain_batch, f, locs, params, prior,
+                               need_kv)
+        err = close_grads(name, got, want, **tol)
+        log(f"  {name}: max abs err {err:.3g}"
+            + ("" if need_kv else " (dfeat1 only; key/value gradients not computed)"))
+        return err
+
+    flagship = AttentionParams(softmax_scale=cfg.EPIPOLAR.SOFTMAXSCALE)
+    rig = rig_sample_locs(cfg, B, device)
+    rand_locs = torch.rand(B, K, H, W, 2, device=device, generator=gen) * 2.6 - 1.3
+    f32 = feats(B, H, W, C, torch.float32)
+    err = check("f32 rig locs, OTHER_GRAD (flagship shape)", f32, rig, flagship)
+    check("f32 detached keys and values", f32, rig, flagship, need_kv=False)
+    check("bf16 rig locs", feats(B, H, W, C, torch.bfloat16), rig, flagship, tol=GRAD_BF16_TOL)
+    check("f32 edge-crossing locs", f32, rand_locs, flagship)
+    grads = attention_grads(attn.epipolar_attention_batch, f32, torch.full_like(rig, -9.0),
+                            flagship)
+    if any(g.abs().max().item() != 0.0 for g in grads):
+        raise AssertionError("all samples out of range: a gradient is not exactly zero")
+    log("  all out of range: every gradient exactly 0")
+
+    b, h, w, k, c = 2, 16, 16, 16, 64
+    small = feats(b, h, w, c, torch.float32)
+    locs = torch.rand(b, k, h, w, 2, device=device, generator=gen) * 2.6 - 1.3
+    prior = torch.rand(b, k, h, w, device=device, generator=gen) * 0.1
+    for name, kw, pr in (
+        ("additive prior", dict(), prior),
+        ("priormul", dict(priormul=True), prior),
+        ("softmax off", dict(softmax_enabled=False), None),
+    ):
+        check(f"{name} (2x16x16, K=16, C=64)", small, locs,
+              AttentionParams(softmax_scale=k ** -0.5, **kw), pr)
+    return err
+
+
+class _Messages(logging.Handler):
+    """Collects the formatted messages of one logger."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def train_phase(cfg, device):
+    """The training main path through `engine.trainer.train`, its
+    checkpoint resume, and one step on each attention path.  Returns the
+    launch counts and what timing needs."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import update_from_dict
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.utils.checkpoint import Checkpointer
+
+    messages = _Messages()
+    train_log = logging.getLogger(trainer.__name__)
+    train_log.addHandler(messages)
+    train_log.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
+                                      "TENSORBOARD": {"USE": False}})
+        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        model, optimizer = trainer.train(tcfg, max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
+        losses = [float(m) for msg in messages.messages for m in re.findall(r"\bloss (\S+)", msg)]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"train losses {losses}")
+        if not launches == backward_launches == optimizer.count == TRAIN_STEPS:
+            raise AssertionError(f"{optimizer.count} steps launched the forward kernel "
+                                 f"{launches} and the backward kernel {backward_launches} times")
+        if next(model.parameters()).device != device:
+            raise AssertionError("the trainer did not run on the card")
+        log(f"  train: {TRAIN_STEPS} steps of batch {tcfg.SOLVER.IMS_PER_BATCH} in {wall:.1f} s "
+            f"(first steps include cuDNN autotuning and the loader's start), loss "
+            f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches "
+            f"{launches}, backward kernel launches {backward_launches} (one each per step)")
+
+        Checkpointer(out_dir).save("model_000", model, optimizer, epoch=1)
+        resumed, resumed_opt = trainer.train(
+            tcfg.replace(SOLVER=tcfg.SOLVER.replace(MAX_EPOCHS=1)))
+        if resumed_opt.count != TRAIN_STEPS or attn.BACKWARD_LAUNCHES != backward_launches:
+            raise AssertionError(f"resume: {resumed_opt.count} optimizer steps restored, "
+                                 f"{attn.BACKWARD_LAUNCHES - backward_launches} new steps")
+        for (k, a), b in zip(model.state_dict().items(), resumed.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"resume: {k} differs from the checkpoint")
+        log(f"  checkpoint: saved, resumed with {resumed_opt.count} optimizer steps and "
+            "identical weights, no step taken")
+    train_log.removeHandler(messages)
+    del model, optimizer, resumed, resumed_opt
+
+    model, batch = step_parity(cfg, device, per_param=False)
+    step_parity(cfg.replace(DTYPE="float32"), device, per_param=True)
+
+    optimizer = make_optimizer(cfg, model)
+    step = trainer.make_train_step(cfg, model, optimizer)
+
+    def train_step(plain: bool):
+        with attention_path(model, plain):
+            step(batch)
+
+    return launches, backward_launches, train_step
+
+
+def step_parity(cfg, device, per_param: bool):
+    """One train step's loss and gradients on the kernel path (twice: the
+    backward's atomics add in a run-dependent order, which gives the noise
+    floor) and on the plain path, from the same randomized weights.
+
+    Under bf16 convolutions the loss and the whole model's gradient are
+    held, the gradient against the kernel path's own spread; f32
+    convolutions (per_param) hold every parameter's gradient, where bf16
+    rounding downstream of the attention would otherwise amplify f32-level
+    differences through the deep trunk.
+    Returns the model and the batch."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import collate
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, to_model_inputs
+
+    model = trainer.build_model(cfg, device)
+    np.random.seed(SEED)
+    ds = SyntheticMultiview(cfg, is_train=True, n_samples=BENCH_BATCH, seed=SEED)
+    batch = to_model_inputs(collate([ds[i] for i in range(BENCH_BATCH)]), device, TRAIN_KEYS)
+    randomize(model, torch.cat([batch["img"], batch["other_img"]]), SEED)
+    model.train()
+
+    def loss_and_grads(plain: bool):
+        model.zero_grad(set_to_none=True)
+        with attention_path(model, plain):
+            loss = model(batch)[0]["loss"]
+            loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                             if p.grad is not None and k not in ZERO_GRAD_PARAMS}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    loss_k, grads_k = loss_and_grads(False)
+    _, grads_k2 = loss_and_grads(False)
+    loss_p, grads_p = loss_and_grads(True)
+    dtype = "bf16" if cfg.DTYPE == "bfloat16" else "f32"
+    if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or not np.isfinite(loss_k):
+        raise AssertionError(f"{dtype} train step loss: kernel path {loss_k}, plain {loss_p}")
+    if set(grads_k) != set(grads_p):
+        raise AssertionError("the two paths give gradients to different parameters")
+    whole = rel(torch.cat([g.flatten() for g in grads_k.values()]),
+                torch.cat([g.flatten() for g in grads_p.values()]))
+    whole_self = rel(torch.cat([g.flatten() for g in grads_k2.values()]),
+                     torch.cat([g.flatten() for g in grads_k.values()]))
+    limit = STEP_GRAD_REL_L2 if per_param else max(STEP_GRAD_REL_L2,
+                                                   STEP_BF16_NOISE_FACTOR * whole_self)
+    if not whole <= limit:
+        raise AssertionError(f"{dtype} whole-model gradient relative L2 error {whole:.3g} "
+                             f"above {limit:.3g} (kernel path against itself {whole_self:.3g})")
+    errs = {k: rel(grads_k[k], g) for k, g in grads_p.items()}
+    worst = max(errs, key=errs.get)
+    if per_param and not errs[worst] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"{dtype} {worst}: gradient relative L2 error {errs[worst]:.3g}")
+    log(f"  one {dtype} step, kernel vs plain path: loss {loss_k:.6g} vs {loss_p:.6g}; "
+        f"gradient relative L2 error {whole:.3g} over the model (kernel path against itself "
+        f"{whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel path against "
+        f"itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} parameters")
+    return model, batch
+
+
+def peak_step_memory(train_step, plain: bool) -> float:
+    """Peak device memory of one train step, GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(plain)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def main() -> int:
@@ -320,12 +608,53 @@ def main() -> int:
     log(f"    slice forward, batch {BENCH_BATCH}: kernel path {sk_ms:.3f} ms "
         f"({BENCH_BATCH * 1000 / sk_ms:.1f} frames/s), plain path {sp_ms:.3f} ms "
         f"({BENCH_BATCH * 1000 / sp_ms:.1f} frames/s)")
+    del bf16, forward
+
+    log("[5] attention backward kernel vs autograd of the plain version")
+    bwd_err = backward_phase(cfg, device)
+
+    log("[6] training slice: engine.trainer.train on the flagship config")
+    train_launches, backward_launches, train_step = train_phase(cfg, device)
+
+    log(f"[4] times, continued after [6]: backward and train step, {card}")
+
+    # the backward alone: autograd.grad over a graph built once, queries
+    # and keys = values as in the model (OTHER_GRAD), f32 as the slice feeds it
+    def backward_only(fn, need_kv=True):
+        f1 = f32[0].clone().requires_grad_()
+        f2 = f32[1].clone().requires_grad_(need_kv)
+        out = fn(f1, f2, f2, rig, params)[0]
+        r = torch.randn_like(out)
+        wrt = (f1, f2) if need_kv else (f1,)
+        return lambda: torch.autograd.grad(out, wrt, r, retain_graph=True)
+
+    kbw_ms, pbw_ms = in_turns(backward_only(attn.epipolar_attention_batch),
+                              backward_only(attn.epipolar_attention_plain_batch))
+    log(f"    attention backward alone, B=8 64x64 K=64 C=256 f32, grads to queries and "
+        f"keys=values: kernel {kbw_ms:.4f} ms, plain autograd {pbw_ms:.4f} ms"
+        + ("  (kernel SLOWER)" if kbw_ms > pbw_ms else ""))
+    # the same without the key/value scatter: what the atomics cost
+    kq_ms, pq_ms = in_turns(backward_only(attn.epipolar_attention_batch, need_kv=False),
+                            backward_only(attn.epipolar_attention_plain_batch, need_kv=False))
+    log(f"    attention backward, query gradient only (keys and values detached, no "
+        f"scatter): kernel {kq_ms:.4f} ms, plain autograd {pq_ms:.4f} ms")
+    tk_ms, tp_ms = in_turns(lambda: train_step(False), lambda: train_step(True), iters=10)
+    log(f"    train step (forward, backward, adam), batch {BENCH_BATCH}: kernel path "
+        f"{tk_ms:.3f} ms, plain path {tp_ms:.3f} ms")
+    mem_k, mem_p = peak_step_memory(train_step, False), peak_step_memory(train_step, True)
+    log(f"    train step peak memory (max_memory_allocated): kernel path {mem_k:.3f} GiB, "
+        f"plain path {mem_p:.3f} GiB")
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
-        "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+        "replaces": REPLACES, "launches": launches + train_launches, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms,
+    }, {
+        "name": "epipolar_attention_backward", "route": "cuda",
+        "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
+        "replaces": BACKWARD_REPLACES, "launches": backward_launches, "max_abs_err": bwd_err,
+        "ms": kbw_ms, "plain_ms": pbw_ms,
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -16,15 +16,20 @@ import torch
 from epipolar_transformers_tpu.config import Config
 
 EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
+# what a train step also takes: the target heatmaps and joint visibility
+TRAIN_KEYS = EVAL_KEYS + ("heatmap", "visibility")
+NHWC_KEYS = ("img", "other_img", "heatmap")
 
 
-def to_model_inputs(group: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Host NHWC arrays -> model inputs on `device`.  An NHWC image permuted
-    to NCHW is already channels_last in memory, so no copy is made."""
+def to_model_inputs(group: Dict[str, np.ndarray], device,
+                    keys=EVAL_KEYS) -> Dict[str, torch.Tensor]:
+    """Host arrays -> model inputs on `device`.  Images and heatmaps come
+    NHWC; permuted to NCHW they are already channels_last in memory, so no
+    copy is made."""
     out = {}
-    for k in EVAL_KEYS:
+    for k in keys:
         t = torch.from_numpy(np.ascontiguousarray(group[k])).to(device, non_blocking=True)
-        out[k] = t.permute(0, 3, 1, 2) if k.endswith("img") else t
+        out[k] = t.permute(0, 3, 1, 2) if k in NHWC_KEYS else t
     return out
 
 

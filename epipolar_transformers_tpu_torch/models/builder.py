@@ -8,10 +8,15 @@ head and the soft-argmax decode.  At eval with shared weights, the late
 merge and running-stat BN, both views go through ONE 2N-batch trunk call,
 which is numerically the two passes.
 
-Inputs are NCHW tensors; outputs are heatmap_pred (N, J, H, W),
-batch_locs (N, J, 2), score_pred (N, J), corr_pos (N, H, W, 2) and
-depth (N, K, H, W).  Training (ROADMAP A7), MULTITEST and the other tasks
-(ROADMAP A11) raise.
+Inputs are NCHW tensors.  In eval mode the forward returns the output
+dict: heatmap_pred (N, J, H, W), batch_locs (N, J, 2), score_pred (N, J),
+corr_pos (N, H, W, 2) and depth (N, K, H, W).  In training mode it returns
+what the JAX builder returns with is_train=True: (loss_dict, metric_dict,
+out), with the total under loss_dict['loss'].  Training runs the two views
+as two passes (sibling on the other view first, then the reference, so
+that shared BN statistics move twice, as in flax), with batch-statistics
+BN and no peak decode.  MULTITEST and the other tasks (ROADMAP A11) and the
+reprojection loss (ROADMAP A10) raise.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch import nn
 
 from epipolar_transformers_tpu.config import Config
 
+from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
 from .registry import build_backbone
 
 
@@ -40,6 +46,12 @@ class ModelBuilder(nn.Module):
             self.backbone = build_backbone(
                 cfg.replace(BACKBONE=cfg.BACKBONE.replace(BODY=single)))
 
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's initial weights, drawn from `generator`."""
+        self.reference.init_weights(generator)
+        if not self.cfg.EPIPOLAR.SHARE_WEIGHTS:
+            self.backbone.init_weights(generator)
+
     @property
     def sibling(self) -> nn.Module:
         """The other view's backbone (the reference itself when shared)."""
@@ -52,14 +64,54 @@ class ModelBuilder(nn.Module):
         return (not self.training and c.EPIPOLAR.SHARE_WEIGHTS
                 and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _heatmap_loss(self, heatmaps, scoremap, vis) -> Dict[str, torch.Tensor]:
+        """The loss keyed by KEYPOINT.LOSS (JAX builder `_heatmap_loss`)."""
+        k = self.cfg.KEYPOINT
+        if k.LOSS == "joint":
+            return {"stage_loss0": joints_mse_loss(heatmaps[0], scoremap, vis,
+                                                   per_joint_sum=k.LOSS_PER_JOINT)}
+        if k.LOSS == "smoothmse":
+            return {"stage_loss0": keypoints_mse_smooth_loss(heatmaps[0], scoremap, vis)}
+        _, stage_losses = compute_stage_loss(heatmaps, scoremap)
+        return {f"stage_loss{i}": v for i, v in enumerate(stage_losses)}
+
+    def _train_forward(self, inputs: Dict[str, torch.Tensor]):
+        c = self.cfg
+        if c.EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0:
+            raise NotImplementedError(
+                "EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0: the reprojection loss is ROADMAP A10")
+        other_features = self.sibling.trunk_features(inputs["other_img"])
+        if not c.EPIPOLAR.OTHER_GRAD:
+            other_features = other_features.detach()
+        bb = self.reference(inputs["img"], other_features=other_features,
+                            other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
+                            decode_peaks=False)
+        loss_dict = {}
+        if "heatmap" in inputs:
+            loss_dict = self._heatmap_loss(bb.heatmaps, inputs["heatmap"],
+                                           inputs.get("visibility"))
+        out = {"heatmap_pred": bb.heatmaps[-1]}
+        if bb.corr_pos is not None:
+            out["corr_pos"] = bb.corr_pos
+            out["depth"] = bb.depth
+        # total loss (reference model.py:478-484)
+        if len(loss_dict) > 1:
+            loss_dict["loss"] = sum(loss_dict.values())
+        elif len(loss_dict) == 1:
+            loss_dict = {"loss": next(iter(loss_dict.values()))}
+        return loss_dict, {}, out
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
         """
-        Args (inputs dict): img, other_img (N, 3, H, W); KRT, other_KRT (N, 3, 4).
-        Returns the eval output dict.
+        Args (inputs dict): img, other_img (N, 3, H, W); KRT, other_KRT
+            (N, 3, 4); in training also heatmap (N, J, h, w) and visibility
+            (N, J).
+        Returns the eval output dict, or in training (loss_dict,
+        metric_dict, out).
         """
         c = self.cfg
         if self.training:
-            raise NotImplementedError("training the port is ROADMAP A7")
+            return self._train_forward(inputs)
         if c.EPIPOLAR.MULTITEST:
             raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11")
         if self._can_fuse_trunks():

@@ -7,14 +7,23 @@ points along its epipolar line in the other view, fuse the weighted source
 features, then project through the 1x1 conv `z` + zero-init BN and
 optionally add residually.
 
-Sample locations come from ops/epipolar_sampling.py in float32; the
-attention is ops/epipolar_attention_cuda.py (the CUDA kernel on the card,
-its plain twin on the CPU).  On the card the features are channels_last,
-so their (N, H, W, C) views, which the kernel reads, need no copy.
+Sample locations come from ops/epipolar_sampling.py in float32, without
+gradient; the attention is ops/epipolar_attention_cuda.py (the CUDA kernels
+on the card, forward and backward, its plain twin under autograd on the
+CPU).  On the card the features are channels_last, so their (N, H, W, C)
+views, which the kernels read, need no copy.
 
-Not yet ported: the learned per-pair prior table (ROADMAP A10), the other
+Training (counterpart of the JAX layer with train=True): gradients reach
+the query features, and the key and value features as EPIPOLAR.OTHER_GRAD
+says.  ATTENTION_IMPL 'pallas' is forward-only in the JAX package and raises
+under training here too; 'auto' trains through the kernels.  ATTENTION_REMAT
+'full', 'dots' and 'none' are accepted and identical: the kernel backward
+keeps only its inputs and recomputes the rest, which is what 'full' asks
+for.  'dots_bf16' raises (it would change forward values under f32).
+
+Not yet ported: the learned per-pair prior table (ROADMAP A10) and the other
 attention configs (cos/max, pooling, FIND_CORR='rgb', theta/phi/g;
-ROADMAP A10) and training (ROADMAP A7).  Each raises.
+ROADMAP A10).  Each raises.
 """
 
 from __future__ import annotations
@@ -62,6 +71,22 @@ class Epipolar(nn.Module):
             self.z = Conv2d(nfeats, nfeats, 1, bias=True, dtype=compute_dtype(cfg))
             self.bn = ZeroInitBatchNorm(nfeats, momentum=bn_momentum(cfg))
 
+    def _check_trainable(self) -> None:
+        """Refuse, as the JAX layer does, what has no training path."""
+        e = self.cfg.EPIPOLAR
+        if e.ATTENTION_IMPL == "pallas":
+            raise ValueError(
+                "EPIPOLAR.ATTENTION_IMPL='pallas' is forward-only in the JAX package "
+                "(models/epipolar.py:250); train with 'auto', which runs the CUDA "
+                "kernel backward")
+        if e.ATTENTION_REMAT == "dots_bf16":
+            raise NotImplementedError(
+                "EPIPOLAR.ATTENTION_REMAT='dots_bf16' changes forward values under "
+                "f32 (ROADMAP C-traps); use 'full', 'dots' or 'none'")
+        if e.ATTENTION_REMAT not in ("full", "dots", "none"):
+            raise ValueError(f"EPIPOLAR.ATTENTION_REMAT={e.ATTENTION_REMAT!r}: "
+                             "expected 'full' | 'dots' | 'dots_bf16' | 'none'")
+
     @property
     def geometry(self) -> EpipolarGeometry:
         c = self.cfg
@@ -98,10 +123,9 @@ class Epipolar(nn.Module):
             (fused (N, C, H, W), corr_pos (N, H, W, 2), depth (N, K, H, W),
              sample_locs (N, K, H, W, 2))
         """
-        if self.training:
-            raise NotImplementedError(
-                "training the epipolar layer is ROADMAP A7 (the kernel is forward-only)")
         e = self.cfg.EPIPOLAR
+        if self.training:
+            self._check_trainable()
         # key/value selection + detach semantics (reference epipolar.py:134-157)
         other1 = feat2 if "other1" in e.OTHER_GRAD else feat2.detach()
         other2 = feat2 if "other2" in e.OTHER_GRAD else feat2.detach()

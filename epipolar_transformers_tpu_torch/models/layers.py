@@ -9,6 +9,11 @@ bfloat16 input with its float32 parameters).
 ZeroInitBatchNorm is the reference's `zeroinitBN` (modeling/layers/BN.py:
 12-101): affine weight AND bias start at zero, so the epipolar fusion
 branch starts as an exact identity under the residual add.
+
+In training, BatchNorm follows flax's `nn.BatchNorm`, not torch's: both
+normalize with the biased batch variance, but flax also moves the running
+variance with the biased one where torch uses the unbiased one (a factor
+n / (n - 1): 8/7 for a 1x1 map at batch 8).
 """
 
 from __future__ import annotations
@@ -58,10 +63,21 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` that normalizes in float32 and returns float32."""
+    """`nn.BatchNorm2d` that normalizes in float32 and returns float32, and
+    in training moves its running statistics as flax does: with the biased
+    batch variance, `running = (1 - momentum) running + momentum batch`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return out
 
 
 class ZeroInitBatchNorm(BatchNorm2d):

@@ -6,6 +6,11 @@ conv of a Bottleneck), 3 deconv layers (256 ch, 4x4, stride 2) + BN + ReLU,
 a 1x1 heatmap head, the epipolar fusion after the deconvs (MERGE='late')
 merged as `fused + feat`, and the soft-argmax decode.
 
+`init_weights(generator)` draws the JAX package's initial weights from an
+explicit generator: He (fan-out) truncated normal for the trunk convs,
+N(0, 0.001) for the deconvs and the heatmap head, LeCun truncated normal
+for the epipolar `z`, zero biases, unit BN (zero for the zero-init BN).
+
 Child names are the reference's (conv1, bn1, layerX.N.convK/bnK,
 downsample.{0,1}, deconv_layers.{0,1,3,4,6,7}, final_layer,
 epipolar_sampler.{z,bn}), so a reference state dict loads with strict=True.
@@ -23,7 +28,8 @@ from epipolar_transformers_tpu.config import Config
 
 from ..ops.soft_argmax import find_tensor_peak_batch
 from .epipolar import Epipolar
-from .layers import BatchNorm2d, Conv2d, ConvTranspose2d, bn_momentum, compute_dtype
+from .layers import (BatchNorm2d, Conv2d, ConvTranspose2d, ZeroInitBatchNorm, bn_momentum,
+                     compute_dtype)
 
 # block type ('basic'|'bottleneck') and per-stage block counts
 RESNET_SPEC = {
@@ -33,6 +39,18 @@ RESNET_SPEC = {
     "101": ("bottleneck", (3, 4, 23, 3)),
     "152": ("bottleneck", (3, 8, 36, 3)),
 }
+
+
+def _truncated_normal_(t: torch.Tensor, scale: float, fan: int, gen: torch.Generator):
+    """flax `variance_scaling(scale, fan, 'truncated_normal')`: a normal cut
+    at two standard deviations, rescaled to variance scale / fan."""
+    std = (scale / fan) ** 0.5 / 0.87962566103423978
+    t.copy_(nn.init.trunc_normal_(torch.empty(t.shape), 0.0, std, -2 * std, 2 * std,
+                                  generator=gen))
+
+
+def _normal_(t: torch.Tensor, std: float, gen: torch.Generator):
+    t.copy_(torch.randn(t.shape, generator=gen) * std)
 
 
 class BackboneOutput(NamedTuple):
@@ -136,6 +154,29 @@ class PoseResNet(nn.Module):
                     f"EPIPOLAR.MERGE={c.EPIPOLAR.MERGE!r} is ROADMAP A10 (the port "
                     "merges 'late')")
             self.epipolar_sampler = Epipolar(c)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's initializers (models/resnet.py, models/epipolar.py
+        there), drawn from `generator` on the CPU in module order."""
+        head = {id(m) for m in self.deconv_layers.modules()} | {id(self.final_layer)}
+        z = getattr(getattr(self, "epipolar_sampler", None), "z", None)
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                value = 0.0 if isinstance(m, ZeroInitBatchNorm) else 1.0
+                m.weight.fill_(value)
+                m.bias.zero_()
+                m.reset_running_stats()
+            elif isinstance(m, (Conv2d, ConvTranspose2d)):
+                if id(m) in head:
+                    _normal_(m.weight, 0.001, generator)
+                elif m is z:
+                    _truncated_normal_(m.weight, 1.0, m.weight[0].numel(), generator)
+                else:
+                    _truncated_normal_(m.weight, 2.0, m.weight.shape[0] * m.weight[0, 0].numel(),
+                                       generator)
+                if m.bias is not None:
+                    m.bias.zero_()
 
     def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
         """Trunk + deconv, with no epipolar merge: the shared prefix of the

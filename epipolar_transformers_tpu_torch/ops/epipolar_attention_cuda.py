@@ -1,24 +1,31 @@
-"""Fused epipolar attention: the hand-written Hopper kernel and its plain twin.
+"""Fused epipolar attention: the hand-written Hopper kernels and their plain twin.
 
 Counterpart of epipolar_transformers_tpu/ops/epipolar_attention_pallas.py
 (`_make_kernel`, launched by `_pallas_attention`, wrapper
-`epipolar_attention_pallas_batch`).  The CUDA kernel in
+`epipolar_attention_pallas_batch`).  The CUDA forward in
 csrc/epipolar_attention.cu computes what the TPU kernel and the two XLA
 matmuls around it compute together: from the query, key and value features
 and the sample locations straight to `out` and `depth`, without the
-(HW, HW) Gram matrix or weight matrix ever reaching memory.  Its source
-note says what bounds it and what the design does about that.
+(HW, HW) Gram matrix or weight matrix ever reaching memory.  The CUDA
+backward in the same file has no TPU counterpart (the JAX package trains by
+`jax.grad` of its XLA matmul path) and is held to autograd of the plain
+twin.  The source note says what bounds each and what the design does
+about that.
 
 `epipolar_attention_batch` is the wrapper the model calls: on CPU tensors
-it runs the plain PyTorch version, on CUDA tensors it launches the kernel
-(and counts the launch in `LAUNCHES`) or raises.  `epipolar_attention_plain_batch`
-is the plain version on any device: the Gram + corner-gather form with
-`torch.matmul`, mirroring the JAX math; the CPU tests hold it to the JAX
-kernel and the chip check holds the kernel to it.
+it runs the plain PyTorch version, differentiated by autograd; on CUDA
+tensors it runs `EpipolarAttentionFn`, whose forward launches the forward
+kernel (counted in `LAUNCHES`) and whose backward launches the backward
+kernel (counted in `BACKWARD_LAUNCHES`), or raises.
+`epipolar_attention_plain_batch` is the plain version on any device: the
+Gram + corner-gather form with `torch.matmul`, mirroring the JAX math; the
+CPU tests hold it to the JAX kernel and to `jax.grad` of the matmul path,
+and the chip check holds both kernels to it.
 
 Coverage is the TPU kernel's (`supports_pallas_attention`): avg attention
 over dot or prior similarity, softmax on or off, an additive prior or
-`priormul`, no sample pooling.  Forward only.
+`priormul`, no sample pooling.  A prior that needs a gradient (the learned
+prior table) is ROADMAP A10 and raises.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from ..geometry.camera import denormalize_pixel
 from .epipolar_attention import NEG_INF, AttentionParams
 from .quad_gather import axis_slot_weights
 
-# kernel launches made by `epipolar_attention_batch` in this process
+# kernel launches made by `epipolar_attention_batch` in this process:
+# forward kernels, and backward kernels run by autograd
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 KERNEL_CHANNELS = (32, 64, 128, 256)
 
@@ -128,9 +137,9 @@ def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
     return out, w.permute(0, 2, 1).contiguous()
 
 
-def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
-    """Launch csrc/epipolar_attention.cu on the current stream."""
-    global LAUNCHES
+def _kernel_args(f1, f2k, f2v, locs, prior, params):
+    """Check the inputs against what the kernels take; returns the library
+    and the (pointers, sizes, flags) the C entry points share."""
     from ._build import load_library
 
     B, K, HW, _ = locs.shape
@@ -148,25 +157,100 @@ def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
             raise ValueError("all attention inputs must lie on one CUDA device")
         if t.data_ptr() % 16:
             raise ValueError("the CUDA kernel needs 16-byte aligned inputs")
+    pointers = [f1.data_ptr(), f2k.data_ptr(), f2v.data_ptr(), locs.data_ptr(),
+                None if prior is None else prior.data_ptr()]
+    flags = [float(params.softmax_scale), int(params.similarity != "prior"),
+             int(params.softmax_enabled), int(params.priormul)]
+    return lib, pointers, flags
+
+
+def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
+    """Launch the forward kernel of csrc/epipolar_attention.cu on the
+    current stream."""
+    global LAUNCHES
+    lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
+    B, K, HW, _ = locs.shape
+    C = f1.shape[-1]
     out = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
     depth = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device)
     fn = lib.epipolar_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(
-        f1.data_ptr(), f2k.data_ptr(), f2v.data_ptr(), locs.data_ptr(),
-        None if prior is None else prior.data_ptr(),
-        out.data_ptr(), depth.data_ptr(),
-        B, H, W, K, C, int(f1.dtype == torch.bfloat16),
-        float(params.softmax_scale), int(params.similarity != "prior"),
-        int(params.softmax_enabled), int(params.priormul),
-        torch.cuda.current_stream(f1.device).cuda_stream,
-    )
+    err = fn(*pointers, out.data_ptr(), depth.data_ptr(),
+             B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
+             torch.cuda.current_stream(f1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"epipolar_attention_forward failed: CUDA error {err}")
     LAUNCHES += 1
     return out, depth
+
+
+def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
+                     need_keys: bool, need_values: bool):
+    """Launch the backward kernel of csrc/epipolar_attention.cu on the
+    current stream.  Returns f32 (dfeat1, dother1 or None, dother2 or None);
+    the key/value gradients are zeroed buffers the kernel adds into."""
+    global BACKWARD_LAUNCHES
+    lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
+    B, K, HW, _ = locs.shape
+    C = f1.shape[-1]
+    dout = dout.to(torch.float32).contiguous()
+    dfeat1 = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
+    dother1 = torch.zeros_like(dfeat1) if need_keys else None
+    dother2 = torch.zeros_like(dfeat1) if need_values else None
+    fn = lib.epipolar_attention_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(),
+             None if dother1 is None else dother1.data_ptr(),
+             None if dother2 is None else dother2.data_ptr(),
+             B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
+             torch.cuda.current_stream(f1.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"epipolar_attention_backward failed: CUDA error {err}")
+    BACKWARD_LAUNCHES += 1
+    return dfeat1, dother1, dother2
+
+
+class EpipolarAttentionFn(torch.autograd.Function):
+    """The CUDA kernels under autograd: (f1, f2k, f2v) (B, HW, C), locs
+    (B, K, HW, 2) and prior (B, K, HW) or None -> out (B, HW, C) f32 and
+    depth (B, K, HW) f32.
+
+    The backward keeps only the inputs: it recomputes the slot data and the
+    similarities rather than storing any (B, HW, K) intermediate.  Gradients
+    flow to the three features; the key and value gradients are computed
+    only when autograd asks for them (under OTHER_GRAD both are the same
+    tensor, and autograd sums them).  `depth` and the locations carry none.
+    """
+
+    @staticmethod
+    def forward(ctx, f1, f2k, f2v, locs, prior, H, W, params):
+        if prior is not None and prior.requires_grad:
+            raise NotImplementedError(
+                "a prior that needs a gradient (the learned EPIPOLAR.PRIOR table) is "
+                "ROADMAP A10; the kernel backward treats the prior as a constant")
+        out, depth = _kernel_core(f1, f2k, f2v, locs, prior, H, W, params)
+        ctx.save_for_backward(f1, f2k, f2v, locs, prior)
+        ctx.geometry = (H, W, params)
+        ctx.mark_non_differentiable(depth)
+        return out, depth
+
+    @staticmethod
+    def backward(ctx, dout, _ddepth):
+        f1, f2k, f2v, locs, prior = ctx.saved_tensors
+        H, W, params = ctx.geometry
+        dfeat1, dother1, dother2 = _kernel_backward(
+            f1, f2k, f2v, locs, prior, dout, H, W, params,
+            need_keys=ctx.needs_input_grad[1], need_values=ctx.needs_input_grad[2])
+
+        def cast(g, like):
+            return None if g is None else g.to(like.dtype)
+
+        return (cast(dfeat1, f1), cast(dother1, f2k), cast(dother2, f2v),
+                None, None, None, None, None)
 
 
 def _run(core, feat1, other1, other2, sample_locs, params, prior):
@@ -200,12 +284,13 @@ def epipolar_attention_batch(feat1, other1, other2, sample_locs,
         out (B, H, W, Cv) in other2's dtype, corr_pos (B, H, W, 2),
         depth (B, K, H, W) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version (differentiated by autograd); CUDA
+    tensors launch the forward kernel, and autograd the backward kernel.
     """
     if feat1.device.type == "cpu":
         core = _plain_core
     elif feat1.device.type == "cuda":
-        core = _kernel_core
+        core = EpipolarAttentionFn.apply
         # the kernel reads (B, H, W, C) rows in place: a channels_last
         # (B, C, H, W) activation permuted to NHWC is contiguous; anything
         # else would be copied on every call, so refuse it

@@ -2,7 +2,9 @@
 
 `load_jax_variables(module, variables)` takes the JAX package's
 {'params', 'batch_stats'} tree (numpy arrays) and fills the port module's
-state dict with strict=True.  It inverts the torch -> flax import of
+state dict with strict=True; `jax_state_dict` is the same conversion
+without loading, so that a JAX tree after a train step (or a tree of
+gradients in place of 'params') can be compared with the port's state.  It inverts the torch -> flax import of
 epipolar_transformers_tpu.utils.torch_import (imported, not copied; it is
 JAX-free): each port key goes through `torch_key_to_flax_path`, then the
 leaf conversion is undone:
@@ -57,9 +59,11 @@ def _lookup(tree, path):
     return node
 
 
-def load_jax_variables(module: torch.nn.Module, variables) -> Set[Tuple[str, ...]]:
-    """Fill `module` from the JAX variables tree; returns the set of
-    (collection, *path) JAX leaves that were used."""
+def jax_state_dict(module: torch.nn.Module, variables
+                   ) -> Tuple[Dict[str, torch.Tensor], Set[Tuple[str, ...]]]:
+    """The JAX variables tree as `module`'s state dict (port key -> tensor
+    in the port's layout and dtype), and the set of (collection, *path) JAX
+    leaves that were used."""
     state = module.state_dict()
     new_state: Dict[str, torch.Tensor] = {}
     used = set()
@@ -77,6 +81,13 @@ def load_jax_variables(module: torch.nn.Module, variables) -> Set[Tuple[str, ...
             raise ValueError(f"{key}: JAX leaf shape {value.shape} != port {tuple(current.shape)}")
         new_state[key] = torch.from_numpy(np.array(value, dtype=np.float32)).to(current.dtype)
         used.add((coll,) + path)
+    return new_state, used
+
+
+def load_jax_variables(module: torch.nn.Module, variables) -> Set[Tuple[str, ...]]:
+    """Fill `module` from the JAX variables tree; returns the set of
+    (collection, *path) JAX leaves that were used."""
+    new_state, used = jax_state_dict(module, variables)
     module.load_state_dict(new_state, strict=True)
     return used
 

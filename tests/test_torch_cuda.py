@@ -1,15 +1,18 @@
-"""The CUDA epipolar-attention kernel == its plain PyTorch version, on the card.
+"""The CUDA epipolar-attention kernels == their plain PyTorch version, on the card.
 
 Marked `cuda`: each test skips where torch sees no GPU.  On the card (which
 has no JAX, so the suite's conftest is skipped):
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Covers what chip_smoke.py does not: every channel width the kernel takes,
-sample counts that are not a multiple of the warp (1, 33, 128), and the
-wrapper's checks.  Tolerance f32 rtol 1e-4 / atol 1e-5 (summation order
+Covers what chip_smoke.py does not: every channel width the kernels take,
+sample counts that are not a multiple of the warp (1, 17, 33, 128), and the
+wrapper's checks.  The forward: f32 rtol 1e-4 / atol 1e-5 (summation order
 only, TF32 off); bf16 rtol = atol = 5e-2 (the plain version rounds the Gram
-and weight matrices to bf16).
+and weight matrices to bf16).  The backward kernel against autograd of the
+plain version: f32 rtol 1e-4 / atol 1e-5 x the gradient's max (summation
+order, and the scatter's atomics add in a run-dependent order); bf16
+rtol 5e-2 / atol 5e-2 x max.
 """
 
 import pytest
@@ -87,3 +90,70 @@ def test_wrapper_checks(device):
     _, locs, _ = _inputs(device, 1, 8, 8, 129, 64, torch.float32)
     with pytest.raises(ValueError, match="samples"):
         attn.epipolar_attention_batch(*feats, locs, params)
+
+
+def _grads(fn, feats, locs, params, prior, need_kv=True, seed=1):
+    """Gradients of sum(out * r) for a fixed random r with respect to the
+    query features and (need_kv) the key and value features."""
+    leaves = [t.detach().clone().requires_grad_(i == 0 or need_kv)
+              for i, t in enumerate(feats)]
+    out, _, _ = fn(*leaves, locs, params, prior)
+    g = torch.Generator(device=out.device).manual_seed(seed)
+    r = torch.randn(out.shape, device=out.device, generator=g)
+    (out.float() * r).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def _assert_grads_close(got, want, dtype):
+    scale = 1e-5 if dtype == torch.float32 else 5e-2
+    rtol = 1e-4 if dtype == torch.float32 else 5e-2
+    for name, a, b in zip(("dfeat1", "dother1", "dother2"), got, want):
+        if b is None:
+            # the plain version never reads the queries under similarity
+            # 'prior', so autograd gives None where the kernel gives zeros
+            assert a is None or a.abs().max().item() == 0.0, name
+            continue
+        atol = scale * max(float(b.float().abs().max()), 1e-30)
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("K", [1, 17, 128])
+@pytest.mark.parametrize("dt,name,kw,use_prior", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_backward_matches_plain_autograd(device, C, K, dt, name, kw, use_prior):
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, locs, prior = _inputs(device, 2, 12, 10, K, C, dtype)
+    params = AttentionParams(softmax_scale=K ** -0.5, **kw)
+    prior = prior if use_prior else None
+    before = attn.BACKWARD_LAUNCHES
+    got = _grads(attn.epipolar_attention_batch, feats, locs, params, prior)
+    assert attn.BACKWARD_LAUNCHES == before + 1
+    want = _grads(attn.epipolar_attention_plain_batch, feats, locs, params, prior)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_backward_detached_keys_values(device, dt):
+    """OTHER_GRAD=(): only the query gradient is asked for and computed."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, locs, _ = _inputs(device, 2, 16, 16, 64, 256, dtype)
+    params = AttentionParams(softmax_scale=0.125)
+    got = _grads(attn.epipolar_attention_batch, feats, locs, params, None, need_kv=False)
+    want = _grads(attn.epipolar_attention_plain_batch, feats, locs, params, None, need_kv=False)
+    assert got[1] is None and got[2] is None
+    _assert_grads_close(got, want, dtype)
+
+
+def test_backward_all_out_of_range_is_exactly_zero(device):
+    feats, locs, _ = _inputs(device, 2, 8, 8, 16, 64, torch.float32)
+    grads = _grads(attn.epipolar_attention_batch, feats, torch.full_like(locs, -9.0),
+                   AttentionParams(softmax_scale=0.25), None)
+    for g in grads:
+        assert g.abs().max().item() == 0.0
+
+
+def test_backward_rejects_a_prior_that_needs_grad(device):
+    feats, locs, prior = _inputs(device, 1, 8, 8, 4, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="A10"):
+        attn.epipolar_attention_batch(*feats, locs, AttentionParams(softmax_scale=0.5),
+                                      prior.requires_grad_())

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor flax.
 
 A fresh interpreter with `sys.modules['jax'] = sys.modules['flax'] = None`
-(so any import of either raises) imports every module of the port and runs
-the tiny flagship slice on the CPU through `engine.tester.predict`.
+(so any import of either raises) imports every module of the port, runs
+the tiny flagship slice on the CPU through `engine.tester.predict`, and
+one tiny train step through `engine.trainer.train`.
 """
 
 import os
@@ -31,6 +32,11 @@ assert len(outs) == 2
 for out in outs:
     assert out["heatmap_pred"].shape == (4, 5, 8, 8), out["heatmap_pred"].shape
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
+import tempfile
+from epipolar_transformers_tpu_torch.engine.trainer import train
+with tempfile.TemporaryDirectory() as out_dir:
+    model, optimizer = train(cfg.replace(OUTPUT_DIR=out_dir), max_steps=1)
+assert optimizer.count == 1 and all(bool(torch.isfinite(p).all()) for p in model.parameters())
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax"))
 assert not loaded, loaded

@@ -14,6 +14,7 @@ depth 1e-4.
 
 import numpy as np
 import pytest
+import torch
 import jax
 import jax.numpy as jnp
 
@@ -22,7 +23,7 @@ from epipolar_transformers_tpu.models import ModelBuilder as JModelBuilder
 from epipolar_transformers_tpu_torch.config import flagship_cfg
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
 from epipolar_transformers_tpu_torch.data.pipeline import eval_batches
-from epipolar_transformers_tpu_torch.engine.tester import predict
+from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, predict, to_model_inputs
 from epipolar_transformers_tpu_torch.models import ModelBuilder
 from epipolar_transformers_tpu_torch.utils.jax_import import load_jax_variables
 from test_torch_resnet import (assert_heatmaps_close, flatten_variables, randomize_variables,
@@ -125,6 +126,20 @@ def test_unported_configs_raise(override, match):
 
 
 def test_training_raises():
-    model = ModelBuilder(flagship_cfg(tiny=True)).train()
-    with pytest.raises(NotImplementedError, match="A7"):
-        model({})
+    """What has no training path raises in train mode: the forward-only
+    'pallas' impl (as in the JAX layer) and 'dots_bf16' remat (C-traps)."""
+    from epipolar_transformers_tpu_torch.config import update_from_dict
+
+    ds = SyntheticMultiview(flagship_cfg(tiny=True), is_train=False, n_samples=1)
+    group = {k: v[0] for k, v in next(eval_batches(ds)).items()}
+    inputs = to_model_inputs(group, "cpu", TRAIN_KEYS)
+    for override, error, match in (
+        ({"ATTENTION_IMPL": "pallas"}, ValueError, "forward-only"),
+        ({"ATTENTION_REMAT": "dots_bf16"}, NotImplementedError, "dots_bf16"),
+    ):
+        cfg = update_from_dict(flagship_cfg(tiny=True), {"EPIPOLAR": override})
+        model = ModelBuilder(cfg)
+        with torch.no_grad():
+            model.eval()(inputs)  # eval is unaffected
+        with pytest.raises(error, match=match):
+            model.train()(inputs)
