@@ -23,11 +23,13 @@ run, each printed on its own lines:
   4. times with CUDA events after warm-up, in turns, kernel path against
      plain path, before any training: the attention forward alone and the
      slice forward at batch 8;
-  5. the CUDA backward kernel (through the autograd Function) against
+  5. the CUDA backward kernels (through the autograd Function) against
      autograd of the plain version, at the flagship attention shape: f32
-     with gradients to queries, keys and values, detached keys and values,
-     bf16, edge-crossing locations, all out of range (exactly zero), then
-     priors, priormul and softmax off at the smaller shape;
+     with gradients to queries, keys and values, keys = values one tensor
+     (as the model has them), detached keys and values, bf16, edge-crossing
+     locations, all out of range (exactly zero), then priors, priormul and
+     softmax off at the smaller shape; and two runs bit-equal (the backward
+     sums in a fixed order);
   6. the training slice: `engine.trainer.train` on the flagship config for
      TRAIN_STEPS steps of batch 8 (finite loss every step, one forward and
      one backward kernel launch per step), a checkpoint and its resume, then
@@ -35,12 +37,17 @@ run, each printed on its own lines:
      weights: under bf16 convolutions the loss and the whole-model gradient
      are compared, under f32 convolutions every parameter's gradient;
   4. (continued) times as above: the attention backward alone (with and
-     without the key/value scatter) and the train step at batch 8, and the
-     peak memory of a train step on each path.
+     without the key/value gradients) and the train step at batch 8, and
+     the peak memory of a train step on each path.
 
 The line before the card line is a JSON object with both kernels'
-launches, errors and times; the last line is {"ok": true, "device": {...}}.
-Any failed check raises.
+launches, errors and times, and each kernel's bound: the larger of its
+operations over the f32 rate outside the tensor cores and its bytes (each
+input read once, each output written once) over the memory rate, counted
+from this run's inputs.  No single PyTorch call computes either kernel's
+function, so `library_ms` is null.  Before the last line the script checks
+that nothing of the JAX package was imported; the last line is
+{"ok": true, "device": {...}}.  Any failed check raises.
 """
 
 from __future__ import annotations
@@ -71,19 +78,17 @@ BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 SLICE_HEATMAP_TOL = dict(rtol=2e-2, atol=2e-2)
 MIN_AGREEMENT = 0.99
 # gradients, kernel against autograd of the plain version: f32 differs in
-# summation order (and the scatter's atomics add in a run-dependent order);
-# bf16 as the forward, the plain version rounding G and n to bf16.  The atol
-# is relative to each gradient's max.
+# summation order; bf16 as the forward, the plain version rounding G and n
+# to bf16.  The atol is relative to each gradient's max.
 GRAD_F32_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 # one train step, kernel path against plain path from the same weights:
 # the loss, and under f32 convolutions each parameter gradient's relative L2
-# error.  Under bf16 convolutions any f32-level difference (the backward's
-# atomics add in a run-dependent order) is amplified through the trunk:
-# either path against itself differs by ~0.013-0.015 over the whole model
-# and up to ~0.03 on single parameters, so bf16 holds the whole-model error
-# within STEP_BF16_NOISE_FACTOR times the kernel path's own spread in the
-# same run, and never below STEP_GRAD_REL_L2
+# error.  Under bf16 convolutions any f32-level difference (summation order,
+# a cuDNN algorithm choice) is amplified through the trunk: single
+# parameters differ by up to ~0.03 between the paths, so bf16 holds the
+# whole-model error within STEP_BF16_NOISE_FACTOR times the kernel path's
+# own spread in the same run, and never below STEP_GRAD_REL_L2
 STEP_LOSS_RTOL = 2e-2
 STEP_GRAD_REL_L2 = 2e-2
 STEP_BF16_NOISE_FACTOR = 1.5
@@ -93,6 +98,9 @@ ZERO_GRAD_PARAMS = ("reference.epipolar_sampler.z.bias",)
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
+# published H100 SXM peaks: f32 outside the tensor cores, HBM
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -385,11 +393,27 @@ def backward_phase(cfg, device):
             + ("" if need_kv else " (dfeat1 only; key/value gradients not computed)"))
         return err
 
+    def kv_grads(fn, f):
+        """Gradients with keys = values one tensor, as the model has them."""
+        f1, f2 = f[0].clone().requires_grad_(), f[1].clone().requires_grad_()
+        out = fn(f1, f2, f2, rig, flagship)[0]
+        r = torch.randn(out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED + 1))
+        return torch.autograd.grad((out.float() * r).sum(), (f1, f2))
+
     flagship = AttentionParams(softmax_scale=cfg.EPIPOLAR.SOFTMAXSCALE)
     rig = rig_sample_locs(cfg, B, device)
     rand_locs = torch.rand(B, K, H, W, 2, device=device, generator=gen) * 2.6 - 1.3
     f32 = feats(B, H, W, C, torch.float32)
     err = check("f32 rig locs, OTHER_GRAD (flagship shape)", f32, rig, flagship)
+    got, again = kv_grads(attn.epipolar_attention_batch, f32), \
+        kv_grads(attn.epipolar_attention_batch, f32)
+    e_kv = close_grads("f32 keys = values one tensor", got,
+                       kv_grads(attn.epipolar_attention_plain_batch, f32), **GRAD_F32_TOL)
+    err = max(err, e_kv)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two backward runs on the same inputs differ")
+    log(f"  f32 keys = values one tensor: max abs err {e_kv:.3g}; two runs bit-equal")
     check("f32 detached keys and values", f32, rig, flagship, need_kv=False)
     check("bf16 rig locs", feats(B, H, W, C, torch.bfloat16), rig, flagship, tol=GRAD_BF16_TOL)
     check("f32 edge-crossing locs", f32, rand_locs, flagship)
@@ -446,7 +470,7 @@ def train_phase(cfg, device):
                                       "TENSORBOARD": {"USE": False}})
         attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
         t0 = time.perf_counter()
-        model, optimizer = trainer.train(tcfg, max_steps=TRAIN_STEPS)
+        model, optimizer = trainer.train(tcfg, max_steps=TRAIN_STEPS, device=device)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
@@ -465,7 +489,7 @@ def train_phase(cfg, device):
 
         Checkpointer(out_dir).save("model_000", model, optimizer, epoch=1)
         resumed, resumed_opt = trainer.train(
-            tcfg.replace(SOLVER=tcfg.SOLVER.replace(MAX_EPOCHS=1)))
+            tcfg.replace(SOLVER=tcfg.SOLVER.replace(MAX_EPOCHS=1)), device=device)
         if resumed_opt.count != TRAIN_STEPS or attn.BACKWARD_LAUNCHES != backward_launches:
             raise AssertionError(f"resume: {resumed_opt.count} optimizer steps restored, "
                                  f"{attn.BACKWARD_LAUNCHES - backward_launches} new steps")
@@ -491,9 +515,10 @@ def train_phase(cfg, device):
 
 
 def step_parity(cfg, device, per_param: bool):
-    """One train step's loss and gradients on the kernel path (twice: the
-    backward's atomics add in a run-dependent order, which gives the noise
-    floor) and on the plain path, from the same randomized weights.
+    """One train step's loss and gradients on the kernel path (twice, which
+    gives the noise floor of cuDNN's algorithm choices; the attention
+    backward is bit-equal) and on the plain path, from the same randomized
+    weights.
 
     Under bf16 convolutions the loss and the whole model's gradient are
     held, the gradient against the kernel path's own spread; f32
@@ -553,6 +578,32 @@ def step_parity(cfg, device, per_param: bool):
         f"{whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel path against "
         f"itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} parameters")
     return model, batch
+
+
+def bound(feats, locs, backward: bool):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    the attention forward (queries, keys, values) or backward (queries and
+    keys = values one tensor, all gradients) on these f32 inputs.  The
+    operations count every bilinear corner with a non-zero weight at these
+    locations, 2C flops per row it touches: the forward reads each corner
+    row twice (similarity, output), the backward five times (similarity,
+    g, dfeat1, and the key and value gradients).  The bytes read each input
+    once and write each output once."""
+    from epipolar_transformers_tpu_torch.ops.quad_gather import axis_slot_weights
+
+    B, K, H, W, _ = locs.shape
+    C = feats[0].shape[-1]
+    _, wx0, wx1 = axis_slot_weights((locs[..., 0] + 1) / 2 * (W - 1), W)
+    _, wy0, wy1 = axis_slot_weights((locs[..., 1] + 1) / 2 * (H - 1), H)
+    corners = sum(int(((wy * wx) != 0).sum()) for wy in (wy0, wy1) for wx in (wx0, wx1))
+    flops = corners * 2 * C * (5 if backward else 2)
+    feature = B * H * W * C * 4
+    # inputs (features, locations; the backward's dout) and outputs (out and
+    # depth; the backward's dfeat1 and keys' = values' gradient)
+    nbytes = len(feats) * feature + locs.numel() * 4 + (
+        3 * feature if backward else feature + B * K * H * W * 4)
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def peak_step_memory(train_step, plain: bool) -> float:
@@ -633,11 +684,11 @@ def main() -> int:
     log(f"    attention backward alone, B=8 64x64 K=64 C=256 f32, grads to queries and "
         f"keys=values: kernel {kbw_ms:.4f} ms, plain autograd {pbw_ms:.4f} ms"
         + ("  (kernel SLOWER)" if kbw_ms > pbw_ms else ""))
-    # the same without the key/value scatter: what the atomics cost
+    # the same without the key/value gradients: the query pass alone
     kq_ms, pq_ms = in_turns(backward_only(attn.epipolar_attention_batch, need_kv=False),
                             backward_only(attn.epipolar_attention_plain_batch, need_kv=False))
-    log(f"    attention backward, query gradient only (keys and values detached, no "
-        f"scatter): kernel {kq_ms:.4f} ms, plain autograd {pq_ms:.4f} ms")
+    log(f"    attention backward, query gradient only (keys and values detached): "
+        f"kernel {kq_ms:.4f} ms, plain autograd {pq_ms:.4f} ms")
     tk_ms, tp_ms = in_turns(lambda: train_step(False), lambda: train_step(True), iters=10)
     log(f"    train step (forward, backward, adam), batch {BENCH_BATCH}: kernel path "
         f"{tk_ms:.3f} ms, plain path {tp_ms:.3f} ms")
@@ -645,17 +696,27 @@ def main() -> int:
     log(f"    train step peak memory (max_memory_allocated): kernel path {mem_k:.3f} GiB, "
         f"plain path {mem_p:.3f} GiB")
 
+    fwd_bound = bound(f32, rig, backward=False)
+    bwd_bound = bound(f32[:2], rig, backward=True)
+    log(f"    bounds at these inputs: forward {fwd_bound[0]:.4f} ms, backward "
+        f"{bwd_bound[0]:.4f} ms (set by {fwd_bound[1]}, {bwd_bound[1]})")
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
         "replaces": REPLACES, "launches": launches + train_launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        "library_ms": None,
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
         "replaces": BACKWARD_REPLACES, "launches": backward_launches, "max_abs_err": bwd_err,
-        "ms": kbw_ms, "plain_ms": pbw_ms,
+        "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+        "library_ms": None,
     }]}))
+    jax_side = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
+    if jax_side:
+        raise AssertionError(f"the port imported {jax_side[:5]}")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
-"""Configuration: the JAX package's JAX-free config tree, and the flagship.
+"""Configuration: the port's config tree, loader and catalogs, and the flagship.
 
-`Config`, `update_from_dict` and `load_config` are
-epipolar_transformers_tpu.config (frozen dataclasses, no JAX), imported
-rather than copied so that one YAML tree drives both packages.
+`schema`, `loader` and `catalog` are the port's own copies of the JAX
+package's config modules (frozen dataclasses, numpy-free), so that one YAML
+tree drives both packages without the port importing the other.
 `flagship_cfg` is the configuration of `__graft_entry__._flagship_cfg`
-(tests/test_torch_slice.py holds the two equal).
+(tests/test_torch_slice.py holds the two equal, field by field).
 """
 
 from __future__ import annotations
 
-from epipolar_transformers_tpu.config import Config, load_config, update_from_dict
+from .catalog import BackboneCatalog, DatasetCatalog
+from .loader import load_config
+from .schema import Config, update_from_dict
 
-__all__ = ["Config", "load_config", "update_from_dict", "flagship_cfg"]
+__all__ = ["Config", "load_config", "update_from_dict", "flagship_cfg",
+           "BackboneCatalog", "DatasetCatalog"]
 
 
 def flagship_cfg(tiny: bool = False) -> Config:

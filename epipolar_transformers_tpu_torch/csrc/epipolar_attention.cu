@@ -34,37 +34,76 @@
 //             | 0 where sim == 0 exactly (the masked -1e10 is a constant),
 //               and for similarity 'prior'
 //   dfeat1[q]  = sum_k ds[k] sum_c w_c f2k[corner_c]
-//   dother1[corner_c] += ds[k] w_c f1[q]
-//   dother2[corner_c] += w[k]  w_c dout[q]
+//   dother1[r] = sum over entries (q,k,c) with corner_c = r of ds[q,k] w_c f1[q]
+//   dother2[r] = sum over the same entries of w[q,k] w_c dout[q]
 //
 // It recomputes the slot data and the similarities with the forward's rules
 // instead of reading the forward's weights: the zero-sentinel mask and,
 // under priormul with a zero prior, p itself cannot be recovered from w.
 //
-// What bounds them (reckoned from the shapes, not measured): per item the
-// source features are HW x C = 4096 x 256, 2 MiB in bf16 (4 MiB in f32),
-// which for a batch of 8 fits in the 50 MB L2.  Each query reads 4 x K = 256
-// corner rows for the keys and as many for the values: ~256 KiB per query
-// in bf16, ~8 GiB of L2/L1 traffic per batch of 8 x 4096 queries.  So the
-// forward is bound by gather bandwidth, not FLOPs (the Gram form it replaces
-// does ~137 GFLOP of matmul per batch).  The backward gathers the key rows
-// twice and the value rows once, and scatters into the key and value
-// gradients with f32 atomics: 8 x 4096 x 256 x 256 ~ 2.1 G adds each, issued
-// as 16-byte vector atomics (sm_90) where a lane holds 4 or more channels.
-// Those atomics, contended where neighbouring queries share corner rows, are
-// its likely bound.  The design keeps every gathered row a coalesced load and
-// everything else in registers.  Query tiling that reuses corner rows across
-// neighbouring queries (and turns the scatter into per-tile shared-memory
-// reductions), TMA and wgmma are later work.
+// What bounds them (reckoned from the shapes): at the flagship shape (B=8,
+// 64x64, K=64, C=256, f32) the least time is set by the operations, 0.128 ms
+// for the forward (8.6 GFLOP at the 67 TFLOP/s of f32 outside the tensor
+// cores) and 0.32 ms for the backward (21.5 GFLOP); their bytes (159 MB and
+// 252 MB at 3.35 TB/s) take less.  What the kernels really move is gathered
+// rows: each query reads 4 x K = 256 corner rows for the keys and as many for
+// the values, ~17 GB per batch in f32, served from L1 and L2 because rows
+// along neighbouring lines repeat.  So both are bound by gather bandwidth,
+// not FLOPs or HBM (the Gram form the forward replaces does ~137 GFLOP of
+// matmul per batch).  The design keeps every gathered row a coalesced load
+// and everything else in registers.
 //
-// Shape of both kernels: one warp per query pixel.  Lane l holds channels
-// [l*NV, l*NV + NV) of the C = 32*NV channels.  Lane l also owns samples
-// k = l + 32*i and computes their slot data with exactly the rules of
-// quad_gather._axis_slot_weights; the warp walks the samples, broadcasting
-// each sample's slot data with shuffles, and reduces each dot product with
-// a butterfly.  The masked softmax over K runs inside the warp (each lane
-// holds K/32 values).  A second sweep accumulates `out` (forward) or
-// `dfeat1` and the scatters (backward) in f32 registers.
+// The key and value gradients are the transpose of the queries' gathers: a
+// scatter of 2 x 2.1 G adds into corner rows that neighbouring queries
+// share.  Done with float atomics it cost ~10 of 12 ms at the flagship shape
+// on an H100 and summed in a run-dependent order.  Here it is a gather in
+// three passes, with no float atomics and a fixed summation order:
+//
+//   A (query_backward_kernel): one warp per query, as the forward: the sims,
+//     g, w, ds, and dfeat1 in registers; writes ds and w (B, HW, K).
+//   B (tile_histogram_kernel, tile_scan_kernel, row_offset_kernel,
+//     fill_kernel): a CSR map from each key row r to its entries (q, k, c),
+//     kept only where w_c != 0 (a zero-weight corner may lie off the image).
+//     Queries are cut into tiles of kTile; the entries of each (tile, row)
+//     are counted in shared memory, scanned over tiles and then over rows,
+//     and one warp per tile fills its entries in query order, ranking equal
+//     rows within a warp step with __match_any_sync.  The order of a row's
+//     entries is therefore fixed: by tile, query, and step within the query.
+//     Each entry is one int, (q, k, c) packed: 34 MB at the flagship shape,
+//     which fits L2 (three 4-byte arrays, 100 MB, made the fill ~6x slower
+//     on an H100).
+//   C (row_gather_kernel, row_fixup_kernel): one warp per chunk of kChunk
+//     entries, so a row near an epipole that collects entries from most
+//     queries is spread over many warps.  Each lane decodes one entry and
+//     forms its coefficients ds w_c and w w_c from ds, w and the slot data,
+//     as the fill formed w_c; entries of a row that repeat a query (27% at
+//     the flagship rig) are summed first.  The warp gathers f1[q] and
+//     dout[q] rows with kUnroll entries' rows in flight per lane (registers,
+//     not a cp.async ring: the rows are reused from L1/L2 and need no
+//     staging), sums them in f32 registers and writes each row that lies
+//     inside its chunk once.
+//     A row that crosses chunks leaves one partial sum per chunk (at most two
+//     per chunk, its first and its last row); a warp per such row adds them
+//     in chunk order.  Empty rows are written as zeros there too, so no
+//     output is filled beforehand.  When the keys and the values are one
+//     tensor, dother1 + dother2 is summed into one buffer.
+//
+// At the flagship shape on an H100 (f32, keys = values, the synthetic rig's
+// locations) the backward takes ~2.95 ms: A ~1.65, B ~0.28, C ~0.99 ms,
+// against a bound of ~0.26 ms.
+//
+// Two runs on the same inputs give bit-equal gradients.  Scratch (counts,
+// CSR, entries, partials) comes from the caller, sized by
+// epipolar_attention_backward_scratch_bytes.
+//
+// Shape of the per-query kernels: one warp per query pixel.  Lane l holds
+// channels [l*NV, l*NV + NV) of the C = 32*NV channels.  Lane l also owns
+// samples k = l + 32*i and computes their slot data with exactly the rules
+// of quad_gather._axis_slot_weights; the warp walks the samples,
+// broadcasting each sample's slot data with shuffles, and reduces each dot
+// product with a butterfly.  The masked softmax over K runs inside the warp
+// (each lane holds K/32 values).  A second sweep accumulates `out`
+// (forward) or `dfeat1` (backward) in f32 registers.
 //
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
 
@@ -79,6 +118,12 @@ constexpr float kNegInf = -1e10f;  // reference epipolar.py:298
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxSlotsPerLane = 4;  // K <= 128
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 32;          // queries per tile of the CSR fill
+constexpr int kChunk = 512;        // entries per warp of the row gather
+constexpr int kUnroll = 4;         // entries whose rows a lane loads at once
+constexpr int kScanThreads = 1024;
+// the fill keeps one cursor per key row of an item in shared memory
+constexpr int kMaxKeyRows = 227 * 1024 / 4;
 
 // quad_gather._axis_slot_weights: base in [0, size-1]; w0/w1 the weights of
 // the slot-0/slot-1 corners, zero for a corner outside [0, size-1].
@@ -173,27 +218,6 @@ __device__ __forceinline__ void axpy_row(const T* p, float a,
   for (int i = 0; i < NV; ++i) acc[i] = fmaf(a, r[i], acc[i]);
 }
 
-// dst[0:NV] += a * v, with sm_90's 16- and 8-byte vector atomics where the
-// lane's slice allows them (global memory, aligned by the row layout)
-template <int NV>
-__device__ __forceinline__ void atomic_axpy_row(float* dst, float a,
-                                                const float (&v)[NV]) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  if constexpr (NV % 4 == 0) {
-#pragma unroll
-    for (int t = 0; t < NV; t += 4)
-      atomicAdd(reinterpret_cast<float4*>(dst + t),
-                make_float4(a * v[t], a * v[t + 1], a * v[t + 2], a * v[t + 3]));
-    return;
-  } else if constexpr (NV == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a * v[0], a * v[1]));
-    return;
-  }
-#endif
-#pragma unroll
-  for (int t = 0; t < NV; ++t) atomicAdd(dst + t, a * v[t]);
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -216,14 +240,45 @@ struct Params {
   float* depth;        // forward: (B, K, HW)
   const float* dout;   // backward: (B, HW, C) gradient of out
   float* dfeat1;       // backward: (B, HW, C)
-  float* dother1;      // backward: (B, HW, C), zeroed by the caller, or null
-  float* dother2;      // backward: (B, HW, C), zeroed by the caller, or null
+  float* ds;           // backward: (B, HW, K) logit gradients, or null
+  float* w;            // backward: (B, HW, K) attention weights, or null
   int B, H, W, K;
   float scale;
   int use_sim;   // similarity != 'prior'
   int softmax;   // softmax enabled
   int priormul;  // multiply the prior after the softmax
 };
+
+// The transpose of the backward: the CSR map from key rows to entries, and
+// the key/value gradients it produces.  Rows are numbered g = b * HW + r.
+struct Transpose {
+  int tiles;        // query tiles per item
+  int* tile_rows;   // (B, tiles, HW): entries of (tile, row), then their
+                    // exclusive prefix over the item's tiles
+  int* row_ptr;     // (B * HW + 1) entry offsets of the rows
+  int* block_total; // entries of each block of kScanThreads rows
+  int* entry;       // (b * HW + q) << 9 | k << 2 | c, in row order
+  float* part1;     // (chunks, 2, C) partial row sums of dother1
+  float* part2;     // (chunks, 2, C) partial row sums of dother2, or null
+  float* d1;        // (B * HW, C) dother1 (dother1 + dother2 when fused)
+  float* d2;        // (B * HW, C) dother2, or null
+};
+
+// Slot data of sample k of query q: the base corner and the per-axis weights.
+__device__ __forceinline__ void sample_slot(const Params& p, int b, int q,
+                                            int k, int& base, float& wx0,
+                                            float& wx1, float& wy0,
+                                            float& wy1) {
+  const int HW = p.H * p.W;
+  const float* l = p.locs + (((size_t)b * p.K + k) * HW + q) * 2;
+  // align_corners=True unnormalize, as the JAX wrapper computes it
+  const float x = (l[0] + 1.0f) / 2.0f * (float)(p.W - 1);
+  const float y = (l[1] + 1.0f) / 2.0f * (float)(p.H - 1);
+  int xb, yb;
+  axis_slot_weights(x, p.W, xb, wx0, wx1);
+  axis_slot_weights(y, p.H, yb, wy0, wy1);
+  base = yb * p.W + xb;
+}
 
 // Slot data of one lane's samples k = lane + 32 * i, and their priors.
 struct Slots {
@@ -243,14 +298,7 @@ __device__ __forceinline__ void load_slots(const Params& p, int b, int q,
     s.wx0[i] = s.wx1[i] = s.wy0[i] = s.wy1[i] = 0.f;
     s.pr[i] = 0.f;
     if (k < p.K) {
-      const float* l = p.locs + (((size_t)b * p.K + k) * HW + q) * 2;
-      // align_corners=True unnormalize, as the JAX wrapper computes it
-      const float x = (l[0] + 1.0f) / 2.0f * (float)(p.W - 1);
-      const float y = (l[1] + 1.0f) / 2.0f * (float)(p.H - 1);
-      int xb, yb;
-      axis_slot_weights(x, p.W, xb, s.wx0[i], s.wx1[i]);
-      axis_slot_weights(y, p.H, yb, s.wy0[i], s.wy1[i]);
-      s.base[i] = yb * p.W + xb;
+      sample_slot(p, b, q, k, s.base[i], s.wx0[i], s.wx1[i], s.wy0[i], s.wy1[i]);
       if (p.prior != nullptr) s.pr[i] = p.prior[((size_t)b * p.K + k) * HW + q];
     }
   }
@@ -332,8 +380,11 @@ __device__ __forceinline__ void attention_weights(
   }
 }
 
+// Blocks of 8 warps per SM: bf16 is held to 4 (64 registers; at the 80 that
+// ptxas otherwise picks, 3 blocks fit and it ran ~6% slower on an H100), f32
+// to 3 (80 registers, as ptxas picks without a bound)
 template <typename T, int NV>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, sizeof(T) == 2 ? 4 : 3)
 epipolar_attention_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int HW = p.H * p.W;
@@ -402,9 +453,11 @@ epipolar_attention_kernel(const Params p) {
   store_row<NV>(p.out + (item + q) * C + lane * NV, acc);
 }
 
+// ---- backward pass A: per query ------------------------------------------
+
 template <typename T, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-epipolar_attention_backward_kernel(const Params p) {
+query_backward_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int HW = p.H * p.W;
   const long long gq =
@@ -475,9 +528,19 @@ epipolar_attention_backward_kernel(const Params p) {
     }
   }
 
-  // second sweep: dfeat1 in registers, the key/value scatters with atomics
-  float* d1 = p.dother1 == nullptr ? nullptr : p.dother1 + item * C + lane * NV;
-  float* d2 = p.dother2 == nullptr ? nullptr : p.dother2 + item * C + lane * NV;
+  // the coefficients of the key/value gradients, for pass B
+  if (p.ds != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kMaxSlotsPerLane; ++i) {
+      const int k = lane + 32 * i;
+      if (k < K) {
+        p.ds[(item + q) * K + k] = ds[i];
+        p.w[(item + q) * K + k] = w[i];
+      }
+    }
+  }
+
+  // second sweep: dfeat1 in registers
   float acc[NV];
 #pragma unroll
   for (int t = 0; t < NV; ++t) acc[t] = 0.f;
@@ -486,23 +549,396 @@ epipolar_attention_backward_kernel(const Params p) {
     if (32 * i >= K) break;
     for (int j = 0; j < 32 && 32 * i + j < K; ++j) {
       const float dsk = __shfl_sync(kFull, ds[i], j);
-      const float wk = __shfl_sync(kFull, w[i], j);
       const Corners c = broadcast_corners(sl, i, j);
-      const size_t off[4] = {(size_t)c.base * C, (size_t)(c.base + 1) * C,
-                             (size_t)(c.base + W) * C, (size_t)(c.base + W + 1) * C};
-      const float wc[4] = {c.c00, c.c01, c.c10, c.c11};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (wc[t] == 0.f) continue;  // warp-uniform, as are dsk and wk
-        if (dsk != 0.f) {
-          axpy_row<T, NV>(f2k + off[t], dsk * wc[t], acc);
-          if (d1 != nullptr) atomic_axpy_row<NV>(d1 + off[t], dsk * wc[t], qv);
-        }
-        if (d2 != nullptr && wk != 0.f) atomic_axpy_row<NV>(d2 + off[t], wk * wc[t], dv);
-      }
+      if (dsk == 0.f) continue;  // warp-uniform, as are the corner weights
+      if (c.c00 != 0.f) axpy_row<T, NV>(f2k + (size_t)c.base * C, dsk * c.c00, acc);
+      if (c.c01 != 0.f) axpy_row<T, NV>(f2k + (size_t)(c.base + 1) * C, dsk * c.c01, acc);
+      if (c.c10 != 0.f) axpy_row<T, NV>(f2k + (size_t)(c.base + W) * C, dsk * c.c10, acc);
+      if (c.c11 != 0.f) axpy_row<T, NV>(f2k + (size_t)(c.base + W + 1) * C, dsk * c.c11, acc);
     }
   }
   store_row<NV>(p.dfeat1 + row, acc);
+}
+
+// ---- backward pass B: the CSR map from key rows to entries ---------------
+
+// The four corners of sample k of query q: key rows and weights, zero for a
+// corner off the image.  The weights are the products broadcast_corners
+// forms, so pass A, the histogram and the fill agree on every zero.
+struct SampleCorners {
+  int row[4];
+  float wc[4];
+};
+
+__device__ __forceinline__ SampleCorners sample_corners(const Params& p, int b,
+                                                        int q, int k) {
+  SampleCorners s;
+  int base = 0;
+  float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
+  if (k < p.K) sample_slot(p, b, q, k, base, x0, x1, y0, y1);
+  s.row[0] = base;
+  s.row[1] = base + 1;
+  s.row[2] = base + p.W;
+  s.row[3] = base + p.W + 1;
+  s.wc[0] = y0 * x0;
+  s.wc[1] = y0 * x1;
+  s.wc[2] = y1 * x0;
+  s.wc[3] = y1 * x1;
+  return s;
+}
+
+// Entries of each (tile, key row): one block per (tile, item), counts in
+// shared memory (integer atomics), written out whole.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+tile_histogram_kernel(const Params p, const Transpose t) {
+  extern __shared__ int count[];  // HW
+  const int HW = p.H * p.W;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = threadIdx.x; r < HW; r += blockDim.x) count[r] = 0;
+  __syncthreads();
+  const int q1 = min((tile + 1) * kTile, HW);
+  for (int q = tile * kTile + warp; q < q1; q += kWarpsPerBlock) {
+    for (int k = lane; k < p.K; k += 32) {
+      const SampleCorners s = sample_corners(p, b, q, k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (s.wc[c] != 0.f) atomicAdd(&count[s.row[c]], 1);
+    }
+  }
+  __syncthreads();
+  int* out = t.tile_rows + ((size_t)b * t.tiles + tile) * HW;
+  for (int r = threadIdx.x; r < HW; r += blockDim.x) out[r] = count[r];
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// Per key row g: the exclusive prefix of its entries over the item's tiles
+// (in place), then the inclusive prefix of the row totals over this block of
+// kScanThreads rows into row_ptr[g + 1], and the block's total.
+__global__ void __launch_bounds__(kScanThreads)
+tile_scan_kernel(int B, int HW, const Transpose t) {
+  __shared__ int warp_total[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  const bool live = g < (long long)B * HW;
+  int run = 0;
+  if (live) {
+    const int b = (int)(g / HW);
+    const int r = (int)(g - (long long)b * HW);
+    int* col = t.tile_rows + (size_t)b * t.tiles * HW + r;
+    for (int tile = 0; tile < t.tiles; ++tile) {
+      const int c = col[(size_t)tile * HW];
+      col[(size_t)tile * HW] = run;
+      run += c;
+    }
+  }
+  const int x = warp_inclusive_scan(run, lane);
+  if (lane == 31) warp_total[warp] = x;
+  __syncthreads();
+  if (warp == 0) warp_total[lane] = warp_inclusive_scan(warp_total[lane], lane);
+  __syncthreads();
+  const int inclusive = x + (warp > 0 ? warp_total[warp - 1] : 0);
+  if (live) t.row_ptr[g + 1] = inclusive;
+  if (threadIdx.x == kScanThreads - 1) t.block_total[blockIdx.x] = inclusive;
+}
+
+// Adds to each row's offset the entries of all earlier blocks of rows.
+__global__ void __launch_bounds__(kScanThreads)
+row_offset_kernel(int rows, const Transpose t) {
+  __shared__ int before;
+  if (threadIdx.x < 32) {
+    int s = 0;
+    for (int i = threadIdx.x; i < (int)blockIdx.x; i += 32) s += t.block_total[i];
+    s = __reduce_add_sync(kFull, s);
+    if (threadIdx.x == 0) before = s;
+  }
+  __syncthreads();
+  const long long g = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  if (g < rows) t.row_ptr[g + 1] += before;
+  if (g == 0) t.row_ptr[0] = 0;
+}
+
+// One query's samples as lane `lane` sees them (k = lane + 32 i); all
+// weights are 0 for k >= K.
+__device__ __forceinline__ void load_lane_samples(const Params& p, int b, int q,
+                                                  int lane,
+                                                  SampleCorners (&s)[kMaxSlotsPerLane]) {
+#pragma unroll
+  for (int i = 0; i < kMaxSlotsPerLane; ++i) s[i] = sample_corners(p, b, q, lane + 32 * i);
+}
+
+// One warp per (tile, item): the tile's entries into their rows' places,
+// query by query.  cursor[r] starts at the row's offset plus the entries of
+// earlier tiles; within a step, lanes with equal rows take consecutive
+// places in lane order.  The next query's samples load while this one's
+// entries are placed.
+__global__ void __launch_bounds__(32) fill_kernel(const Params p, const Transpose t) {
+  extern __shared__ int cursor[];  // HW
+  const int HW = p.H * p.W;
+  const int tile = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const int* before = t.tile_rows + ((size_t)b * t.tiles + tile) * HW;
+  const int* row_ptr = t.row_ptr + (size_t)b * HW;
+  for (int r = lane; r < HW; r += 32) cursor[r] = row_ptr[r] + before[r];
+  __syncwarp();
+  const unsigned lower = (1u << lane) - 1u;
+  const int q0 = tile * kTile, q1 = min(q0 + kTile, HW);
+  SampleCorners cur[kMaxSlotsPerLane], next[kMaxSlotsPerLane];
+  load_lane_samples(p, b, q0, lane, cur);
+  for (int q = q0; q < q1; ++q) {
+    if (q + 1 < q1) load_lane_samples(p, b, q + 1, lane, next);
+    const int gq = b * HW + q;
+#pragma unroll
+    for (int i = 0; i < kMaxSlotsPerLane; ++i) {
+      if (32 * i >= p.K) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = cur[i].row[c];
+        const float wc = cur[i].wc[c];
+        const bool live = wc != 0.f;
+        const unsigned mask = __ballot_sync(kFull, live);
+        if (mask == 0u) continue;  // warp-uniform
+        unsigned peers = 0u;
+        int pos = 0;
+        if (live) {
+          peers = __match_any_sync(mask, r);
+          pos = cursor[r] + __popc(peers & lower);
+        }
+        __syncwarp();
+        if (live && (peers & lower) == 0u) cursor[r] += __popc(peers);
+        __syncwarp();
+        if (live) t.entry[pos] = gq << 9 | (lane + 32 * i) << 2 | c;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxSlotsPerLane; ++i) cur[i] = next[i];
+  }
+}
+
+// ---- backward pass C: per chunk of entries, then rows across chunks ------
+
+// Fused: keys and values are one tensor, d1 = dother1 + dother2.
+template <typename T, int NV, bool Fused>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+row_gather_kernel(const Params p, const Transpose t) {
+  const int lane = threadIdx.x & 31;
+  const int C = 32 * NV;
+  const int HW = p.H * p.W;
+  const int rows = p.B * HW;
+  const int total = t.row_ptr[rows];
+  const long long chunk =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const long long e0 = chunk * kChunk;
+  if (e0 >= total) return;  // uniform across the warp
+  const int e1 = (int)min(e0 + kChunk, (long long)total);
+  const bool need1 = Fused || t.d1 != nullptr;
+  const bool need2 = Fused || t.d2 != nullptr;
+
+  // the row that holds entry e0: row_ptr[lo] <= e0 < row_ptr[lo + 1]
+  int lo = 0, hi = rows;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (t.row_ptr[mid] <= e0) lo = mid; else hi = mid;
+  }
+  int g = lo;
+  int row_end = t.row_ptr[g + 1];
+
+  const T* f1 = static_cast<const T*>(p.f1) + lane * NV;
+  const float* dout = p.dout + lane * NV;
+  float acc1[NV], acc2[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc1[v] = acc2[v] = 0.f;
+
+  for (int base = (int)e0; base < e1; base += 32) {
+    const int n = min(32, e1 - base);
+    // this lane's entry: its query, key row and coefficients ds w_c and
+    // w w_c, with w_c formed from the slot data as the fill formed it
+    int eq = -1, eg = -1;
+    float ea = 0.f, eb = 0.f;
+    if (lane < n) {
+      const int e = t.entry[base + lane];
+      eq = e >> 9;
+      const int k = (e >> 2) & 127, c = e & 3;
+      const int b = eq / HW;
+      int rbase;
+      float x0, x1, y0, y1;
+      sample_slot(p, b, eq - b * HW, k, rbase, x0, x1, y0, y1);
+      const float wc = ((c & 2) ? y1 : y0) * ((c & 1) ? x1 : x0);
+      ea = p.ds[(size_t)eq * p.K + k] * wc;
+      eb = p.w[(size_t)eq * p.K + k] * wc;
+      eg = b * HW + rbase + ((c & 2) ? p.W : 0) + (c & 1);
+    }
+    // consecutive entries of one row from one query (two samples of a line
+    // touch the row) are summed into the first, so its rows load once: a
+    // suffix sum within runs, in a fixed order
+    const int prev_q = __shfl_up_sync(kFull, eq, 1);  // every lane shuffles
+    const int prev_g = __shfl_up_sync(kFull, eg, 1);
+    const bool follows = lane > 0 && lane < n && prev_q == eq && prev_g == eg;
+    const unsigned run = __ballot_sync(kFull, follows);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float ta = __shfl_down_sync(kFull, ea, o);
+      const float tb = __shfl_down_sync(kFull, eb, o);
+      if (lane + o < 32) {
+        const unsigned span = ((1u << o) - 1u) << (lane + 1);  // lanes (lane, lane + o]
+        if ((run & span) == span) {
+          ea += ta;
+          eb += tb;
+        }
+      }
+    }
+    if (follows) ea = eb = 0.f;
+    for (int j = 0; j < n; j += kUnroll) {
+      float a[kUnroll], bw[kUnroll];
+      float v1[kUnroll][NV], v2[kUnroll][NV];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int src = (j + u) & 31;
+        const int qq = __shfl_sync(kFull, eq, src);
+        a[u] = __shfl_sync(kFull, ea, src);
+        bw[u] = __shfl_sync(kFull, eb, src);
+        if (j + u >= n) a[u] = bw[u] = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) v1[u][v] = v2[u][v] = 0.f;
+        if (need1 && a[u] != 0.f) load_row<NV>(f1 + (size_t)qq * C, v1[u]);
+        if (need2 && bw[u] != 0.f) load_row<NV>(dout + (size_t)qq * C, v2[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j + u >= n) break;  // warp-uniform
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          if constexpr (Fused) {
+            acc1[v] = fmaf(a[u], v1[u][v], acc1[v]);
+            acc1[v] = fmaf(bw[u], v2[u][v], acc1[v]);
+          } else {
+            acc1[v] = fmaf(a[u], v1[u][v], acc1[v]);
+            acc2[v] = fmaf(bw[u], v2[u][v], acc2[v]);
+          }
+        }
+        const int e = base + j + u;
+        if (e + 1 == row_end || e + 1 == e1) {
+          // a row inside the chunk is written once; a row that crosses
+          // the chunk's edges leaves its partial sum in slot 0 (the
+          // chunk's first row) or 1 (its last)
+          const int rs = t.row_ptr[g];
+          float* dst1;
+          float* dst2;
+          if (rs >= e0 && row_end <= e0 + kChunk) {
+            dst1 = t.d1 == nullptr ? nullptr : t.d1 + (size_t)g * C;
+            dst2 = t.d2 == nullptr ? nullptr : t.d2 + (size_t)g * C;
+          } else {
+            const size_t slot = ((size_t)chunk * 2 + (rs <= e0 ? 0 : 1)) * C;
+            dst1 = t.d1 == nullptr ? nullptr : t.part1 + slot;
+            dst2 = t.d2 == nullptr ? nullptr : t.part2 + slot;
+          }
+          if (dst1 != nullptr) store_row<NV>(dst1 + lane * NV, acc1);
+          if (!Fused && dst2 != nullptr) store_row<NV>(dst2 + lane * NV, acc2);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) acc1[v] = acc2[v] = 0.f;
+          if (e + 1 < e1) {  // next non-empty row
+            do { ++g; } while (t.row_ptr[g + 1] <= e + 1);
+            row_end = t.row_ptr[g + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One warp per key row: an empty row is written as zeros; a row that crosses
+// chunks is the sum of its partials in chunk order; any other row was
+// written by row_gather_kernel.
+template <int NV>
+__device__ __forceinline__ void fixup_row(const float* part,
+                                          float* out, int g, int rs, int re,
+                                          int lane) {
+  const int C = 32 * NV;
+  float acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = 0.f;
+  if (re > rs) {
+    const int c0 = rs / kChunk, c1 = (re - 1) / kChunk;
+    for (int c = c0; c <= c1; ++c) {
+      const int slot = (c == c0 && rs != c0 * kChunk) ? 1 : 0;
+      float v[NV];
+      load_row<NV>(part + ((size_t)c * 2 + slot) * C + lane * NV, v);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc[i] += v[i];
+    }
+  }
+  store_row<NV>(out + (size_t)g * C + lane * NV, acc);
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+row_fixup_kernel(int rows, const Transpose t) {
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (g >= rows) return;
+  const int rs = t.row_ptr[g], re = t.row_ptr[g + 1];
+  if (re > rs && rs / kChunk == (re - 1) / kChunk) return;  // inside one chunk
+  if (t.d1 != nullptr) fixup_row<NV>(t.part1, t.d1, (int)g, rs, re, lane);
+  if (t.d2 != nullptr) fixup_row<NV>(t.part2, t.d2, (int)g, rs, re, lane);
+}
+
+// ---- launches ------------------------------------------------------------
+
+long long max_entries(int B, int H, int W, int K) {
+  return (long long)B * H * W * K * 4;
+}
+
+long long max_chunks(int B, int H, int W, int K) {
+  return (max_entries(B, H, W, K) + kChunk - 1) / kChunk;
+}
+
+int tiles_per_item(int H, int W) { return (H * W + kTile - 1) / kTile; }
+
+size_t align_up(size_t n) { return (n + 255) & ~(size_t)255; }
+
+// The pieces of the backward's scratch, in order; returns the bytes used.
+// With `base`, points p and t (whose d1/d2 are already set) into it.
+size_t carve(char* base, int B, int H, int W, int K, int C, int partials,
+             Params* p, Transpose* t) {
+  const size_t rows = (size_t)B * H * W;
+  const size_t entries = (size_t)max_entries(B, H, W, K);
+  const size_t pieces[] = {
+      rows * K * sizeof(float),                            // ds
+      rows * K * sizeof(float),                            // w
+      (size_t)B * tiles_per_item(H, W) * H * W * sizeof(int),  // tile_rows
+      (rows + 1) * sizeof(int),                            // row_ptr
+      (rows + kScanThreads - 1) / kScanThreads * sizeof(int),  // block_total
+      entries * sizeof(int),                               // entry
+      (size_t)max_chunks(B, H, W, K) * 2 * C * sizeof(float) * partials,
+  };
+  size_t off[7];
+  size_t used = 0;
+  for (int i = 0; i < 7; ++i) {
+    off[i] = used;
+    used += align_up(pieces[i]);
+  }
+  if (base != nullptr) {
+    p->ds = reinterpret_cast<float*>(base + off[0]);
+    p->w = reinterpret_cast<float*>(base + off[1]);
+    t->tiles = tiles_per_item(H, W);
+    t->tile_rows = reinterpret_cast<int*>(base + off[2]);
+    t->row_ptr = reinterpret_cast<int*>(base + off[3]);
+    t->block_total = reinterpret_cast<int*>(base + off[4]);
+    t->entry = reinterpret_cast<int*>(base + off[5]);
+    // one set of partials serves whichever single output is wanted
+    float* part = reinterpret_cast<float*>(base + off[6]);
+    t->part1 = t->d1 != nullptr ? part : nullptr;
+    t->part2 = t->d2 == nullptr ? nullptr
+               : t->d1 != nullptr ? part + (size_t)max_chunks(B, H, W, K) * 2 * C : part;
+  }
+  return used;
 }
 
 template <typename T, int NV, bool Backward>
@@ -511,7 +947,7 @@ void launch_nv(const Params& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const dim3 block(kWarpsPerBlock * 32);
   if constexpr (Backward)
-    epipolar_attention_backward_kernel<T, NV><<<grid, block, 0, stream>>>(p);
+    query_backward_kernel<T, NV><<<grid, block, 0, stream>>>(p);
   else
     epipolar_attention_kernel<T, NV><<<grid, block, 0, stream>>>(p);
 }
@@ -528,8 +964,70 @@ cudaError_t launch(const Params& p, int C, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int NV>
+void launch_gather_nv(const Params& p, const Transpose& t, bool fused,
+                      cudaStream_t stream) {
+  const long long chunks = max_chunks(p.B, p.H, p.W, p.K);
+  const dim3 grid((unsigned)((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 block(kWarpsPerBlock * 32);
+  if (fused)
+    row_gather_kernel<T, NV, true><<<grid, block, 0, stream>>>(p, t);
+  else
+    row_gather_kernel<T, NV, false><<<grid, block, 0, stream>>>(p, t);
+  const int rows = p.B * p.H * p.W;
+  row_fixup_kernel<NV><<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock, block, 0,
+                         stream>>>(rows, t);
+}
+
+template <typename T>
+cudaError_t launch_gather(const Params& p, const Transpose& t, int C, bool fused,
+                          cudaStream_t stream) {
+  switch (C) {
+    case 32: launch_gather_nv<T, 1>(p, t, fused, stream); break;
+    case 64: launch_gather_nv<T, 2>(p, t, fused, stream); break;
+    case 128: launch_gather_nv<T, 4>(p, t, fused, stream); break;
+    case 256: launch_gather_nv<T, 8>(p, t, fused, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Pass B: histogram, the two scans, the fill.
+cudaError_t launch_transpose(const Params& p, const Transpose& t,
+                             cudaStream_t stream) {
+  const int HW = p.H * p.W;
+  const size_t smem = (size_t)HW * sizeof(int);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(tile_histogram_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(fill_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  const dim3 tiles((unsigned)t.tiles, (unsigned)p.B);
+  tile_histogram_kernel<<<tiles, kWarpsPerBlock * 32, smem, stream>>>(p, t);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int rows = p.B * HW;
+  const int blocks = (rows + kScanThreads - 1) / kScanThreads;
+  tile_scan_kernel<<<blocks, kScanThreads, 0, stream>>>(p.B, HW, t);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  row_offset_kernel<<<blocks, kScanThreads, 0, stream>>>(rows, t);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fill_kernel<<<tiles, 32, smem, stream>>>(p, t);
+  return cudaGetLastError();
+}
+
 bool valid_shape(int B, int H, int W, int K) {
   return B >= 1 && H >= 1 && W >= 1 && K >= 1 && K <= 32 * kMaxSlotsPerLane;
+}
+
+// the transpose also needs its cursors in shared memory, int32 entry
+// offsets, and global query indices that fit an entry's 23 upper bits
+bool valid_transpose_shape(int B, int H, int W, int K) {
+  return (long long)H * W <= kMaxKeyRows && max_entries(B, H, W, K) < (1ll << 31) &&
+         (long long)B * H * W < (1ll << 23);
 }
 
 Params make_params(const void* f1, const void* f2k, const void* f2v,
@@ -569,23 +1067,49 @@ extern "C" int epipolar_attention_forward(
                        : launch<float, false>(p, C, s));
 }
 
-// dother1 / dother2 may be null (no gradient wanted); when given they must
-// hold zeros, since the kernel adds into them.
+// Bytes of scratch the backward needs: 0 without key/value gradients, else
+// the transpose and `partials` (1 when only one of dother1/dother2 is wanted
+// or both go to one buffer, 2 when both are wanted apart) sets of partials.
+extern "C" long long epipolar_attention_backward_scratch_bytes(
+    int B, int H, int W, int K, int C, int partials) {
+  if (partials == 0) return 0;
+  return (long long)carve(nullptr, B, H, W, K, C, partials, nullptr, nullptr);
+}
+
+// dother1 / dother2 may be null (no gradient wanted); when they are the same
+// buffer it receives dother1 + dother2.  Every row of every buffer given is
+// written.  `scratch` holds epipolar_attention_backward_scratch_bytes.
 extern "C" int epipolar_attention_backward(
     const void* f1, const void* f2k, const void* f2v, const void* locs,
     const void* prior, const void* dout, void* dfeat1, void* dother1,
-    void* dother2, int B, int H, int W, int K, int C, int is_bf16,
-    float scale, int use_sim, int softmax, int priormul, void* stream) {
+    void* dother2, void* scratch, int B, int H, int W, int K, int C,
+    int is_bf16, float scale, int use_sim, int softmax, int priormul,
+    void* stream) {
   if (!valid_shape(B, H, W, K)) return (int)cudaErrorInvalidValue;
+  const bool fused = dother1 != nullptr && dother1 == dother2;
+  const bool kv = dother1 != nullptr || dother2 != nullptr;
+  if (kv && (scratch == nullptr || !valid_transpose_shape(B, H, W, K)))
+    return (int)cudaErrorInvalidValue;
   Params p = make_params(f1, f2k, f2v, locs, prior, B, H, W, K, scale,
                          use_sim, softmax, priormul);
   p.dout = static_cast<const float*>(dout);
   p.dfeat1 = static_cast<float*>(dfeat1);
-  p.dother1 = static_cast<float*>(dother1);
-  p.dother2 = static_cast<float*>(dother2);
+  Transpose t = {};
+  if (kv) {
+    t.d1 = static_cast<float*>(dother1);
+    t.d2 = fused ? nullptr : static_cast<float*>(dother2);
+    const int partials = (t.d1 != nullptr && t.d2 != nullptr) ? 2 : 1;
+    carve(static_cast<char*>(scratch), B, H, W, K, C, partials, &p, &t);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16, true>(p, C, s)
-                       : launch<float, true>(p, C, s));
+  cudaError_t err = is_bf16 ? launch<__nv_bfloat16, true>(p, C, s)
+                            : launch<float, true>(p, C, s);
+  if (err != cudaSuccess || !kv) return (int)err;
+  if ((err = launch_transpose(p, t, s)) != cudaSuccess) return (int)err;
+  return (int)(is_bf16 ? launch_gather<__nv_bfloat16>(p, t, C, fused, s)
+                       : launch_gather<float>(p, t, C, fused, s));
 }
 
 extern "C" int epipolar_attention_max_samples() { return 32 * kMaxSlotsPerLane; }
+
+extern "C" int epipolar_attention_max_key_rows() { return kMaxKeyRows; }

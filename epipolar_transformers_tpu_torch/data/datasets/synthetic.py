@@ -20,15 +20,11 @@ from typing import Dict
 
 import numpy as np
 
-from epipolar_transformers_tpu.config import Config
-from epipolar_transformers_tpu.data.transforms.affine import (
-    affine_transform_pts,
-    get_affine_transform,
-)
-
+from ...config import Config
 from ...geometry.camera import neighbor_cameras
 from ...ops.heatmap import make_heatmap_grid
 from ...ops.synthetic_render import joint_colors
+from ..transforms.affine import affine_transform_pts, get_affine_transform
 
 _CLIP = 4.60517019  # -ln(0.01), reference keypoints2d.py:30
 

@@ -1,29 +1,67 @@
 """Host batching for the port.
 
-`collate`, `ConcatDataset` and the batching `DataLoader` are the JAX
-package's (epipolar_transformers_tpu/data/pipeline.py, numpy only, imported
-rather than copied).  `eval_batches` yields the (1, V, ...) view groups the
-eval loop takes, one dataset item each; `make_train_loader` is the train
-half of the JAX `make_data_loader`.
+`collate` stacks items as the JAX package's does
+(epipolar_transformers_tpu/data/pipeline.py).  `eval_batches` yields the
+(1, V, ...) view groups the eval loop takes, one dataset item each;
+`make_train_loader` is the train half of the JAX `make_data_loader`: a
+synchronous `TrainLoader` that gives the JAX `DataLoader`'s shuffled order
+for the same seed (tests/test_torch_config.py holds the two equal).  The
+JAX loader's worker processes, prefetch thread and ring buffers are not
+needed here: each batch is a fresh host buffer, so it may be copied to the
+device asynchronously and kept as long as the caller likes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
+from torch.utils.data import ConcatDataset
 
-from epipolar_transformers_tpu.config import Config
-from epipolar_transformers_tpu.config.catalog import DatasetCatalog
-from epipolar_transformers_tpu.data.pipeline import ConcatDataset, DataLoader, collate
+from ..config import Config, DatasetCatalog
 
-__all__ = ["build_dataset", "collate", "eval_batches", "make_train_loader"]
+__all__ = ["TrainLoader", "build_dataset", "collate", "eval_batches", "make_train_loader"]
+
+
+def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack a list of per-item dicts into batched arrays."""
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def eval_batches(dataset) -> Iterator[Dict[str, np.ndarray]]:
     """One collated (1, V, ...) view group per item of `dataset`."""
     for i in range(len(dataset)):
         yield collate([dataset[i]])
+
+
+class TrainLoader:
+    """Shuffled batches of `batch_size` items; the last partial batch is
+    dropped.  Epoch e visits the items in the order
+    `np.random.RandomState(seed + e).shuffle(np.arange(n))`, as the JAX
+    `DataLoader(shuffle=True, drop_last=True)` does; the epoch counts only
+    passes that ran to their end, as there."""
+
+    def __init__(self, dataset, batch_size: int, seed: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def indices(self) -> np.ndarray:
+        """This epoch's item order."""
+        idx = np.arange(len(self.dataset))
+        np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self.indices()
+        for b in range(len(self)):
+            batch = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield collate([self.dataset[int(i)] for i in batch])
+        self.epoch += 1
 
 
 def build_dataset(cfg: Config, name: str):
@@ -41,13 +79,10 @@ def build_dataset(cfg: Config, name: str):
                               seed=entry.get("seed", 0))
 
 
-def make_train_loader(cfg: Config) -> DataLoader:
+def make_train_loader(cfg: Config) -> TrainLoader:
     """DATASETS.TRAIN concatenated into one shuffled loader of
     SOLVER.IMS_PER_BATCH items that drops the last partial batch (JAX
-    `make_data_loader(cfg, is_train=True)`).  Each batch is a fresh host
-    buffer (no ring reuse), so a batch may be copied to the device
-    asynchronously and kept as long as the caller likes."""
+    `make_data_loader(cfg, is_train=True)`)."""
     datasets = [build_dataset(cfg, n) for n in cfg.DATASETS.TRAIN]
     dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
-    return DataLoader(dataset, batch_size=cfg.SOLVER.IMS_PER_BATCH, shuffle=True,
-                      seed=cfg.SEED, drop_last=True, reuse_buffers=False)
+    return TrainLoader(dataset, batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED)

@@ -30,7 +30,7 @@ from typing import Callable, Iterable
 
 import torch
 
-from epipolar_transformers_tpu.config import Config
+from ..config import Config
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8

@@ -13,7 +13,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from epipolar_transformers_tpu.config import Config
+from ..config import Config
 
 EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
 # what a train step also takes: the target heatmaps and joint visibility

@@ -6,8 +6,9 @@ engine/trainer.py:18-141) on one device.  `make_train_step` is forward,
 the LOG_FREQ meters, CHECKPOINT_PERIOD saves, the `last_checkpoint` resume
 and `model_final`, as the JAX loop does.
 
-The device is explicit: `cuda:0` whenever torch sees a GPU, the CPU only
-where there is none, never a silent fallback.  On the GPU the model runs
+The device is explicit: `train` runs on `cuda:0` unless its caller names
+another device, and raises where torch sees no GPU; the CPU runs only when
+the caller passes `device="cpu"`.  On the GPU the model runs
 channels_last, so the (N, H, W, C) views the attention kernels read need no
 copy.  Initial weights come from a `torch.Generator` seeded with cfg.SEED,
 drawn with the JAX package's initializers.  Not ported here, each said when
@@ -25,9 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from epipolar_transformers_tpu.config import Config
-from epipolar_transformers_tpu.config.catalog import BackboneCatalog
-
+from ..config import BackboneCatalog, Config
 from ..data.pipeline import make_train_loader
 from ..models import ModelBuilder
 from ..utils.checkpoint import Checkpointer
@@ -37,8 +36,14 @@ from .tester import TRAIN_KEYS, to_model_inputs
 logger = logging.getLogger(__name__)
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device: None means cuda:0.  Raises when a CUDA
+    device is asked for and torch sees none."""
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train() runs on {device}, but torch sees no GPU; pass "
+                           "device='cpu' to train on the CPU")
+    return device
 
 
 def build_model(cfg: Config, device: torch.device) -> ModelBuilder:
@@ -86,16 +91,19 @@ def _check_supported(cfg: Config) -> None:
                                   "(utils/pretrained.py) are ROADMAP A7a in the port")
 
 
-def train(cfg: Config, max_steps: Optional[int] = None) -> Tuple[ModelBuilder, Optimizer]:
+def train(cfg: Config, max_steps: Optional[int] = None,
+          device=None) -> Tuple[ModelBuilder, Optimizer]:
     """The training loop; returns the model and its optimizer, whose
     `count` is the number of optimizer updates, restored ones included.
 
     Args:
         max_steps: stop after this many steps of this call (smoke runs and
             tests), before the epoch's checkpoint, as the JAX loop does.
+        device: where to train; None means cuda:0, and the CPU runs only
+            when asked for ("cpu").
     """
+    device = resolve_device(device)
     _check_supported(cfg)
-    device = default_device()
     if cfg.TENSORBOARD.USE:
         logger.info("TENSORBOARD.USE: the port writes no event files yet (ROADMAP A13)")
     loader = make_train_loader(cfg)

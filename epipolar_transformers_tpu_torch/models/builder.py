@@ -26,8 +26,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from epipolar_transformers_tpu.config import Config
-
+from ..config import Config
 from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
 from .registry import build_backbone
 

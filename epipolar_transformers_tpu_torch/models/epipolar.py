@@ -30,8 +30,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from epipolar_transformers_tpu.config import Config
-
+from ..config import Config
 from ..ops.epipolar_attention import AttentionParams
 from ..ops.epipolar_attention_cuda import epipolar_attention_batch, supports_fused_attention
 from ..ops.epipolar_sampling import EpipolarGeometry, epipolar_sample_locs
@@ -136,8 +135,12 @@ class Epipolar(nn.Module):
         def nhwc(t):
             return t.permute(0, 2, 3, 1)
 
+        # keys and values that are one tensor stay one object: the kernel
+        # backward then sums their gradients into one buffer
+        keys = nhwc(other1)
+        values = keys if other2 is other1 else nhwc(other2)
         out, corr_pos, depth = self.attention(
-            nhwc(feat1), nhwc(other1), nhwc(other2), sample_locs, self.attention_params)
+            nhwc(feat1), keys, values, sample_locs, self.attention_params)
         out = out.permute(0, 3, 1, 2)
 
         # z projection + zero-init BN (+ residual)   epipolar.py:249-255

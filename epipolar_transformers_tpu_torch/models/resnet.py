@@ -24,8 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from epipolar_transformers_tpu.config import Config
-
+from ..config import Config
 from ..ops.soft_argmax import find_tensor_peak_batch
 from .epipolar import Epipolar
 from .layers import (BatchNorm2d, Conv2d, ConvTranspose2d, ZeroInitBatchNorm, bn_momentum,

@@ -76,7 +76,9 @@ def _flat(feat1, other1, other2, sample_locs, prior):
     cd = _compute_dtype(feat1, other1)
     f1 = feat1.reshape(B, H * W, -1).to(cd)
     f2k = other1.reshape(B, H * W, -1).to(cd)
-    f2v = other2.reshape(B, H * W, -1).to(cd)
+    # one tensor for keys and values stays one object, so that the backward
+    # can sum both gradients into one buffer
+    f2v = f2k if other2 is other1 else other2.reshape(B, H * W, -1).to(cd)
     locs = sample_locs.reshape(B, K, H * W, 2).to(torch.float32)
     prior = None if prior is None else prior.reshape(B, K, H * W).to(torch.float32)
     return f1, f2k, f2v, locs, prior
@@ -137,6 +139,79 @@ def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
     return out, w.permute(0, 2, 1).contiguous()
 
 
+def _transposed_backward_core(f1, f2k, f2v, locs, prior, dout, H, W, params):
+    """The backward kernels' three passes in plain PyTorch, f32: per query
+    the weights w, the logit gradients ds and dfeat1 (pass A); the entries
+    (row, q, ds w_c, w w_c) of every corner with w_c != 0, in (q, k, c)
+    order, stably sorted by key row (pass B); their sums per row (pass C).
+    Returns dfeat1, dother1, dother2 (B, HW, C) f32."""
+    B, K, HW, _ = locs.shape
+    f1, f2k, f2v, dout = (t.float() for t in (f1, f2k, f2v, dout))
+    x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
+    y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
+    xb, wx0, wx1 = axis_slot_weights(x, W)
+    yb, wy0, wy1 = axis_slot_weights(y, H)
+    base = yb * W + xb
+    rows = torch.stack([base, base + 1, base + W, base + W + 1], -1).permute(0, 2, 1, 3)
+    wc = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], -1).permute(0, 2, 1, 3)
+    rows = torch.where(wc != 0, rows, torch.zeros_like(rows))  # (B, HW, K, 4)
+    items = torch.arange(B, device=f1.device)[:, None, None, None]
+
+    def corners(feat):  # (B, HW, K, 4, C) corner rows
+        return feat[items, rows]
+
+    def corner_dot(feat, vec):  # sum_c w_c <vec[q], feat[corner_c]>
+        return (wc * (corners(feat) * vec[:, :, None, None, :]).sum(-1)).sum(-1)
+
+    prior_q = None if prior is None else prior.float().permute(0, 2, 1)  # (B, HW, K)
+    g = corner_dot(f2v, dout)
+    if params.similarity == "prior":
+        w, ds = prior_q, torch.zeros_like(g)
+    else:
+        sim = corner_dot(f2k, f1)
+        masked = torch.where(sim == 0.0, torch.full_like(sim, NEG_INF), sim)
+        if prior_q is not None and not params.priormul:
+            masked = masked + prior_q
+        if params.softmax_enabled:
+            p = torch.softmax(masked * params.softmax_scale, dim=-1)
+            mul = prior_q is not None and params.priormul
+            w = p * prior_q if mul else p
+            gp = g * prior_q if mul else g
+            ds = params.softmax_scale * p * (gp - (p * gp).sum(-1, keepdim=True))
+        else:
+            w, ds = masked / K, g / K
+        ds = torch.where(sim == 0.0, torch.zeros_like(ds), ds)
+    dfeat1 = ((ds[..., None] * wc)[..., None] * corners(f2k)).sum((2, 3))
+
+    b, q, k, c = torch.nonzero(wc, as_tuple=True)  # (q, k, c) order per item
+    key_row = b * HW + rows[b, q, k, c]
+    order = torch.argsort(key_row, stable=True)
+    key_row, b, q, k, c = (t[order] for t in (key_row, b, q, k, c))
+    weight = wc[b, q, k, c]
+
+    def row_sums(coef, feat):
+        out = torch.zeros(B * HW, f1.shape[-1], dtype=torch.float32, device=f1.device)
+        out.index_add_(0, key_row, (coef[b, q, k] * weight)[:, None] * feat[b, q])
+        return out.reshape(B, HW, -1)
+
+    return dfeat1, row_sums(ds, f1), row_sums(w, dout)
+
+
+def epipolar_attention_backward_plain(feat1, other1, other2, sample_locs,
+                                      params: AttentionParams, dout, prior=None):
+    """The gradients of sum(out * dout) with respect to feat1, other1 and
+    other2 (each (B, H, W, C) f32), computed as the CUDA backward computes
+    them: the key/value gradients as per-row sums of transposed entries
+    rather than a scatter.  The tests hold it to autograd of the plain
+    version and to jax.grad of the JAX matmul path."""
+    _check_params(params)
+    B, H, W, _ = feat1.shape
+    f1, f2k, f2v, locs, prior_flat = _flat(feat1, other1, other2, sample_locs.detach(), prior)
+    grads = _transposed_backward_core(f1, f2k, f2v, locs, prior_flat,
+                                      dout.reshape(B, H * W, -1), H, W, params)
+    return tuple(t.reshape(B, H, W, -1) for t in grads)
+
+
 def _kernel_args(f1, f2k, f2v, locs, prior, params):
     """Check the inputs against what the kernels take; returns the library
     and the (pointers, sizes, flags) the C entry points share."""
@@ -187,25 +262,44 @@ def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
 
 
 def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
-                     need_keys: bool, need_values: bool):
-    """Launch the backward kernel of csrc/epipolar_attention.cu on the
+                     need_keys: bool, need_values: bool, same_kv: bool):
+    """Launch the backward kernels of csrc/epipolar_attention.cu on the
     current stream.  Returns f32 (dfeat1, dother1 or None, dother2 or None);
-    the key/value gradients are zeroed buffers the kernel adds into."""
+    when the keys and values are one tensor (same_kv) and both gradients are
+    wanted, dother1 is their sum and dother2 None.  Every row of each
+    gradient is written by the kernels; their scratch comes from here."""
     global BACKWARD_LAUNCHES
     lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
     B, K, HW, _ = locs.shape
     C = f1.shape[-1]
+    if need_keys or need_values:
+        # one shared-memory cursor per key row; int32 entry offsets; the
+        # query index in an entry's upper 23 bits
+        rows = lib.epipolar_attention_max_key_rows()
+        if HW > rows or B * HW * K * 4 >= 2 ** 31 or B * HW >= 2 ** 23:
+            raise ValueError(f"the CUDA backward of the key/value gradients takes H*W <= "
+                             f"{rows}, B*H*W*K*4 < 2**31 and B*H*W < 2**23, got B={B}, "
+                             f"H*W={HW}, K={K}")
     dout = dout.to(torch.float32).contiguous()
     dfeat1 = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
-    dother1 = torch.zeros_like(dfeat1) if need_keys else None
-    dother2 = torch.zeros_like(dfeat1) if need_values else None
+    fused = same_kv and need_keys and need_values
+    dother1 = torch.empty_like(dfeat1) if need_keys else None
+    dother2 = None if fused else torch.empty_like(dfeat1) if need_values else None
+    partials = 0 if dother1 is None and dother2 is None else \
+        2 if dother1 is not None and dother2 is not None else 1
+    size = lib.epipolar_attention_backward_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    nbytes = size(B, H, W, K, C, partials)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
     fn = lib.epipolar_attention_backward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(),
-             None if dother1 is None else dother1.data_ptr(),
-             None if dother2 is None else dother2.data_ptr(),
+    ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, scratch)]
+    if fused:
+        ptr[1] = ptr[0]
+    err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
              B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
              torch.cuda.current_stream(f1.device).cuda_stream)
     if err != 0:
@@ -222,8 +316,10 @@ class EpipolarAttentionFn(torch.autograd.Function):
     The backward keeps only the inputs: it recomputes the slot data and the
     similarities rather than storing any (B, HW, K) intermediate.  Gradients
     flow to the three features; the key and value gradients are computed
-    only when autograd asks for them (under OTHER_GRAD both are the same
-    tensor, and autograd sums them).  `depth` and the locations carry none.
+    only when autograd asks for them.  Under OTHER_GRAD the keys and the
+    values are one tensor: the kernels then return the sum of both
+    gradients once, as the keys' gradient.  `depth` and the locations carry
+    none.
     """
 
     @staticmethod
@@ -235,6 +331,7 @@ class EpipolarAttentionFn(torch.autograd.Function):
         out, depth = _kernel_core(f1, f2k, f2v, locs, prior, H, W, params)
         ctx.save_for_backward(f1, f2k, f2v, locs, prior)
         ctx.geometry = (H, W, params)
+        ctx.same_kv = f2k is f2v
         ctx.mark_non_differentiable(depth)
         return out, depth
 
@@ -244,7 +341,8 @@ class EpipolarAttentionFn(torch.autograd.Function):
         H, W, params = ctx.geometry
         dfeat1, dother1, dother2 = _kernel_backward(
             f1, f2k, f2v, locs, prior, dout, H, W, params,
-            need_keys=ctx.needs_input_grad[1], need_values=ctx.needs_input_grad[2])
+            need_keys=ctx.needs_input_grad[1], need_values=ctx.needs_input_grad[2],
+            same_kv=ctx.same_kv)
 
         def cast(g, like):
             return None if g is None else g.to(like.dtype)

@@ -5,8 +5,8 @@
 state dict with strict=True; `jax_state_dict` is the same conversion
 without loading, so that a JAX tree after a train step (or a tree of
 gradients in place of 'params') can be compared with the port's state.  It inverts the torch -> flax import of
-epipolar_transformers_tpu.utils.torch_import (imported, not copied; it is
-JAX-free): each port key goes through `torch_key_to_flax_path`, then the
+epipolar_transformers_tpu.utils.torch_import: each port key goes through
+`torch_key_to_flax_path` (the port's copy, utils/torch_keys.py), then the
 leaf conversion is undone:
   * conv kernel HWIO -> OIHW;
   * deconv kernel (kh, kw, I, O) -> (I, O, kh, kw) with the spatial flip;
@@ -24,7 +24,7 @@ from typing import Dict, Set, Tuple
 import numpy as np
 import torch
 
-from epipolar_transformers_tpu.utils.torch_import import torch_key_to_flax_path
+from .torch_keys import torch_key_to_flax_path
 
 _BN_LEAF = {"weight": "scale", "bias": "bias",
             "running_mean": "mean", "running_var": "var"}

@@ -11,8 +11,9 @@ wrapper's checks.  The forward: f32 rtol 1e-4 / atol 1e-5 (summation order
 only, TF32 off); bf16 rtol = atol = 5e-2 (the plain version rounds the Gram
 and weight matrices to bf16).  The backward kernel against autograd of the
 plain version: f32 rtol 1e-4 / atol 1e-5 x the gradient's max (summation
-order, and the scatter's atomics add in a run-dependent order); bf16
-rtol 5e-2 / atol 5e-2 x max.
+order); bf16 rtol 5e-2 / atol 5e-2 x max.  The backward sums in a fixed
+order, so two runs on the same inputs are bit-equal.  The locations are
+random in (-1.3, 1.3), so lines cross the image edges.
 """
 
 import pytest
@@ -117,7 +118,7 @@ def _assert_grads_close(got, want, dtype):
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol, msg=name)
 
 
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
 @pytest.mark.parametrize("K", [1, 17, 128])
 @pytest.mark.parametrize("dt,name,kw,use_prior", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
 def test_backward_matches_plain_autograd(device, C, K, dt, name, kw, use_prior):
@@ -157,3 +158,44 @@ def test_backward_rejects_a_prior_that_needs_grad(device):
     with pytest.raises(NotImplementedError, match="A10"):
         attn.epipolar_attention_batch(*feats, locs, AttentionParams(softmax_scale=0.5),
                                       prior.requires_grad_())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_backward_keys_values_one_tensor(device, dt):
+    """OTHER_GRAD as the model runs it: keys and values one tensor, whose
+    gradient the kernels return summed once; two runs are bit-equal."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, locs, _ = _inputs(device, 2, 16, 16, 64, 256, dtype)
+    params = AttentionParams(softmax_scale=0.125)
+
+    def grads(fn):
+        f1 = feats[0].clone().requires_grad_()
+        f2 = feats[1].clone().requires_grad_()
+        out = fn(f1, f2, f2, locs, params)[0]
+        r = torch.randn(out.shape, device=device, generator=torch.Generator(device).manual_seed(1))
+        return torch.autograd.grad((out.float() * r).sum(), (f1, f2))
+
+    got = grads(attn.epipolar_attention_batch)
+    again = grads(attn.epipolar_attention_batch)
+    want = grads(attn.epipolar_attention_plain_batch)
+    _assert_grads_close(got, want, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("which", ["keys", "values"])
+def test_backward_one_of_keys_values(device, which):
+    """Only the keys or only the values need a gradient."""
+    feats, locs, _ = _inputs(device, 2, 12, 10, 33, 128, torch.float32)
+    params = AttentionParams(softmax_scale=33 ** -0.5)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(i == 0 or (i == 1) == (which == "keys"))
+                  for i, t in enumerate(feats)]
+        out = fn(*leaves, locs, params)[0]
+        r = torch.randn(out.shape, device=device, generator=torch.Generator(device).manual_seed(1))
+        (out * r).sum().backward()
+        return [t.grad for t in leaves]
+
+    got, want = grads(attn.epipolar_attention_batch), grads(attn.epipolar_attention_plain_batch)
+    assert (got[1] is None) == (which == "values") and (got[2] is None) == (which == "keys")
+    _assert_grads_close(got, want, torch.float32)

@@ -1,9 +1,10 @@
-"""The port imports neither JAX nor flax.
+"""The port imports neither JAX, flax nor anything of the JAX package.
 
-A fresh interpreter with `sys.modules['jax'] = sys.modules['flax'] = None`
-(so any import of either raises) imports every module of the port, runs
-the tiny flagship slice on the CPU through `engine.tester.predict`, and
-one tiny train step through `engine.trainer.train`.
+A fresh interpreter with `sys.modules[name] = None` for `jax`, `flax` and
+`epipolar_transformers_tpu` (so any import of one raises) imports every
+module of the port and `chip_smoke.py`, runs the tiny flagship slice on the
+CPU through `engine.tester.predict`, and one tiny train step through
+`engine.trainer.train`; no module of the three is loaded at the end.
 """
 
 import os
@@ -14,12 +15,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+BLOCKED = ("jax", "jaxlib", "flax", "epipolar_transformers_tpu")
+for name in BLOCKED:
+    sys.modules[name] = None
 import torch
 import epipolar_transformers_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+import chip_smoke
 from epipolar_transformers_tpu_torch.config import flagship_cfg
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
 from epipolar_transformers_tpu_torch.data.pipeline import eval_batches
@@ -35,10 +38,10 @@ for out in outs:
 import tempfile
 from epipolar_transformers_tpu_torch.engine.trainer import train
 with tempfile.TemporaryDirectory() as out_dir:
-    model, optimizer = train(cfg.replace(OUTPUT_DIR=out_dir), max_steps=1)
+    model, optimizer = train(cfg.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
 assert optimizer.count == 1 and all(bool(torch.isfinite(p).all()) for p in model.parameters())
 loaded = sorted(m for m, v in sys.modules.items()
-                if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ISOLATED_OK")
 """

@@ -17,10 +17,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from epipolar_transformers_tpu.config import Config, update_from_dict
 from epipolar_transformers_tpu.models import PoseResNet as JPoseResNet
 from epipolar_transformers_tpu_torch.models.resnet import PoseResNet
 from epipolar_transformers_tpu_torch.utils.jax_import import load_jax_variables
+from torch_configs import config_pair
 
 
 def flatten_variables(variables):
@@ -76,8 +76,9 @@ def assert_heatmaps_close(got, want, rtol=1e-4, atol_scale=1e-4, err_msg=""):
                                atol=atol_scale * float(np.abs(want).max()), err_msg=err_msg)
 
 
-def _cfg(depth):
-    return update_from_dict(Config(), {
+def _cfgs(depth):
+    """(port config, JAX config) of a poseR-`depth` at 64 px."""
+    return config_pair({
         "BACKBONE": {"BODY": f"poseR-{depth}", "DOWNSAMPLE": 4},
         "KEYPOINT": {"NUM_PTS": 5, "HEATMAP_SIZE": (16, 16), "SIGMA": 2.0},
         "DATASETS": {"IMAGE_SIZE": (64, 64)},
@@ -86,9 +87,9 @@ def _cfg(depth):
 
 @pytest.mark.parametrize("depth", ["18", "50"])
 def test_poseresnet_matches_jax(rng, depth):
-    cfg = _cfg(depth)
+    cfg, jcfg = _cfgs(depth)
     x = rng.randn(2, 64, 64, 3).astype(np.float32)
-    jmodel = JPoseResNet(cfg)
+    jmodel = JPoseResNet(jcfg)
     variables = jax.jit(lambda k: jmodel.init(k, jnp.asarray(x), train=False))(jax.random.PRNGKey(0))
     variables = randomize_variables(to_numpy_tree(variables), rng)
     want = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(variables, jnp.asarray(x))
@@ -126,7 +127,7 @@ def test_poseresnet_loads_reference_state_dict(depth, hm_atol):
     for key, shape_s in zip(g["sd_keys"], g["sd_shapes"]):
         shape = tuple(int(s) for s in str(shape_s).split("x")) if str(shape_s) else ()
         sd[str(key)] = torch.as_tensor(np.asarray(mod.det_tensor(str(key), shape)))
-    model = PoseResNet(_cfg(depth)).eval()
+    model = PoseResNet(_cfgs(depth)[0]).eval()
     sd = {k: v.to(model.state_dict()[k].dtype) for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
     with torch.no_grad():

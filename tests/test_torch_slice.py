@@ -12,6 +12,8 @@ sample locations agree to ~1e-5 normalized, and corr_pos is a location);
 depth 1e-4.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,7 @@ EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
 def _setup(impl, rng):
     cfg = _flagship_cfg(tiny=True)
     cfg = cfg.replace(EPIPOLAR=cfg.EPIPOLAR.replace(ATTENTION_IMPL=impl))
-    ds = SyntheticMultiview(cfg, is_train=False, n_samples=2)
+    ds = SyntheticMultiview(flagship_cfg(tiny=True), is_train=False, n_samples=2)
     groups = list(eval_batches(ds))
     jmodel = JModelBuilder(cfg)
     inputs0 = {k: jnp.asarray(groups[0][k][0]) for k in EVAL_KEYS}
@@ -48,7 +50,8 @@ def _setup(impl, rng):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """JAX outputs for both impls, on the same weights (one init)."""
+    """JAX outputs for both impls, on the same weights (one init); the
+    port's config beside them."""
     rng = np.random.RandomState(0)
     cfg, groups, jmodel, variables = _setup("pallas", rng)
     runs = {}
@@ -58,13 +61,13 @@ def jax_runs():
         step = jax.jit(lambda v, x: m.apply(v, x, is_train=False)[2])
         runs[impl] = [{k: np.asarray(v, np.float32) for k, v in step(
             variables, {k: jnp.asarray(g[k][0]) for k in EVAL_KEYS}).items()} for g in groups]
-    return cfg, groups, variables, runs
+    return flagship_cfg(tiny=True), groups, variables, runs
 
 
 @pytest.mark.parametrize("impl", ["pallas", "auto"])
 def test_slice_matches_jax(jax_runs, impl):
     cfg, groups, variables, runs = jax_runs
-    model = ModelBuilder(flagship_cfg(tiny=True))
+    model = ModelBuilder(cfg)
     load_jax_variables(model, variables)
     outs = predict(cfg, model, groups)
     assert len(outs) == len(groups)
@@ -107,8 +110,9 @@ def test_fused_trunk_equals_two_passes(jax_runs, monkeypatch):
 
 
 def test_flagship_cfg_is_the_graft_entry_config():
+    """The two packages' flagship trees agree field by field."""
     for tiny in (True, False):
-        assert flagship_cfg(tiny) == _flagship_cfg(tiny)
+        assert dataclasses.asdict(flagship_cfg(tiny)) == dataclasses.asdict(_flagship_cfg(tiny))
 
 
 @pytest.mark.parametrize("override,match", [

@@ -18,17 +18,21 @@ import jax.numpy as jnp
 import optax
 import torch
 
-from epipolar_transformers_tpu.config import Config, update_from_dict
 from epipolar_transformers_tpu.engine.solver import make_optimizer as jax_make_optimizer
 from epipolar_transformers_tpu_torch.engine.solver import Optimizer, make_lr_schedule
+from torch_configs import config_pair
 
 STEPS = 6
 STEPS_PER_EPOCH = 2
 
 
+def _cfgs(**solver):
+    """(port config, JAX config) with these SOLVER settings."""
+    return config_pair({"SOLVER": {"BASE_LR": 0.01, "STEPS": (1,), "GAMMA": 0.1, **solver}})
+
+
 def _cfg(**solver):
-    return update_from_dict(Config(), {"SOLVER": {
-        "BASE_LR": 0.01, "STEPS": (1,), "GAMMA": 0.1, **solver}})
+    return _cfgs(**solver)[0]
 
 
 # rmsprop runs on gradients of ~1e-4, where nu ~ 1e-9 is near eps and
@@ -40,13 +44,13 @@ def _cfg(**solver):
     (dict(OPTIMIZER="adam", BATCH_MUL=2, WEIGHT_DECAY=1e-3), 1.0),
 ], ids=["adam", "sgd_momentum_wd", "rmsprop", "adam_batch_mul2"])
 def test_optimizer_matches_optax(rng, solver, grad_scale):
-    cfg = _cfg(**solver)
+    cfg, jcfg = _cfgs(**solver)
     shapes = [(3, 4), (5,)]
     init = [rng.randn(*s).astype(np.float32) for s in shapes]
     grads = [[(rng.randn(*s) * grad_scale).astype(np.float32) for s in shapes]
              for _ in range(STEPS)]
 
-    tx = jax_make_optimizer(cfg, STEPS_PER_EPOCH)
+    tx = jax_make_optimizer(jcfg, STEPS_PER_EPOCH)
     jparams = [jnp.asarray(p) for p in init]
     state = tx.init(jparams)
     for g in grads:

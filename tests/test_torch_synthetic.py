@@ -9,10 +9,9 @@ numpy RNG, so both sides are seeded identically.
 import numpy as np
 import pytest
 
-from __graft_entry__ import _flagship_cfg
-from epipolar_transformers_tpu.config import update_from_dict
 from epipolar_transformers_tpu.data.datasets.synthetic import SyntheticMultiview as JSynthetic
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+from torch_configs import config_pair
 
 
 def _assert_items_equal(a, b):
@@ -24,11 +23,11 @@ def _assert_items_equal(a, b):
 
 @pytest.mark.parametrize("is_train,augment", [(False, False), (True, False), (True, True)])
 def test_items_bit_equal(is_train, augment):
-    cfg = _flagship_cfg(tiny=True)
-    if augment:
-        cfg = update_from_dict(cfg, {"DATASETS": {"SCALE_FACTOR": 0.25, "ROT_FACTOR": 30.0}})
+    cfg, jcfg = config_pair(
+        {"DATASETS": {"SCALE_FACTOR": 0.25, "ROT_FACTOR": 30.0}} if augment else {},
+        tiny_flagship=True)
     ours = SyntheticMultiview(cfg, is_train=is_train, n_samples=3, seed=5)
-    ref = JSynthetic(cfg, is_train=is_train, n_samples=3, seed=5)
+    ref = JSynthetic(jcfg, is_train=is_train, n_samples=3, seed=5)
     for i in range(len(ref)):
         np.random.seed(100 + i)
         want = ref[i]

@@ -2,7 +2,8 @@
 CPU: the loop, the checkpoints and the `last_checkpoint` resume (the
 counterpart of tests/test_train_loop.py for the JAX package, small enough
 for tier 1).  The train set is the synthetic rig cut to 16 items, so one
-epoch is 2 steps of 8.
+epoch is 2 steps of 8.  The loop runs on the CPU only when asked to; the
+loader's order is the JAX loader's (tests/test_torch_config.py).
 """
 
 import math
@@ -12,8 +13,8 @@ import re
 import pytest
 import torch
 
-from epipolar_transformers_tpu.config.catalog import DatasetCatalog
-from epipolar_transformers_tpu_torch.config import flagship_cfg, update_from_dict
+from epipolar_transformers_tpu_torch.config import DatasetCatalog, flagship_cfg, update_from_dict
+from epipolar_transformers_tpu_torch.engine import trainer
 from epipolar_transformers_tpu_torch.engine.trainer import train
 
 TRAIN_SET = "synthetic_multiview_train_16"
@@ -37,7 +38,7 @@ def test_train_steps_with_finite_loss(cfg, caplog):
     checkpoint, as the JAX loop does."""
     cfg = cfg.replace(SOLVER=cfg.SOLVER.replace(MAX_EPOCHS=2))
     with caplog.at_level("INFO", logger="epipolar_transformers_tpu_torch.engine.trainer"):
-        model, optimizer = train(cfg, max_steps=3)
+        model, optimizer = train(cfg, max_steps=3, device="cpu")
     losses = [float(m) for m in re.findall(r"\bloss (\S+)", caplog.text)]
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses), losses
     assert optimizer.count == 3
@@ -46,7 +47,7 @@ def test_train_steps_with_finite_loss(cfg, caplog):
 
 
 def test_train_checkpoints_and_resumes(cfg):
-    model, optimizer = train(cfg)
+    model, optimizer = train(cfg, device="cpu")
     assert optimizer.count == 2
     files = set(os.listdir(cfg.OUTPUT_DIR))
     assert {"model_000.pth", "model_final.pth", "last_checkpoint"} <= files
@@ -55,13 +56,24 @@ def test_train_checkpoints_and_resumes(cfg):
 
     # resume: MAX_EPOCHS is reached, so no step runs and the returned model
     # and optimizer are the checkpoint's
-    resumed, resumed_opt = train(cfg)
+    resumed, resumed_opt = train(cfg, device="cpu")
     assert resumed_opt.count == 2
     for (k, a), b in zip(model.state_dict().items(), resumed.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
 
     # WEIGHTS_LOAD_OPT=False restores the weights and leaves a fresh optimizer
-    weights_only, fresh_opt = train(cfg.replace(WEIGHTS_LOAD_OPT=False))
+    weights_only, fresh_opt = train(cfg.replace(WEIGHTS_LOAD_OPT=False), device="cpu")
     assert fresh_opt.count == 0
     for (k, a), b in zip(model.state_dict().items(), weights_only.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+
+
+def test_train_needs_a_gpu_unless_asked_for_the_cpu(cfg, monkeypatch):
+    """Without a device, train() runs on cuda:0 and raises where torch sees
+    no GPU, before it builds anything; it never falls back to the CPU."""
+    monkeypatch.setattr(trainer.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train(cfg, max_steps=1)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train(cfg, max_steps=1, device="cuda:0")
+    assert os.listdir(cfg.OUTPUT_DIR) == []

@@ -32,10 +32,8 @@ import jax.numpy as jnp
 import optax
 import torch
 
-from epipolar_transformers_tpu.config import update_from_dict
 from epipolar_transformers_tpu.engine.solver import make_optimizer as jax_make_optimizer
 from epipolar_transformers_tpu.models import ModelBuilder as JModelBuilder
-from epipolar_transformers_tpu_torch.config import flagship_cfg
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
 from epipolar_transformers_tpu_torch.data.pipeline import collate
 from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
@@ -43,6 +41,7 @@ from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, to_model_i
 from epipolar_transformers_tpu_torch.models import ModelBuilder
 from epipolar_transformers_tpu_torch.utils.jax_import import jax_state_dict, load_jax_variables
 from test_torch_resnet import randomize_variables, to_numpy_tree
+from torch_configs import config_pair
 
 BATCH = 8
 LR = 0.1
@@ -51,22 +50,23 @@ LR = 0.1
 ZERO_GRAD = "reference.epipolar_sampler.z.bias"
 
 
-def _cfg():
-    return update_from_dict(flagship_cfg(tiny=True), {
-        "SOLVER": {"OPTIMIZER": "sgd", "BASE_LR": LR, "IMS_PER_BATCH": BATCH}})
+def _cfgs():
+    """(port config, JAX config): the tiny flagship with one sgd step."""
+    return config_pair({"SOLVER": {"OPTIMIZER": "sgd", "BASE_LR": LR, "IMS_PER_BATCH": BATCH}},
+                       tiny_flagship=True)
 
 
 @pytest.fixture(scope="module")
 def step():
     """One JAX train step and one port train step on the same weights and
     batch; returns what the tests compare."""
-    cfg = _cfg()
+    cfg, jcfg = _cfgs()
     np.random.seed(0)  # the train items draw their reference view from it
     ds = SyntheticMultiview(cfg, is_train=True, n_samples=BATCH, seed=0)
     batch = collate([ds[i] for i in range(BATCH)])
     jinputs = {k: jnp.asarray(np.asarray(batch[k], np.float32)) for k in TRAIN_KEYS}
 
-    jmodel = JModelBuilder(cfg)
+    jmodel = JModelBuilder(jcfg)
     variables = jax.jit(lambda k: jmodel.init(k, jinputs, is_train=True))(jax.random.PRNGKey(0))
     rng = np.random.RandomState(0)
     variables = randomize_variables(to_numpy_tree(variables), rng)
@@ -81,7 +81,7 @@ def step():
 
     (jloss, jstats), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         variables["params"], variables["batch_stats"], jinputs)
-    tx = jax_make_optimizer(cfg, steps_per_epoch=1)
+    tx = jax_make_optimizer(jcfg, steps_per_epoch=1)
     updates, _ = tx.update(jgrads, tx.init(variables["params"]), variables["params"])
     jparams = optax.apply_updates(variables["params"], updates)
 
