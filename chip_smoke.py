@@ -12,17 +12,21 @@ run, each printed on its own lines:
      version at the flagship attention shape (B=8, 64x64, K=64, C=256): f32
      features on sample locations of the synthetic rig, bf16 features,
      random locations that cross the image edges, all samples out of range;
+     two runs bit-equal, and the forward's tiles on each path (the tile
+     kernel, or the per-query kernel) at the rig's and the random locations;
      then priors, priormul, prior similarity and softmax off at a smaller
      shape;
   3. the inference slice: the flagship ModelBuilder (epipolarposeR-50,
      256 px, K=64, 17 joints, bf16 convolutions) built on the card from a
      seed, 8 synthetic eval view groups through `engine.tester.predict` (the
-     launch counter must grow by one per forward), then the bench shape
+     launch counter must grow by one per forward, and most of the
+     forward's tiles must take the tile kernel), then the bench shape
      (batch 8) through the kernel path and the plain-attention path on the
      same weights;
   4. times with CUDA events after warm-up, in turns, kernel path against
-     plain path, before any training: the attention forward alone and the
-     slice forward at batch 8;
+     plain path, before any training: the attention forward alone (at the
+     rig's locations, f32 and bf16, and at the edge-crossing ones, where
+     every tile takes the per-query kernel) and the slice forward at batch 8;
   5. the CUDA backward kernels (through the autograd Function) against
      autograd of the plain version, at the flagship attention shape: f32
      with gradients to queries, keys and values, keys = values one tensor
@@ -32,7 +36,8 @@ run, each printed on its own lines:
      sums in a fixed order);
   6. the training slice: `engine.trainer.train` on the flagship config for
      TRAIN_STEPS steps of batch 8 (finite loss every step, one forward and
-     one backward kernel launch per step), a checkpoint and its resume, then
+     one backward kernel launch per step, most forward tiles on the tile
+     kernel), a checkpoint and its resume, then
      one step on the kernel path and one on the plain path from the same
      weights: under bf16 convolutions the loss and the whole-model gradient
      are compared, under f32 convolutions every parameter's gradient;
@@ -44,10 +49,12 @@ The line before the card line is a JSON object with both kernels'
 launches, errors and times, and each kernel's bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
 input read once, each output written once) over the memory rate, counted
-from this run's inputs.  No single PyTorch call computes either kernel's
-function, so `library_ms` is null.  Before the last line the script checks
-that nothing of the JAX package was imported; the last line is
-{"ok": true, "device": {...}}.  Any failed check raises.
+from this run's inputs (the operations per distinct live (query, key row)
+pair).  The forward's entry also holds `main_path_tiles`, its tiles on
+each path over the forwards of phases 3 and 6.  No single PyTorch call
+computes either kernel's function, so `library_ms` is null.  Before the
+last line the script checks that nothing of the JAX package was imported;
+the last line is {"ok": true, "device": {...}}.  Any failed check raises.
 """
 
 from __future__ import annotations
@@ -186,6 +193,7 @@ def attention_phase(cfg, device):
     """Kernel against plain version; returns the f32 flagship max abs error."""
     import torch
 
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
     from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
     from epipolar_transformers_tpu_torch.ops.epipolar_attention_cuda import (
         epipolar_attention_batch, epipolar_attention_plain_batch)
@@ -214,8 +222,22 @@ def attention_phase(cfg, device):
     rig = rig_sample_locs(cfg, B, device)
     rand_locs = torch.rand(B, K, H, W, 2, device=device, generator=gen) * 2.6 - 1.3
     f32 = feats(B, H, W, C, torch.float32)
+    attn.TILE_COUNTS.clear()
     err = check("f32 rig locs (flagship shape)", f32, rig, flagship)
+    rig_tiles = attn.tile_counts()
+    again = epipolar_attention_batch(*f32, rig, flagship)
+    if not all(torch.equal(a, b) for a, b in
+               zip(again, epipolar_attention_batch(*f32, rig, flagship))):
+        raise AssertionError("two forward runs on the same inputs differ")
+    attn.TILE_COUNTS.clear()
     check("f32 edge-crossing locs", f32, rand_locs, flagship)
+    rand_tiles = attn.tile_counts()
+    if rig_tiles[0] <= rig_tiles[1] or rand_tiles[0] != 0:
+        raise AssertionError(f"forward tiles (tile path, per-query path): rig {rig_tiles}, "
+                             f"edge-crossing {rand_tiles}")
+    log(f"  f32 rig locs: two runs bit-equal; forward tiles on the tile path / per-query "
+        f"path: rig {rig_tiles[0]} / {rig_tiles[1]}, edge-crossing {rand_tiles[0]} / "
+        f"{rand_tiles[1]}")
     check("bf16 rig locs", feats(B, H, W, C, torch.bfloat16), rig, flagship, tol=BF16_TOL)
     out, _, depth = epipolar_attention_batch(
         *f32, torch.full_like(rig, -9.0), flagship)
@@ -235,7 +257,7 @@ def attention_phase(cfg, device):
     ):
         check(f"{name} (2x16x16, K=16, C=64)", small, locs,
               AttentionParams(softmax_scale=k ** -0.5, **kw), pr)
-    return err, (f32, rig, flagship)
+    return err, (f32, rig, rand_locs, flagship)
 
 
 def randomize(model, images, seed):
@@ -307,13 +329,15 @@ def slice_phase(cfg, device):
 
     eval_ds = SyntheticMultiview(cfg, is_train=False, n_samples=EVAL_GROUPS, seed=SEED)
     attn.LAUNCHES = 0
+    attn.TILE_COUNTS.clear()
     outputs = predict(cfg, model, eval_batches(eval_ds), max_batches=EVAL_GROUPS)
     torch.cuda.synchronize(device)
-    launches = attn.LAUNCHES
+    launches, tiles = attn.LAUNCHES, attn.tile_counts()
     if len(outputs) != EVAL_GROUPS or launches != EVAL_GROUPS:
         raise AssertionError(f"{len(outputs)} forwards launched the kernel {launches} times")
     V, J = eval_ds.n_views, cfg.KEYPOINT.NUM_PTS
     h, w = cfg.KEYPOINT.HEATMAP_SIZE
+    check_main_path_tiles("predict", tiles, launches * V * -(-h * w // attn.TILE_QUERIES))
     K = cfg.EPIPOLAR.SAMPLESIZE
     shapes = {"heatmap_pred": (V, J, h, w), "batch_locs": (V, J, 2), "score_pred": (V, J),
               "corr_pos": (V, h, w, 2), "depth": (V, K, h, w)}
@@ -322,7 +346,8 @@ def slice_phase(cfg, device):
             if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
                 raise AssertionError(f"{k}: shape {tuple(out[k].shape)} (want {shape}) or non-finite")
     log(f"  predict: {EVAL_GROUPS} view groups of {V} views, all outputs finite with "
-        f"the expected shapes; kernel launches {launches} (one per forward)")
+        f"the expected shapes; kernel launches {launches} (one per forward), forward "
+        f"tiles on the tile path / per-query path {tiles[0]} / {tiles[1]}")
 
     def forward(plain: bool):
         with attention_path(model, plain), torch.inference_mode():
@@ -335,7 +360,15 @@ def slice_phase(cfg, device):
     close("slice depth", got["depth"], want["depth"], **F32_TOL)
     log(f"  bench batch {BENCH_BATCH}: kernel vs plain path heatmap_pred max abs err "
         f"{e_hm:.3g}, batch_locs within 1 px {ok_locs:.4f}, depth within f32 tol")
-    return launches, forward
+    return launches, tiles, forward
+
+
+def check_main_path_tiles(name, tiles, total):
+    """The main path's forwards put most of their tiles (tile path,
+    per-query path) on the tile kernel, and count every tile once."""
+    if sum(tiles) != total or tiles[0] <= tiles[1]:
+        raise AssertionError(f"{name}: forward tiles on the tile path / per-query path "
+                             f"{tiles[0]} / {tiles[1]}, of {total}")
 
 
 def attention_grads(fn, feats, locs, params, prior=None, need_kv=True):
@@ -469,11 +502,13 @@ def train_phase(cfg, device):
         tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
         attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
         t0 = time.perf_counter()
         model, optimizer = trainer.train(tcfg, max_steps=TRAIN_STEPS, device=device)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
+        tiles = attn.tile_counts()
         losses = [float(m) for msg in messages.messages for m in re.findall(r"\bloss (\S+)", msg)]
         if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
             raise AssertionError(f"train losses {losses}")
@@ -482,10 +517,14 @@ def train_phase(cfg, device):
                                  f"{launches} and the backward kernel {backward_launches} times")
         if next(model.parameters()).device != device:
             raise AssertionError("the trainer did not run on the card")
+        h, w = cfg.KEYPOINT.HEATMAP_SIZE
+        check_main_path_tiles("train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
+                              * -(-h * w // attn.TILE_QUERIES))
         log(f"  train: {TRAIN_STEPS} steps of batch {tcfg.SOLVER.IMS_PER_BATCH} in {wall:.1f} s "
             f"(first steps include cuDNN autotuning and the loader's start), loss "
             f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches "
-            f"{launches}, backward kernel launches {backward_launches} (one each per step)")
+            f"{launches}, backward kernel launches {backward_launches} (one each per step); "
+            f"forward tiles on the tile path / per-query path {tiles[0]} / {tiles[1]}")
 
         Checkpointer(out_dir).save("model_000", model, optimizer, epoch=1)
         resumed, resumed_opt = trainer.train(
@@ -511,7 +550,7 @@ def train_phase(cfg, device):
         with attention_path(model, plain):
             step(batch)
 
-    return launches, backward_launches, train_step
+    return launches, backward_launches, tiles, train_step
 
 
 def step_parity(cfg, device, per_param: bool):
@@ -580,23 +619,38 @@ def step_parity(cfg, device, per_param: bool):
     return model, batch
 
 
-def bound(feats, locs, backward: bool):
+def live_pairs(locs, distinct: bool = True) -> int:
+    """The (query, key row) pairs that the bilinear corners with a non-zero
+    weight touch at these locations: distinct per query, or every corner
+    hit (distinct=False; two samples of a line often share a row)."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops.epipolar_attention_cuda import _corners
+
+    B, K, H, W, _ = locs.shape
+    rows, wc = _corners(locs.reshape(B, K, H * W, 2), H, W)
+    rows = torch.where(wc != 0, rows, -1).reshape(B, H * W, K * 4)
+    if not distinct:
+        return int((rows >= 0).sum())
+    rows = torch.sort(rows, dim=-1).values
+    new = torch.ones_like(rows, dtype=torch.bool)
+    new[..., 1:] = rows[..., 1:] != rows[..., :-1]
+    return int((new & (rows >= 0)).sum())
+
+
+def bound(feats, locs, backward: bool, distinct: bool = True):
     """(ms, "operations" or "bytes"): the least time the card could take for
     the attention forward (queries, keys, values) or backward (queries and
     keys = values one tensor, all gradients) on these f32 inputs.  The
-    operations count every bilinear corner with a non-zero weight at these
-    locations, 2C flops per row it touches: the forward reads each corner
-    row twice (similarity, output), the backward five times (similarity,
-    g, dfeat1, and the key and value gradients).  The bytes read each input
-    once and write each output once."""
-    from epipolar_transformers_tpu_torch.ops.quad_gather import axis_slot_weights
-
+    operations count 2C flops per distinct live (query, key row) pair at
+    these locations (the least work any implementation must do; with
+    distinct=False per live corner hit, as PR 1-3 counted) for each time
+    the function reads that row: the forward twice (similarity, output), the
+    backward five times (similarity, g, dfeat1, and the key and value
+    gradients).  The bytes read each input once and write each output once."""
     B, K, H, W, _ = locs.shape
     C = feats[0].shape[-1]
-    _, wx0, wx1 = axis_slot_weights((locs[..., 0] + 1) / 2 * (W - 1), W)
-    _, wy0, wy1 = axis_slot_weights((locs[..., 1] + 1) / 2 * (H - 1), H)
-    corners = sum(int(((wy * wx) != 0).sum()) for wy in (wy0, wy1) for wx in (wx0, wx1))
-    flops = corners * 2 * C * (5 if backward else 2)
+    flops = live_pairs(locs, distinct) * 2 * C * (5 if backward else 2)
     feature = B * H * W * C * 4
     # inputs (features, locations; the backward's dout) and outputs (out and
     # depth; the backward's dfeat1 and keys' = values' gradient)
@@ -638,10 +692,10 @@ def main() -> int:
 
     cfg = flagship_cfg()
     log("[2] attention kernel vs plain version")
-    err, (f32, rig, params) = attention_phase(cfg, device)
+    err, (f32, rig, rand_locs, params) = attention_phase(cfg, device)
 
     log("[3] slice: flagship multiview inference")
-    launches, forward = slice_phase(cfg, device)
+    launches, slice_tiles, forward = slice_phase(cfg, device)
 
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
@@ -650,6 +704,11 @@ def main() -> int:
                           lambda: attn.epipolar_attention_plain_batch(*f32, rig, params))
     log(f"    attention alone, B=8 64x64 K=64 C=256 f32: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms" + ("  (kernel SLOWER)" if k_ms > p_ms else ""))
+    ke_ms, pe_ms = in_turns(lambda: attn.epipolar_attention_batch(*f32, rand_locs, params),
+                            lambda: attn.epipolar_attention_plain_batch(*f32, rand_locs, params))
+    log(f"    attention alone, same shape f32, edge-crossing locs (per-query kernel): "
+        f"kernel {ke_ms:.4f} ms, plain {pe_ms:.4f} ms"
+        + ("  (kernel SLOWER)" if ke_ms > pe_ms else ""))
     bf16 = [t.to(torch.bfloat16) for t in f32]
     kb_ms, pb_ms = in_turns(lambda: attn.epipolar_attention_batch(*bf16, rig, params),
                             lambda: attn.epipolar_attention_plain_batch(*bf16, rig, params))
@@ -665,7 +724,7 @@ def main() -> int:
     bwd_err = backward_phase(cfg, device)
 
     log("[6] training slice: engine.trainer.train on the flagship config")
-    train_launches, backward_launches, train_step = train_phase(cfg, device)
+    train_launches, backward_launches, train_tiles, train_step = train_phase(cfg, device)
 
     log(f"[4] times, continued after [6]: backward and train step, {card}")
 
@@ -698,14 +757,21 @@ def main() -> int:
 
     fwd_bound = bound(f32, rig, backward=False)
     bwd_bound = bound(f32[:2], rig, backward=True)
+    fwd_hits, bwd_hits = (bound(f, rig, b, distinct=False)[0]
+                          for f, b in ((f32, False), (f32[:2], True)))
     log(f"    bounds at these inputs: forward {fwd_bound[0]:.4f} ms, backward "
-        f"{bwd_bound[0]:.4f} ms (set by {fwd_bound[1]}, {bwd_bound[1]})")
+        f"{bwd_bound[0]:.4f} ms (set by {fwd_bound[1]}, {bwd_bound[1]}; "
+        f"{live_pairs(rig)} distinct live (query, key row) pairs; counted per live "
+        f"corner hit, {live_pairs(rig, False)} of them, as before: {fwd_hits:.4f} and "
+        f"{bwd_hits:.4f} ms)")
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
         "replaces": REPLACES, "launches": launches + train_launches, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-        "library_ms": None,
+        "library_ms": None, "main_path_tiles": {
+            "tile_path": slice_tiles[0] + train_tiles[0],
+            "per_query_path": slice_tiles[1] + train_tiles[1]},
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",

@@ -42,16 +42,53 @@
 // under priormul with a zero prior, p itself cannot be recovered from w.
 //
 // What bounds them (reckoned from the shapes): at the flagship shape (B=8,
-// 64x64, K=64, C=256, f32) the least time is set by the operations, 0.128 ms
-// for the forward (8.6 GFLOP at the 67 TFLOP/s of f32 outside the tensor
-// cores) and 0.32 ms for the backward (21.5 GFLOP); their bytes (159 MB and
-// 252 MB at 3.35 TB/s) take less.  What the kernels really move is gathered
-// rows: each query reads 4 x K = 256 corner rows for the keys and as many for
-// the values, ~17 GB per batch in f32, served from L1 and L2 because rows
-// along neighbouring lines repeat.  So both are bound by gather bandwidth,
-// not FLOPs or HBM (the Gram form the forward replaces does ~137 GFLOP of
-// matmul per batch).  The design keeps every gathered row a coalesced load
-// and everything else in registers.
+// 64x64, K=64, C=256, f32) and the synthetic rig's locations the least time
+// is set by the operations, 2C flops per distinct live (query, key row)
+// pair for each read of that row (~126 pairs a query): 0.063 ms for the
+// forward (two reads, at the 67 TFLOP/s of f32 outside the tensor cores)
+// and 0.157 ms for the backward (five); their bytes (159 MB and 252 MB at
+// 3.35 TB/s) take less.  The per-query kernels instead gather one row per
+// live corner, ~209 a query, each for the keys and again for the values,
+// ~17 GB per batch in f32 served from L1 and L2: they are bound by gather
+// bandwidth, not FLOPs or HBM (the Gram form the forward replaces does ~137
+// GFLOP of matmul per batch).
+//
+// The forward's schedule.  A warp per query (the per-query kernel below)
+// loads one row per live corner and uses each loaded float for one FMA: 4
+// bytes per FMA, a quarter of f32 peak even from L1.  But every pixel on
+// one epipolar line of the reference view maps to the same line here, and
+// neighbouring lines of the pencil differ by a fraction of a pixel, so a
+// tile of queries grouped by line touches few distinct key rows: at the
+// flagship rig ~194 rows for 64 queries, whose live corners make ~10,800
+// row loads.  The forward therefore runs three kernels:
+//
+//   group_kernel: per item, each query's line key (the angle of the segment
+//     from its first to its last sample, in HW bins) and a counting sort by
+//     it, ties in query order.  An item whose samples do not lie on lines
+//     (random locations) is not sorted.  The angle identifies a line only
+//     where the epipole is a finite point: a pencil of parallel or nearly
+//     parallel lines (an epipole far outside the image, a rectified pair)
+//     puts many lines in one bin, interleaved in query order, and their
+//     tiles' unions pass kMaxUnion, so those tiles take the per-query kernel.
+//     The cap and the rule below were measured on the synthetic rig only.
+//   tile_forward_kernel: one CTA per tile of kTileQ consecutive queries of
+//     that order.  The union of the tile's live corner rows (a bitmap over
+//     the item's rows, compacted in row order); the Gram G_t (queries x up
+//     to 256 union slots) from cp.async stages in shared memory, each key
+//     row loaded once per tile; sims from G_t's live-corner slots, the
+//     weights, depth; N_t[q, slot] = sum_{k,c} w_k w_c in a fixed order;
+//     out = N_t V_union.  f32 runs both products on CUDA cores (no TF32), so
+//     it differs from the plain version only in summation order; bf16 runs
+//     them on tensor cores (mma.sync) with f32 accumulation, its products
+//     exact.  A tile of an item without lines, or whose union exceeds
+//     kMaxUnion rows, is left: the rule is U <= 256, which every tile at the
+//     rig meets (max 224) and none at random locations (~3,700).
+//   epipolar_attention_kernel: one warp per query, in query order, for the
+//     queries the tile kernel left (all of them where the shape exceeds
+//     kMaxTileHW rows an item).
+//
+// Every run gives the same bits: the sort is stable, each tile sums in a
+// fixed order, and which kernel writes a query depends only on the data.
 //
 // The key and value gradients are the transpose of the queries' gathers: a
 // scatter of 2 x 2.1 G adds into corner rows that neighbouring queries
@@ -90,10 +127,13 @@
 //
 // At the flagship shape on an H100 (f32, keys = values, the synthetic rig's
 // locations) the backward takes ~2.95 ms: A ~1.65, B ~0.28, C ~0.99 ms,
-// against a bound of ~0.26 ms.
+// against a bound of ~0.16 ms.
 //
-// Two runs on the same inputs give bit-equal gradients.  Scratch (counts,
-// CSR, entries, partials) comes from the caller, sized by
+// Two runs on the same inputs give bit-equal gradients.
+//
+// Scratch (the forward's query order and flags; the backward's counts, CSR,
+// entries, partials) comes from the caller, sized by
+// epipolar_attention_forward_scratch_bytes and
 // epipolar_attention_backward_scratch_bytes.
 //
 // Shape of the per-query kernels: one warp per query pixel.  Lane l holds
@@ -124,6 +164,14 @@ constexpr int kUnroll = 4;         // entries whose rows a lane loads at once
 constexpr int kScanThreads = 1024;
 // the fill keeps one cursor per key row of an item in shared memory
 constexpr int kMaxKeyRows = 227 * 1024 / 4;
+// the forward's tile schedule
+constexpr int kTileQ = 64;         // queries per tile (32 measured slower on an H100)
+constexpr int kMaxUnion = 256;     // key rows a tile may stage: 8 groups of 32
+constexpr int kMaxTileHW = 16384;  // key rows of an item the tile path takes
+constexpr int kTileThreads = 256;  // 8 warps; warp w owns kTileQ / 8 queries
+constexpr int kRowsPerWarp = kTileQ / 8;
+constexpr int kValueRows = 16;     // value rows per stage of out = N V
+constexpr int kGroupThreads = 1024;
 
 // quad_gather._axis_slot_weights: base in [0, size-1]; w0/w1 the weights of
 // the slot-0/slot-1 corners, zero for a corner outside [0, size-1].
@@ -247,6 +295,14 @@ struct Params {
   int use_sim;   // similarity != 'prior'
   int softmax;   // softmax enabled
   int priormul;  // multiply the prior after the softmax
+};
+
+// The forward's tile schedule, in the caller's scratch.
+struct Schedule {
+  int* tile_counts;     // [tiles on the tile path, on the per-query path]
+  int* item_lines;      // (B) 1 where the item's samples lie on lines
+  int* perm;            // (B, HW) each item's queries in line order
+  unsigned char* done;  // (B, HW) 1 where the tile path wrote the query
 };
 
 // The transpose of the backward: the CSR map from key rows to entries, and
@@ -385,12 +441,13 @@ __device__ __forceinline__ void attention_weights(
 // to 3 (80 registers, as ptxas picks without a bound)
 template <typename T, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, sizeof(T) == 2 ? 4 : 3)
-epipolar_attention_kernel(const Params p) {
+epipolar_attention_kernel(const Params p, const unsigned char* done) {
   const int lane = threadIdx.x & 31;
   const int HW = p.H * p.W;
   const long long gq =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (gq >= (long long)p.B * HW) return;  // uniform across the warp
+  if (done != nullptr && done[gq]) return;  // the tile path wrote it
   const int b = (int)(gq / HW);
   const int q = (int)(gq - (long long)b * HW);
   const int C = 32 * NV;
@@ -451,6 +508,639 @@ epipolar_attention_kernel(const Params p) {
     }
   }
   store_row<NV>(p.out + (item + q) * C + lane * NV, acc);
+}
+
+// ---- forward, tile path: grouping ----------------------------------------
+
+__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The four corners of sample k of query q: key rows and weights, zero for a
+// corner off the image.  The weights are the products broadcast_corners
+// forms, so every kernel agrees on every zero.
+struct SampleCorners {
+  int row[4];
+  float wc[4];
+};
+
+__device__ __forceinline__ SampleCorners sample_corners(const Params& p, int b,
+                                                        int q, int k) {
+  SampleCorners s;
+  int base = 0;
+  float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
+  if (k < p.K) sample_slot(p, b, q, k, base, x0, x1, y0, y1);
+  s.row[0] = base;
+  s.row[1] = base + 1;
+  s.row[2] = base + p.W;
+  s.row[3] = base + p.W + 1;
+  s.wc[0] = y0 * x0;
+  s.wc[1] = y0 * x1;
+  s.wc[2] = y1 * x0;
+  s.wc[3] = y1 * x1;
+  return s;
+}
+
+constexpr double kPi = 3.141592653589793;
+
+// The line key of query q: the angle in [0, pi) of the segment from its
+// first to its last sample, in HW bins.  A line without extent (it misses
+// the image, so every sample sits at the far sentinel; or K == 1) takes bin
+// HW.  _line_bins in ops/epipolar_attention_cuda.py computes the same.
+__device__ __forceinline__ int line_bin(const Params& p, int b, int q) {
+  const int HW = p.H * p.W;
+  const float* first = p.locs + ((size_t)b * p.K * HW + q) * 2;
+  const float* last = p.locs + (((size_t)b * p.K + p.K - 1) * HW + q) * 2;
+  const float dx = __fsub_rn((last[0] + 1.0f) / 2.0f * (float)(p.W - 1),
+                             (first[0] + 1.0f) / 2.0f * (float)(p.W - 1));
+  const float dy = __fsub_rn((last[1] + 1.0f) / 2.0f * (float)(p.H - 1),
+                             (first[1] + 1.0f) / 2.0f * (float)(p.H - 1));
+  if (dx == 0.f && dy == 0.f) return HW;
+  float a = atan2f(dy, dx);
+  if (a < 0.f) a += (float)kPi;
+  return min(max((int)(a * (float)((double)HW / kPi)), 0), HW - 1);
+}
+
+// Whether the samples of query q lie on the segment from its first to its
+// last (as epipolar_sample_locs spaces them): the middle sample within half
+// a pixel of its place on that segment.
+__device__ __forceinline__ bool on_line(const Params& p, int b, int q) {
+  if (p.K < 3) return true;
+  const int HW = p.H * p.W, mid = p.K / 2;
+  const float* l = p.locs + ((size_t)b * p.K * HW + q) * 2;
+  const size_t step = (size_t)HW * 2;
+  const float sx = 0.5f * (float)(p.W - 1), sy = 0.5f * (float)(p.H - 1);
+  const float t = (float)mid / (float)(p.K - 1);
+  const float x0 = l[0] * sx, y0 = l[1] * sy;
+  const float x1 = l[(p.K - 1) * step] * sx, y1 = l[(p.K - 1) * step + 1] * sy;
+  const float xm = l[mid * step] * sx, ym = l[mid * step + 1] * sy;
+  return fabsf(x0 + (x1 - x0) * t - xm) <= 0.5f && fabsf(y0 + (y1 - y0) * t - ym) <= 0.5f;
+}
+
+// One block per item: each query's line key, a counting sort by key (the
+// histogram in shared memory, a block scan), and a fill by one warp in
+// query order, ranking equal keys within a step with __match_any_sync, so
+// ties keep query order and the order is the same on every run.  An item
+// with fewer than half its queries' samples on lines (random locations)
+// has no lines to group by: it is not sorted, and the tile kernel leaves
+// all its tiles to the per-query kernel.
+__global__ void __launch_bounds__(kGroupThreads) group_kernel(const Params p,
+                                                               const Schedule sch) {
+  extern __shared__ int group_smem[];
+  __shared__ int warp_total[kGroupThreads / 32];
+  __shared__ int lines;
+  const int HW = p.H * p.W, bins = HW + 1;
+  int* key = group_smem;          // HW
+  int* cursor = group_smem + HW;  // bins
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (b == 0 && threadIdx.x < 2) sch.tile_counts[threadIdx.x] = 0;
+  if (threadIdx.x == 0) lines = 0;
+  for (int r = threadIdx.x; r < bins; r += kGroupThreads) cursor[r] = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int q = threadIdx.x; q < HW; q += kGroupThreads) {
+    key[q] = line_bin(p, b, q);
+    mine += on_line(p, b, q);
+    sch.done[(size_t)b * HW + q] = 0;
+  }
+  atomicAdd(&lines, mine);
+  __syncthreads();
+  const bool grouped = 2 * lines >= HW;
+  if (threadIdx.x == 0) sch.item_lines[b] = grouped;
+  if (!grouped) return;  // uniform across the block
+  for (int q = threadIdx.x; q < HW; q += kGroupThreads) atomicAdd(&cursor[key[q]], 1);
+  __syncthreads();
+  // exclusive scan of the bin counts: a contiguous segment per thread
+  const int seg = (bins + kGroupThreads - 1) / kGroupThreads;
+  const int r0 = min((int)threadIdx.x * seg, bins), r1 = min(r0 + seg, bins);
+  int sum = 0;
+  for (int r = r0; r < r1; ++r) sum += cursor[r];
+  const int incl = warp_inclusive_scan(sum, lane);
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) warp_total[lane] = warp_inclusive_scan(warp_total[lane], lane);
+  __syncthreads();
+  int run = incl - sum + (warp > 0 ? warp_total[warp - 1] : 0);
+  for (int r = r0; r < r1; ++r) {
+    const int c = cursor[r];
+    cursor[r] = run;
+    run += c;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const unsigned lower = (1u << lane) - 1u;
+  int* perm = sch.perm + (size_t)b * HW;
+  for (int base = 0; base < HW; base += 32) {
+    const int q = base + lane;
+    const int k = q < HW ? key[q] : -1;
+    const unsigned peers = __match_any_sync(kFull, k);
+    int pos = 0;
+    if (q < HW) pos = cursor[k] + __popc(peers & lower);
+    __syncwarp();
+    if (q < HW && (peers & lower) == 0u) cursor[k] += __popc(peers);
+    __syncwarp();
+    if (q < HW) perm[pos] = q;
+  }
+}
+
+// ---- forward, tile path: one CTA per tile of kTileQ queries ---------------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bf16 tensor cores: D += A B with A 16x16 (row-major), B 16x8 (col-major),
+// bf16 operands, f32 accumulation (PTX ISA, mma.m16n8k16 fragments: lane
+// l = 4 g + t holds A rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t +
+// 9; B rows 2t, 2t + 1 and 2t + 8, 2t + 9 of column g; D rows g and g + 8,
+// columns 2t, 2t + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1,
+                                         unsigned a2, unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The B fragment of rows [k0, k0 + 16) x columns [n0, n0 + 8) of a
+// row-major bf16 matrix in shared memory (lanes 0-15 address its rows).
+__device__ __forceinline__ void ldmatrix_b_trans(const void* row, unsigned& b0,
+                                                 unsigned& b1) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+
+// Two f32 as a bf16 pair, rounded to nearest (x in the low half), and what
+// the rounding left: x = hi + lo to ~16 bits.
+__device__ __forceinline__ unsigned bf16_pair(float x, float y, float& rx, float& ry) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  rx = x - f.x;
+  ry = y - f.y;
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The slot of key row `row` in the tile's union (rows in row order).
+__device__ __forceinline__ int union_slot(const unsigned* bits, const int* prefix,
+                                          int row) {
+  const int w = row >> 5;
+  return prefix[w] + __popc(bits[w] & ((1u << (row & 31)) - 1u));
+}
+
+// Shared memory of the tile kernel, in 4-byte words.  The big region holds
+// either the two stages of the Gram product (the tile's query rows and the
+// union's key rows, CW words of each per stage), or G (then N, in place)
+// and two stages of kValueRows value rows.  Rows are padded so that the
+// lanes of a warp hit distinct banks: f32 reads one word of 32 rows (CW + 1
+// words a row); bf16 reads mma fragments, one word of 8 rows x 4 (CW + 4)
+// and value rows through ldmatrix, 16 bytes of 8 rows (WR + 4).
+template <typename T, int NV>
+struct TileShape {
+  static constexpr bool kMma = sizeof(T) == 2;   // bf16 on tensor cores
+  static constexpr int E = 4 / (int)sizeof(T);  // features per word
+  static constexpr int WR = 32 * NV / E;        // words per feature row
+  static constexpr int CW = WR < 32 ? WR : 32;  // words per stage of G
+  static constexpr int GS = kMaxUnion + 1;      // row stride of G and N
+  static constexpr int QKS = CW + (kMma ? 4 : 1);  // row stride of a G stage
+  static constexpr int VS = WR + (kMma ? 4 : 0);   // row stride of a value stage
+  static constexpr int kStage = (kTileQ + kMaxUnion) * QKS;
+  static constexpr int kGram = 2 * kStage;
+  static constexpr int kOut = kTileQ * GS + 2 * kValueRows * VS;
+  static constexpr int kBig = ((kGram > kOut ? kGram : kOut) + 3) / 4 * 4;
+  static size_t bytes(int HW) {  // big region, bitmap, prefix, rows, queries, scratch
+    return (size_t)(kBig + 2 * ((HW + 31) / 32) + kMaxUnion + kTileQ + kTileThreads + 1) * 4;
+  }
+};
+
+// (c) on CUDA cores (f32): G = F1_tile F2k_union^T over the union's first
+// 32 NG columns, each warp holding kRowsPerWarp query rows x NG columns
+// (lane + 32 n) in registers; stage_g(chunk, buf) stages CW words of every
+// row.
+template <int NV, int NG, typename Stage>
+__device__ __forceinline__ void gram_fma(const unsigned* stages, Stage stage_g, float* G,
+                                         int warp, int lane) {
+  using S = TileShape<float, NV>;
+  constexpr int CW = S::CW, QKS = S::QKS, kChunks = S::WR / CW;
+  float acc[kRowsPerWarp][NG];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int n = 0; n < NG; ++n) acc[i][n] = 0.f;
+  stage_g(0, 0);
+  for (int chunk = 0; chunk < kChunks; ++chunk) {
+    if (chunk + 1 < kChunks) {
+      stage_g(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = reinterpret_cast<const float*>(stages + (chunk & 1) * S::kStage);
+    const float* qs = st + warp * kRowsPerWarp * QKS;
+    const float* ks = st + (kTileQ + lane) * QKS;
+#pragma unroll 4
+    for (int w = 0; w < CW; ++w) {
+      float qv[kRowsPerWarp], kv[NG];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) qv[i] = qs[i * QKS + w];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) kv[n] = ks[n * 32 * QKS + w];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+        for (int n = 0; n < NG; ++n) acc[i][n] = fmaf(qv[i], kv[n], acc[i][n]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int n = 0; n < NG; ++n) G[(warp * kRowsPerWarp + i) * S::GS + lane + 32 * n] = acc[i][n];
+}
+
+// (c) on tensor cores (bf16): warp w takes query rows 16 (w % kMBlocks) and
+// kNT column tiles of 8 from 8 kNT (w / kMBlocks); tiles past the union
+// are skipped.  G's rows are shared by several warps, so the block syncs.
+template <int NV, typename Stage>
+__device__ __forceinline__ void gram_mma(const unsigned* stages, Stage stage_g, float* G,
+                                         int U, int warp, int lane) {
+  using S = TileShape<__nv_bfloat16, NV>;
+  constexpr int CW = S::CW, QKS = S::QKS, kChunks = S::WR / CW;
+  constexpr int kMBlocks = kTileQ / 16, kNT = 4 * kMBlocks;  // 256 columns / (8 / kMBlocks) warps
+  const int m0 = 16 * (warp % kMBlocks), n0 = 8 * kNT * (warp / kMBlocks);
+  const int g = lane >> 2, t = lane & 3;
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  stage_g(0, 0);
+  for (int chunk = 0; chunk < kChunks; ++chunk) {
+    if (chunk + 1 < kChunks) {
+      stage_g(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned* st = stages + (chunk & 1) * S::kStage;
+    const unsigned* qs = st + (m0 + g) * QKS + t;
+#pragma unroll
+    for (int kw = 0; kw < CW; kw += 8) {  // 16 features a step
+      const unsigned a0 = qs[kw], a1 = qs[8 * QKS + kw];
+      const unsigned a2 = qs[kw + 4], a3 = qs[8 * QKS + kw + 4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (n0 + 8 * j >= U) break;  // uniform across the warp
+        const unsigned* ks = st + (kTileQ + n0 + 8 * j + g) * QKS + t + kw;
+        mma_bf16(acc[j], a0, a1, a2, a3, ks[0], ks[4]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    float* row = G + (m0 + g) * S::GS + n0 + 8 * j + 2 * t;
+    row[0] = acc[j][0];
+    row[1] = acc[j][1];
+    row[8 * S::GS] = acc[j][2];
+    row[8 * S::GS + 1] = acc[j][3];
+  }
+  __syncthreads();
+}
+
+// (e) on CUDA cores (f32): out = N V_union, each warp holding
+// kRowsPerWarp query rows x NV channels (lane + 32 n) in registers.
+template <int NV, typename Stage>
+__device__ __forceinline__ void out_fma(const unsigned* vstages, Stage stage_v, int vchunks,
+                                        const float* G, const int* qidx, int nq,
+                                        float* out, int warp, int lane) {
+  using S = TileShape<float, NV>;
+  constexpr int C = 32 * NV;
+  float acc[kRowsPerWarp][NV];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int n = 0; n < NV; ++n) acc[i][n] = 0.f;
+  for (int chunk = 0; chunk < vchunks; ++chunk) {
+    if (chunk + 1 < vchunks) {
+      stage_v(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* vs = reinterpret_cast<const float*>(vstages + (chunk & 1) * kValueRows * S::VS);
+    const float* nrow = G + warp * kRowsPerWarp * S::GS + chunk * kValueRows;
+#pragma unroll 4
+    for (int r = 0; r < kValueRows; ++r) {
+      float nv[kRowsPerWarp], v[NV];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) nv[i] = nrow[i * S::GS + r];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) v[n] = vs[r * S::VS + lane + 32 * n];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+        for (int n = 0; n < NV; ++n) acc[i][n] = fmaf(nv[i], v[n], acc[i][n]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp * kRowsPerWarp + i;
+    if (r >= nq) break;
+    float* o = out + (size_t)qidx[r] * C + lane;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) o[32 * n] = acc[i][n];
+  }
+}
+
+// (e) on tensor cores (bf16 values): warp w takes query rows 16 (w %
+// kMBlocks) and kNT column tiles of 8 from 8 kNT (w / kMBlocks).  N is f32:
+// it enters as hi + lo, two bf16 products, so out keeps ~16 bits of N where
+// one bf16 operand would keep 8.
+template <int NV, typename Stage>
+__device__ __forceinline__ void out_mma(const unsigned* vstages, Stage stage_v, int vchunks,
+                                        const float* G, const int* qidx, int nq,
+                                        float* out, int warp, int lane) {
+  using S = TileShape<__nv_bfloat16, NV>;
+  constexpr int C = 32 * NV, kMBlocks = kTileQ / 16, kNT = C * kMBlocks / 64;
+  const int m0 = 16 * (warp % kMBlocks), n0 = 8 * kNT * (warp / kMBlocks);
+  const int g = lane >> 2, t = lane & 3;
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int chunk = 0; chunk < vchunks; ++chunk) {
+    if (chunk + 1 < vchunks) {
+      stage_v(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned* vs = vstages + (chunk & 1) * kValueRows * S::VS;
+    const float* top = G + (m0 + g) * S::GS + chunk * kValueRows + 2 * t;  // row g
+    const float* bot = top + 8 * S::GS;                                     // row g + 8
+    float r0, r1, r2, r3, r4, r5, r6, r7;
+    const unsigned a0 = bf16_pair(top[0], top[1], r0, r1);
+    const unsigned a1 = bf16_pair(bot[0], bot[1], r2, r3);
+    const unsigned a2 = bf16_pair(top[8], top[9], r4, r5);
+    const unsigned a3 = bf16_pair(bot[8], bot[9], r6, r7);
+    const unsigned l0 = bf16_pair(r0, r1), l1 = bf16_pair(r2, r3);
+    const unsigned l2 = bf16_pair(r4, r5), l3 = bf16_pair(r6, r7);
+    // lanes 0-15 address the 16 value rows of the chunk
+    const unsigned* vrow = vs + (lane & 15) * S::VS + n0 / 2;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      unsigned b0, b1;
+      ldmatrix_b_trans(vrow + 4 * j, b0, b1);
+      mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
+      mma_bf16(acc[j], l0, l1, l2, l3, b0, b1);
+    }
+    __syncthreads();
+  }
+  const int ra = m0 + g, rb = m0 + g + 8;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (ra < nq)
+      *reinterpret_cast<float2*>(out + (size_t)qidx[ra] * C + col) = make_float2(acc[j][0], acc[j][1]);
+    if (rb < nq)
+      *reinterpret_cast<float2*>(out + (size_t)qidx[rb] * C + col) = make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// (a) the union of the tile's live corner rows, as a bitmap over the item's
+// key rows compacted in row order; a tile whose union exceeds kMaxUnion is
+// left to the per-query kernel.  (b, c) G = F1_tile F2k_union^T (kTileQ x
+// up to 256) from cp.async stages of CW words (gram_fma, gram_mma).  (d)
+// one warp per query: sims from G's live-corner slots, the weights as the
+// per-query kernel forms them, depth, and N's row in place of G's, summed
+// in a fixed order (sample group, corner, lane: equal slots within a step
+// are ranked with __match_any_sync and added by their first lane); the
+// next query's slot data loads meanwhile.  (e) out = N V_union from
+// cp.async stages of kValueRows rows (out_fma, out_mma).  Shared memory
+// (TileShape) holds two CTAs on an SM.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kTileThreads, 2)
+tile_forward_kernel(const Params p, const Schedule sch) {
+  using S = TileShape<T, NV>;
+  constexpr int WR = S::WR, CW = S::CW, GS = S::GS;
+  constexpr int C = 32 * NV;
+  const int HW = p.H * p.W, HWW = (HW + 31) / 32, K = p.K, W = p.W;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nq = min(kTileQ, HW - tile * kTileQ);
+  const size_t item = (size_t)b * HW;
+  if (!sch.item_lines[b]) {  // uniform: no lines to group by
+    if (tid == 0) atomicAdd(&sch.tile_counts[1], 1);
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  float* big = reinterpret_cast<float*>(tile_smem);
+  unsigned* bits = reinterpret_cast<unsigned*>(big + S::kBig);
+  int* prefix = reinterpret_cast<int*>(bits + HWW);
+  int* rows = prefix + HWW;
+  int* qidx = rows + kMaxUnion;
+  float* scratch = reinterpret_cast<float*>(qidx + kTileQ);
+  int* nunion = reinterpret_cast<int*>(scratch + kTileThreads);
+
+  // (a)
+  if (tid < nq) qidx[tid] = sch.perm[item + tile * kTileQ + tid];
+  for (int i = tid; i < HWW; i += kTileThreads) bits[i] = 0u;
+  __syncthreads();
+  for (int e = tid; e < kTileQ * K; e += kTileThreads) {
+    const int r = e % kTileQ, k = e / kTileQ;
+    if (r >= nq) continue;
+    const SampleCorners s = sample_corners(p, b, qidx[r], k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (s.wc[c] != 0.f) atomicOr(&bits[s.row[c] >> 5], 1u << (s.row[c] & 31));
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive prefix of the words' populations
+    const int per = (HWW + 31) / 32;
+    const int w0 = min(lane * per, HWW), w1 = min(w0 + per, HWW);
+    int sum = 0;
+    for (int i = w0; i < w1; ++i) sum += __popc(bits[i]);
+    const int incl = warp_inclusive_scan(sum, lane);
+    int run = incl - sum;
+    for (int i = w0; i < w1; ++i) {
+      prefix[i] = run;
+      run += __popc(bits[i]);
+    }
+    if (lane == 31) *nunion = incl;
+  }
+  __syncthreads();
+  const int U = *nunion;
+  if (U > kMaxUnion) {  // uniform across the block
+    if (tid == 0) atomicAdd(&sch.tile_counts[1], 1);
+    return;
+  }
+  if (tid == 0) atomicAdd(&sch.tile_counts[0], 1);
+  if (tid < nq) sch.done[item + qidx[tid]] = 1;
+  for (int i = tid; i < HWW; i += kTileThreads) {
+    int s = prefix[i];
+    for (unsigned m = bits[i]; m != 0u; m &= m - 1u) rows[s++] = i * 32 + __ffs(m) - 1;
+  }
+  __syncthreads();
+
+  const unsigned* f1w = static_cast<const unsigned*>(p.f1);
+  const unsigned* f2kw = static_cast<const unsigned*>(p.f2k);
+  const unsigned* f2vw = static_cast<const unsigned*>(p.f2v);
+  unsigned* stages = reinterpret_cast<unsigned*>(big);
+  float* G = big;  // (kTileQ, GS): G, then N in place
+  unsigned* vstages = reinterpret_cast<unsigned*>(big + kTileQ * GS);
+  const int upad = (U + kValueRows - 1) / kValueRows * kValueRows;
+
+  // (b, c)
+  if (p.use_sim && U > 0) {  // uniform across the block
+    auto stage_g = [&](int chunk, int buf) {
+      unsigned* dst = stages + buf * S::kStage;
+      for (int e = tid; e < (kTileQ + U) * CW; e += kTileThreads) {
+        const int r = e / CW, w = e - r * CW;
+        const unsigned* src;
+        if (r < kTileQ) {
+          if (r >= nq) continue;
+          src = f1w + (item + qidx[r]) * WR;
+        } else {
+          src = f2kw + (item + rows[r - kTileQ]) * WR;
+        }
+        cp_async4(dst + r * S::QKS + w, src + chunk * CW + w);
+      }
+      cp_async_commit();
+    };
+    if constexpr (S::kMma) {
+      gram_mma<NV>(stages, stage_g, G, U, warp, lane);
+    } else {  // the 32-column groups the union needs; at the rig U <= 224
+      if (U <= 192)
+        gram_fma<NV, 6>(stages, stage_g, G, warp, lane);
+      else if (U <= 224)
+        gram_fma<NV, 7>(stages, stage_g, G, warp, lane);
+      else
+        gram_fma<NV, 8>(stages, stage_g, G, warp, lane);
+    }
+  }
+
+  // the first value rows load while the weights are formed
+  auto stage_v = [&](int chunk, int buf) {
+    unsigned* dst = vstages + buf * kValueRows * S::VS;
+    for (int e = tid; e < kValueRows * (WR / 4); e += kTileThreads) {
+      const int r = e / (WR / 4), w = 4 * (e - r * (WR / 4));
+      const int u = chunk * kValueRows + r;
+      if (u < U)
+        cp_async16(dst + r * S::VS + w, f2vw + (item + rows[u]) * WR + w);
+      else
+        *reinterpret_cast<uint4*>(dst + r * S::VS + w) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+  };
+  const int vchunks = upad / kValueRows;
+  if (vchunks > 0) stage_v(0, 0);
+
+  // (d)
+  float* sc = scratch + warp * 32;
+  const unsigned lower = (1u << lane) - 1u;
+  const int first = warp * kRowsPerWarp;
+  Slots next;  // the next query's slot data loads while this one's is used
+  if (first < nq) load_slots(p, b, qidx[first], lane, next);
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = first + i;
+    if (r >= nq) break;  // uniform across the warp
+    const int q = qidx[r];
+    float* g = G + r * GS;
+    const Slots sl = next;
+    if (i + 1 < kRowsPerWarp && r + 1 < nq) load_slots(p, b, qidx[r + 1], lane, next);
+    float w[kMaxSlotsPerLane];
+    if (p.use_sim) {
+      float s[kMaxSlotsPerLane];
+#pragma unroll
+      for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+        const float c00 = sl.wy0[j] * sl.wx0[j], c01 = sl.wy0[j] * sl.wx1[j];
+        const float c10 = sl.wy1[j] * sl.wx0[j], c11 = sl.wy1[j] * sl.wx1[j];
+        const int r0 = sl.base[j];
+        float acc = 0.f;  // only live corners: a sample without one stays exactly 0
+        if (c00 != 0.f) acc += c00 * g[union_slot(bits, prefix, r0)];
+        if (c01 != 0.f) acc += c01 * g[union_slot(bits, prefix, r0 + 1)];
+        if (c10 != 0.f) acc += c10 * g[union_slot(bits, prefix, r0 + W)];
+        if (c11 != 0.f) acc += c11 * g[union_slot(bits, prefix, r0 + W + 1)];
+        s[j] = acc;  // the weights of k >= K are all 0
+      }
+      float prob[kMaxSlotsPerLane];
+      attention_weights(p, sl, lane, s, prob, w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxSlotsPerLane; ++j) w[j] = sl.pr[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+      const int k = lane + 32 * j;
+      if (k < K) p.depth[((size_t)b * K + k) * HW + q] = w[j];
+    }
+    __syncwarp();
+    for (int u = lane; u < upad; u += 32) g[u] = 0.f;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+      if (32 * j >= K) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float wc = ((c & 2) ? sl.wy1[j] : sl.wy0[j]) * ((c & 1) ? sl.wx1[j] : sl.wx0[j]);
+        const bool live = lane + 32 * j < K && wc != 0.f;
+        const unsigned mask = __ballot_sync(kFull, live);
+        if (mask == 0u) continue;  // uniform across the warp
+        unsigned peers = 0u;
+        int slot = 0;
+        if (live) {
+          slot = union_slot(bits, prefix, sl.base[j] + ((c & 2) ? W : 0) + (c & 1));
+          peers = __match_any_sync(mask, slot);
+        }
+        sc[lane] = w[j] * wc;
+        __syncwarp();
+        if (live && (peers & lower) == 0u) {
+          float sum = g[slot];
+          for (unsigned m = peers; m != 0u; m &= m - 1u) sum += sc[__ffs(m) - 1];
+          g[slot] = sum;
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+  // (e)
+  if constexpr (S::kMma)
+    out_mma<NV>(vstages, stage_v, vchunks, G, qidx, nq, p.out + item * C, warp, lane);
+  else
+    out_fma<NV>(vstages, stage_v, vchunks, G, qidx, nq, p.out + item * C, warp, lane);
 }
 
 // ---- backward pass A: per query ------------------------------------------
@@ -562,31 +1252,6 @@ query_backward_kernel(const Params p) {
 
 // ---- backward pass B: the CSR map from key rows to entries ---------------
 
-// The four corners of sample k of query q: key rows and weights, zero for a
-// corner off the image.  The weights are the products broadcast_corners
-// forms, so pass A, the histogram and the fill agree on every zero.
-struct SampleCorners {
-  int row[4];
-  float wc[4];
-};
-
-__device__ __forceinline__ SampleCorners sample_corners(const Params& p, int b,
-                                                        int q, int k) {
-  SampleCorners s;
-  int base = 0;
-  float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
-  if (k < p.K) sample_slot(p, b, q, k, base, x0, x1, y0, y1);
-  s.row[0] = base;
-  s.row[1] = base + 1;
-  s.row[2] = base + p.W;
-  s.row[3] = base + p.W + 1;
-  s.wc[0] = y0 * x0;
-  s.wc[1] = y0 * x1;
-  s.wc[2] = y1 * x0;
-  s.wc[3] = y1 * x1;
-  return s;
-}
-
 // Entries of each (tile, key row): one block per (tile, item), counts in
 // shared memory (integer atomics), written out whole.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -609,15 +1274,6 @@ tile_histogram_kernel(const Params p, const Transpose t) {
   __syncthreads();
   int* out = t.tile_rows + ((size_t)b * t.tiles + tile) * HW;
   for (int r = threadIdx.x; r < HW; r += blockDim.x) out[r] = count[r];
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
 }
 
 // Per key row g: the exclusive prefix of its entries over the item's tiles
@@ -941,27 +1597,96 @@ size_t carve(char* base, int B, int H, int W, int K, int C, int partials,
   return used;
 }
 
-template <typename T, int NV, bool Backward>
-void launch_nv(const Params& p, cudaStream_t stream) {
-  const long long queries = (long long)p.B * p.H * p.W;
-  const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const dim3 block(kWarpsPerBlock * 32);
-  if constexpr (Backward)
-    query_backward_kernel<T, NV><<<grid, block, 0, stream>>>(p);
-  else
-    epipolar_attention_kernel<T, NV><<<grid, block, 0, stream>>>(p);
+// The forward's tile schedule takes items of at most kMaxTileHW key rows
+// (the grouping's keys and cursors and the tile's bitmap live in shared
+// memory); other shapes run the per-query kernel on every query.
+bool tile_shape(int B, int H, int W) {
+  return (long long)H * W <= kMaxTileHW && (long long)B * H * W < (1ll << 31);
 }
 
-template <typename T, bool Backward>
-cudaError_t launch(const Params& p, int C, cudaStream_t stream) {
+// The forward's scratch: the path counts, the items' line flags, the query
+// order, the queries done; returns the bytes used.  With `base`, points sch
+// into it.
+size_t carve_forward(char* base, int B, int H, int W, Schedule* sch) {
+  const size_t pieces[] = {
+      2 * sizeof(int),                  // tile_counts
+      (size_t)B * sizeof(int),          // item_lines
+      (size_t)B * H * W * sizeof(int),  // perm
+      (size_t)B * H * W,                // done
+  };
+  size_t off[4];
+  size_t used = 0;
+  for (int i = 0; i < 4; ++i) {
+    off[i] = used;
+    used += align_up(pieces[i]);
+  }
+  if (base != nullptr) {
+    sch->tile_counts = reinterpret_cast<int*>(base + off[0]);
+    sch->item_lines = reinterpret_cast<int*>(base + off[1]);
+    sch->perm = reinterpret_cast<int*>(base + off[2]);
+    sch->done = reinterpret_cast<unsigned char*>(base + off[3]);
+  }
+  return used;
+}
+
+// With the tile schedule: grouping, the tile kernel, then the per-query
+// kernel over the queries it left.  Without: the per-query kernel over all.
+template <typename T, int NV>
+cudaError_t launch_forward_nv(const Params& p, const Schedule* sch, cudaStream_t stream) {
+  const int HW = p.H * p.W;
+  cudaError_t err;
+  if (sch != nullptr) {
+    const size_t gsmem = (size_t)(2 * HW + 1) * sizeof(int);
+    if ((err = cudaFuncSetAttribute(group_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)gsmem)) != cudaSuccess)
+      return err;
+    group_kernel<<<p.B, kGroupThreads, gsmem, stream>>>(p, *sch);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const size_t tsmem = TileShape<T, NV>::bytes(HW);
+    if ((err = cudaFuncSetAttribute(tile_forward_kernel<T, NV>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)tsmem)) != cudaSuccess)
+      return err;
+    const unsigned tiles = (unsigned)((HW + kTileQ - 1) / kTileQ);
+    tile_forward_kernel<T, NV><<<dim3(tiles, (unsigned)p.B), kTileThreads, tsmem, stream>>>(p, *sch);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const long long queries = (long long)p.B * HW;
+  const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  epipolar_attention_kernel<T, NV><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      p, sch == nullptr ? nullptr : sch->done);
+  return cudaGetLastError();
+}
+
+template <typename T, int NV>
+cudaError_t launch_backward_nv(const Params& p, cudaStream_t stream) {
+  const long long queries = (long long)p.B * p.H * p.W;
+  const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  query_backward_kernel<T, NV><<<grid, kWarpsPerBlock * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_forward(const Params& p, const Schedule* sch, int C, cudaStream_t stream) {
   switch (C) {
-    case 32: launch_nv<T, 1, Backward>(p, stream); break;
-    case 64: launch_nv<T, 2, Backward>(p, stream); break;
-    case 128: launch_nv<T, 4, Backward>(p, stream); break;
-    case 256: launch_nv<T, 8, Backward>(p, stream); break;
+    case 32: return launch_forward_nv<T, 1>(p, sch, stream);
+    case 64: return launch_forward_nv<T, 2>(p, sch, stream);
+    case 128: return launch_forward_nv<T, 4>(p, sch, stream);
+    case 256: return launch_forward_nv<T, 8>(p, sch, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward(const Params& p, int C, cudaStream_t stream) {
+  switch (C) {
+    case 32: return launch_backward_nv<T, 1>(p, stream);
+    case 64: return launch_backward_nv<T, 2>(p, stream);
+    case 128: return launch_backward_nv<T, 4>(p, stream);
+    case 256: return launch_backward_nv<T, 8>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int NV>
@@ -1052,19 +1777,33 @@ Params make_params(const void* f1, const void* f2k, const void* f2v,
 
 }  // namespace
 
+// Bytes of scratch the forward's tile schedule needs, 0 where it does not
+// take the shape (then the forward runs the per-query kernel alone).
+extern "C" long long epipolar_attention_forward_scratch_bytes(int B, int H, int W) {
+  if (!tile_shape(B, H, W)) return 0;
+  return (long long)carve_forward(nullptr, B, H, W, nullptr);
+}
+
+// `scratch` holds epipolar_attention_forward_scratch_bytes, or is null (the
+// per-query kernel alone).  Its first two ints receive the tiles that took
+// the tile path and the per-query path.
 extern "C" int epipolar_attention_forward(
     const void* f1, const void* f2k, const void* f2v, const void* locs,
-    const void* prior, void* out, void* depth, int B, int H, int W, int K,
-    int C, int is_bf16, float scale, int use_sim, int softmax, int priormul,
-    void* stream) {
+    const void* prior, void* out, void* depth, void* scratch, int B, int H,
+    int W, int K, int C, int is_bf16, float scale, int use_sim, int softmax,
+    int priormul, void* stream) {
   if (!valid_shape(B, H, W, K)) return (int)cudaErrorInvalidValue;
+  if (scratch != nullptr && !tile_shape(B, H, W)) return (int)cudaErrorInvalidValue;
   Params p = make_params(f1, f2k, f2v, locs, prior, B, H, W, K, scale,
                          use_sim, softmax, priormul);
   p.out = static_cast<float*>(out);
   p.depth = static_cast<float*>(depth);
+  Schedule sch = {};
+  if (scratch != nullptr) carve_forward(static_cast<char*>(scratch), B, H, W, &sch);
+  const Schedule* tiles = scratch != nullptr ? &sch : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16, false>(p, C, s)
-                       : launch<float, false>(p, C, s));
+  return (int)(is_bf16 ? launch_forward<__nv_bfloat16>(p, tiles, C, s)
+                       : launch_forward<float>(p, tiles, C, s));
 }
 
 // Bytes of scratch the backward needs: 0 without key/value gradients, else
@@ -1102,8 +1841,8 @@ extern "C" int epipolar_attention_backward(
     carve(static_cast<char*>(scratch), B, H, W, K, C, partials, &p, &t);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch<__nv_bfloat16, true>(p, C, s)
-                            : launch<float, true>(p, C, s);
+  cudaError_t err = is_bf16 ? launch_backward<__nv_bfloat16>(p, C, s)
+                            : launch_backward<float>(p, C, s);
   if (err != cudaSuccess || !kv) return (int)err;
   if ((err = launch_transpose(p, t, s)) != cudaSuccess) return (int)err;
   return (int)(is_bf16 ? launch_gather<__nv_bfloat16>(p, t, C, fused, s)
@@ -1113,3 +1852,7 @@ extern "C" int epipolar_attention_backward(
 extern "C" int epipolar_attention_max_samples() { return 32 * kMaxSlotsPerLane; }
 
 extern "C" int epipolar_attention_max_key_rows() { return kMaxKeyRows; }
+
+extern "C" int epipolar_attention_tile_queries() { return kTileQ; }
+
+extern "C" int epipolar_attention_max_union() { return kMaxUnion; }

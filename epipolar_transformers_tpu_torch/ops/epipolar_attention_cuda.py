@@ -15,12 +15,15 @@ about that.
 `epipolar_attention_batch` is the wrapper the model calls: on CPU tensors
 it runs the plain PyTorch version, differentiated by autograd; on CUDA
 tensors it runs `EpipolarAttentionFn`, whose forward launches the forward
-kernel (counted in `LAUNCHES`) and whose backward launches the backward
-kernel (counted in `BACKWARD_LAUNCHES`), or raises.
+kernels (counted once a call in `LAUNCHES`; the tiles on each path summed
+in `TILE_COUNTS`, read by `tile_counts()`) and whose backward launches the backward kernels (counted
+in `BACKWARD_LAUNCHES`), or raises.
 `epipolar_attention_plain_batch` is the plain version on any device: the
 Gram + corner-gather form with `torch.matmul`, mirroring the JAX math; the
 CPU tests hold it to the JAX kernel and to `jax.grad` of the matmul path,
-and the chip check holds both kernels to it.
+and the chip check holds both kernels to it.  `_tiled_forward_core` and
+`_transposed_backward_core` restate the kernels' own schedules in plain
+PyTorch, so that the CPU tests can check their math.
 
 Coverage is the TPU kernel's (`supports_pallas_attention`): avg attention
 over dot or prior similarity, softmax on or off, an additive prior or
@@ -31,7 +34,9 @@ prior table) is ROADMAP A10 and raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from ..geometry.camera import denormalize_pixel
@@ -42,6 +47,10 @@ from .quad_gather import axis_slot_weights
 # forward kernels, and backward kernels run by autograd
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# the forward launches' tiles on each path, (tile path, per-query path),
+# summed on each device into an int64 tensor keyed by the device; clear() it
+# to start counting again
+TILE_COUNTS: dict = {}
 
 KERNEL_CHANNELS = (32, 64, 128, 256)
 
@@ -99,44 +108,156 @@ def _finish(out, depth, sample_locs, other2, params):
     return out, corr_pos, depth.reshape(B, K, H, W)
 
 
-def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
-    """Gram + corner-gather form: G = f1 f2k^T, the four corner columns of
-    G weighted into the similarity, then a scatter of the attention weights
-    into n (B, HW, HW) and out = n f2v.  Returns out (B, HW, Cv) f32 and
-    depth (B, K, HW) f32."""
+def _corners(locs, H, W):
+    """Corner key rows and bilinear weights (B, HW, K, 4) of every sample,
+    in the kernels' slot order (00, 01, 10, 11).  A zero-weight corner may
+    fall off the image; its row is clamped to a harmless in-range index."""
     B, K, HW, _ = locs.shape
     x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
     y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
     xb, wx0, wx1 = axis_slot_weights(x, W)
     yb, wy0, wy1 = axis_slot_weights(y, H)
     base = yb * W + xb
-    # corner flat indices (B, K, HW, 4); a zero-weight corner may fall off
-    # the image and is clamped to a harmless in-range index
-    idx = torch.stack([base, base + 1, base + W, base + W + 1], dim=-1).clamp(0, HW - 1)
+    rows = torch.stack([base, base + 1, base + W, base + W + 1], dim=-1).clamp(0, HW - 1)
     wc = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
-    idx = idx.permute(0, 2, 1, 3).reshape(B, HW, K * 4)
-    wc = wc.permute(0, 2, 1, 3)  # (B, HW, K, 4)
+    return rows.permute(0, 2, 1, 3), wc.permute(0, 2, 1, 3)
+
+
+def _weights(sim, prior_q, params):
+    """Zero-sentinel mask, additive prior, softmax or 1/K, prior multiply:
+    similarities (B, HW, K) -> attention weights."""
+    if params.similarity == "prior":
+        return prior_q
+    masked = torch.where(sim == 0.0, torch.full_like(sim, NEG_INF), sim)
+    if prior_q is not None and not params.priormul:
+        masked = masked + prior_q
+    if not params.softmax_enabled:
+        return masked / sim.shape[-1]
+    w = torch.softmax(masked * params.softmax_scale, dim=-1)
+    return w * prior_q if prior_q is not None and params.priormul else w
+
+
+def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
+    """Gram + corner-gather form: G = f1 f2k^T, the four corner columns of
+    G weighted into the similarity, then a scatter of the attention weights
+    into n (B, HW, HW) and out = n f2v.  Returns out (B, HW, Cv) f32 and
+    depth (B, K, HW) f32."""
+    B, K, HW, _ = locs.shape
+    rows, wc = _corners(locs, H, W)
+    idx = rows.reshape(B, HW, K * 4)
     prior_q = None if prior is None else prior.permute(0, 2, 1)  # (B, HW, K)
 
-    if params.similarity == "prior":
-        w = prior_q
-    else:
+    sim = None
+    if params.similarity != "prior":
         G = torch.matmul(f1, f2k.transpose(1, 2))  # (B, HW, HW) compute dtype
         sim = (torch.gather(G, 2, idx).float().reshape(B, HW, K, 4) * wc).sum(-1)
-        masked = torch.where(sim == 0.0, torch.full_like(sim, NEG_INF), sim)
-        if prior_q is not None and not params.priormul:
-            masked = masked + prior_q
-        if params.softmax_enabled:
-            w = torch.softmax(masked * params.softmax_scale, dim=-1)
-            if prior_q is not None and params.priormul:
-                w = w * prior_q
-        else:
-            w = masked / K
+    w = _weights(sim, prior_q, params)
 
     n = torch.zeros(B, HW, HW, dtype=torch.float32, device=f1.device)
     n.scatter_add_(2, idx, (w[..., None] * wc).reshape(B, HW, K * 4))
     out = torch.matmul(n.to(f2v.dtype), f2v).float()
     return out, w.permute(0, 2, 1).contiguous()
+
+
+# The forward kernel's tile schedule (csrc/epipolar_attention.cu: kTileQ,
+# kMaxUnion; the test on the card holds these equal to the library's)
+TILE_QUERIES = 64
+MAX_UNION = 256
+
+
+def _line_bins(locs, H, W):
+    """(B, HW) line key of every query, as the grouping kernel computes it:
+    the angle in [0, pi) of the segment from its first to its last sample,
+    in HW bins; a line without extent (it misses the image, so every sample
+    sits at the far sentinel; or K == 1) takes bin HW."""
+    HW = H * W
+    x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
+    y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
+    dx, dy = x[:, -1] - x[:, 0], y[:, -1] - y[:, 0]
+    a = torch.atan2(dy, dx)
+    a = torch.where(a < 0, a + math.pi, a)
+    bins = (a * float(np.float32(HW / math.pi))).to(torch.int64).clamp(0, HW - 1)
+    return torch.where((dx == 0) & (dy == 0), torch.full_like(bins, HW), bins)
+
+
+def _items_on_lines(locs, H, W):
+    """(B,) bool: whether at least half an item's queries have their samples
+    on a line, as the grouping kernel tests it (the middle sample within half
+    a pixel of its place on the segment from the first to the last).  Other
+    items (random locations) are not grouped: all their tiles take the
+    per-query kernel."""
+    B, K, HW, _ = locs.shape
+    if K < 3:
+        return torch.ones(B, dtype=torch.bool, device=locs.device)
+    scale = torch.tensor([0.5 * (W - 1), 0.5 * (H - 1)], dtype=torch.float32,
+                         device=locs.device)
+    first, mid, last = locs[:, 0] * scale, locs[:, K // 2] * scale, locs[:, -1] * scale
+    t = np.float32(K // 2) / np.float32(K - 1)
+    near = ((first + (last - first) * float(t) - mid).abs() <= 0.5).all(-1)
+    return 2 * near.sum(-1) >= HW
+
+
+def _tile_plan(locs, H, W, tile_q=TILE_QUERIES):
+    """The forward kernel's grouping and row unions.  Returns perm (B, HW):
+    each item's queries ordered by line key, ties by query index (the
+    counting sort); and union (B, tiles, HW) bool: the key rows that the
+    live corners (w_c != 0) of each tile of tile_q consecutive queries of
+    that order touch."""
+    B, K, HW, _ = locs.shape
+    perm = torch.argsort(_line_bins(locs, H, W), dim=1, stable=True)
+    rows, wc = _corners(locs, H, W)
+    rows = torch.where(wc != 0, rows, torch.full_like(rows, HW)).reshape(B, HW, K * 4)
+    rows = torch.gather(rows, 1, perm[..., None].expand(B, HW, K * 4))
+    tiles = -(-HW // tile_q)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, tiles * tile_q - HW), value=HW)
+    rows = rows.reshape(B, tiles, tile_q * K * 4)
+    union = torch.zeros(B, tiles, HW + 1, dtype=torch.bool, device=locs.device)
+    union.scatter_(2, rows, True)
+    return perm, union[..., :HW]
+
+
+def _tiled_forward_core(f1, f2k, f2v, locs, prior, H, W, params,
+                        tile_q=TILE_QUERIES, max_union=MAX_UNION):
+    """The forward kernel's tile schedule in plain PyTorch, f32: queries
+    ordered by line key and cut into tiles of tile_q; per tile the union of
+    its live corner rows in row order, the local Gram G_t = f1[tile]
+    f2k[union]^T, sim[q, k] = sum_c w_c G_t[q, slot(row_c)], the weights,
+    N_t[q, slot] = sum_{k,c} w_k w_c, and out = N_t f2v[union].  A tile whose
+    union exceeds max_union, or whose item's samples do not lie on lines,
+    takes the per-query kernel on the card; its sum is the same function,
+    so here it runs the same form.  Nothing on the main path calls this: it
+    checks the design's math on the CPU.  Returns out (B, HW, C) f32, depth
+    (B, K, HW) f32 and the tiles on each path (tile path, per-query path)."""
+    B, K, HW, _ = locs.shape
+    f1, f2k, f2v = (t.float() for t in (f1, f2k, f2v))
+    perm, union = _tile_plan(locs, H, W, tile_q)
+    rows, wc = _corners(locs, H, W)
+    prior_q = None if prior is None else prior.permute(0, 2, 1)
+    out = torch.zeros(B, HW, f1.shape[-1], dtype=torch.float32, device=f1.device)
+    depth = torch.zeros(B, HW, K, dtype=torch.float32, device=f1.device)
+    sizes = union.sum(-1)
+    for b in range(B):
+        for t in range(union.shape[1]):
+            qs = perm[b, t * tile_q:(t + 1) * tile_q]
+            urows = torch.nonzero(union[b, t])[:, 0]  # row order
+            U = len(urows)
+            # a dead corner (w_c = 0) points at an extra zero column U
+            slot_of = torch.full((HW,), U, dtype=torch.int64, device=f1.device)
+            slot_of[urows] = torch.arange(U, device=f1.device)
+            live = wc[b, qs]
+            slot = torch.where(live != 0, slot_of[rows[b, qs]], U).reshape(len(qs), -1)
+            sim = None
+            if params.similarity != "prior":
+                G = torch.nn.functional.pad(f1[b, qs] @ f2k[b, urows].T, (0, 1))  # (q, U + 1)
+                sim = (torch.gather(G, 1, slot).reshape(live.shape) * live).sum(-1)
+            pq = None if prior_q is None else prior_q[b, qs][None]
+            w = _weights(None if sim is None else sim[None], pq, params)[0]
+            N = torch.zeros(len(qs), U + 1, dtype=torch.float32, device=f1.device)
+            N.scatter_add_(1, slot, (w[..., None] * live).reshape(len(qs), -1))
+            out[b, qs] = N[:, :U] @ f2v[b, urows]
+            depth[b, qs] = w
+    tile_path = int(((sizes <= max_union) & _items_on_lines(locs, H, W)[:, None]).sum())
+    return out, depth.permute(0, 2, 1).contiguous(), (tile_path, sizes.numel() - tile_path)
 
 
 def _transposed_backward_core(f1, f2k, f2v, locs, prior, dout, H, W, params):
@@ -212,6 +333,34 @@ def epipolar_attention_backward_plain(feat1, other1, other2, sample_locs,
     return tuple(t.reshape(B, H, W, -1) for t in grads)
 
 
+def tile_counts() -> tuple[int, int]:
+    """The forward's tiles on the tile path and on the per-query path,
+    summed over the launches since `TILE_COUNTS` was cleared, on every
+    device (this syncs with them)."""
+    total = [0, 0]
+    for counts in TILE_COUNTS.values():
+        for i, n in enumerate(counts.tolist()):
+            total[i] += n
+    return total[0], total[1]
+
+
+def _count_tiles(scratch, device, tiles: int) -> None:
+    """Add one forward launch's tiles to `TILE_COUNTS`, on the device: the
+    kernels leave them in the scratch's first two ints; without scratch
+    (the tile schedule does not take the shape) every tile takes the
+    per-query kernel."""
+    counts = TILE_COUNTS.get(device)
+    if counts is None:
+        # a normal tensor even under inference_mode, so that later forwards
+        # with autograd may add to it
+        with torch.inference_mode(False):
+            counts = TILE_COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    if scratch is None:
+        counts[1] += tiles
+    else:
+        counts += scratch[:8].view(torch.int32)
+
+
 def _kernel_args(f1, f2k, f2v, locs, prior, params):
     """Check the inputs against what the kernels take; returns the library
     and the (pointers, sizes, flags) the C entry points share."""
@@ -240,24 +389,34 @@ def _kernel_args(f1, f2k, f2v, locs, prior, params):
 
 
 def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
-    """Launch the forward kernel of csrc/epipolar_attention.cu on the
-    current stream."""
+    """Launch the forward kernels of csrc/epipolar_attention.cu on the
+    current stream: the grouping, the tile kernel and the per-query kernel
+    for the tiles it leaves, or the per-query kernel alone where the tile
+    schedule does not take the shape.  `TILE_COUNTS` receives the tiles on
+    each path, on the device."""
     global LAUNCHES
     lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
     B, K, HW, _ = locs.shape
     C = f1.shape[-1]
     out = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
     depth = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device)
+    size = lib.epipolar_attention_forward_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    nbytes = size(B, H, W)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
     fn = lib.epipolar_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(*pointers, out.data_ptr(), depth.data_ptr(),
+             None if scratch is None else scratch.data_ptr(),
              B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
              torch.cuda.current_stream(f1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"epipolar_attention_forward failed: CUDA error {err}")
     LAUNCHES += 1
+    _count_tiles(scratch, f1.device, B * -(-HW // TILE_QUERIES))
     return out, depth
 
 

@@ -3,16 +3,28 @@
 
     python3 scripts/torch_attention_kernels.py [--ptxas OTHER.cu ...]
 
-Needs one CUDA device and `nvcc`.  Prints, for
-epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu and for each
-other source given (e.g. an earlier revision of it), the registers, spills
-and shared memory that `nvcc -Xptxas -v` reports for every kernel; then
-torch.profiler's device time per kernel over 10 backward calls at the
-flagship attention shape (B=8, 64x64, K=64, C=256, f32, gradients to the
-queries and to keys = values), at the synthetic rig's sample locations (as
-chip_smoke.py times the backward) and at random ones in (-1.3, 1.3), so
-the backward's passes can be told apart.  The card's name and power limit
-come first.
+Needs one CUDA device and `nvcc`.  Prints the card's name and power limit;
+then, for epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu and
+each other source given (e.g. an earlier revision of it), the registers,
+spills and shared memory that `nvcc -Xptxas -v` reports for every kernel;
+then torch.profiler's device time per kernel over 10 calls at the flagship
+attention shape (B=8, 64x64, K=64, C=256), at the synthetic rig's sample
+locations (as chip_smoke.py times the kernels) and at random ones in
+(-1.3, 1.3), so the kernels of one call can be told apart:
+
+  - the forward, f32 at both sets of locations and bf16 at the rig's: the
+    grouping, the tile kernel and the per-query kernel, with the tiles that
+    took each path;
+  - the backward, f32, gradients to the queries and to keys = values.
+
+    python3 scripts/torch_attention_kernels.py --time-forward [--tree DIR]
+
+instead times the forward alone with CUDA events (mean of 2 x 20 calls
+after warm-up) through `epipolar_attention_batch` of the package in DIR (a
+checkout of another commit inside this one, e.g. unpacked with `git
+archive` into a directory .gitignore lists; default this one): f32 at the
+rig's and at random locations, bf16 at the rig's.  Run it on two trees in
+turns (A, B, B, A) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+SOURCE = ROOT / "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu"
 
 
 def ptxas_report(src: Path) -> None:
@@ -47,49 +60,108 @@ def ptxas_report(src: Path) -> None:
             print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
-def profile_backward(where: str) -> None:
+def flagship_inputs(where: str, dtype):
     import torch
 
     from chip_smoke import rig_sample_locs
     from epipolar_transformers_tpu_torch.config import flagship_cfg
-    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
     from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     B, H, W, K, C = 8, 64, 64, 64, 256
-    f1 = torch.randn(B, H, W, C, device=dev, generator=g).requires_grad_()
-    f2 = torch.randn(B, H, W, C, device=dev, generator=g).requires_grad_()
+    f1 = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    f2 = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
     if where == "rig":
         locs = rig_sample_locs(flagship_cfg(), B, dev)
     else:
         locs = torch.rand(B, K, H, W, 2, device=dev, generator=g) * 2.6 - 1.3
-    params = AttentionParams(softmax_scale=K ** -0.5)
-    out = attn.epipolar_attention_batch(f1, f2, f2, locs, params)[0]
-    r = torch.randn_like(out)
+    return f1, f2, locs, AttentionParams(softmax_scale=K ** -0.5)
+
+
+def profile(run, title: str) -> None:
+    """torch.profiler's device ms per launch of each kernel over 10 calls of
+    `run`, and its launches per call (below 1 where the profiler lost
+    events: then the total is short)."""
+    import torch
+
     for _ in range(3):
-        torch.autograd.grad(out, (f1, f2), r, retain_graph=True)
+        run()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            torch.autograd.grad(out, (f1, f2), r, retain_graph=True)
+            run()
         torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total / 10 / 1000, e.count // 10)
+    rows = [(e.key, e.device_time_total / e.count / 1000, e.count / 10)
             for e in prof.key_averages() if e.device_time_total > 0]
-    rows.sort(key=lambda x: -x[1])
-    print(f"  device ms per backward call at {where} locations, by kernel "
+    rows.sort(key=lambda x: -x[1] * x[2])
+    print(f"  device ms per launch and launches per call, {title}, by kernel "
           "(torch.profiler, 10 calls):")
     for name, ms, n in rows:
-        print(f"    {ms:9.4f} ms  x{n}  {name[:110]}")
-    print(f"    {sum(ms for _, ms, _ in rows):9.4f} ms  total")
+        print(f"    {ms:9.4f} ms  x{n:g}  {name[:110]}")
+    print(f"    {sum(ms * n for _, ms, n in rows):9.4f} ms  total per call")
+
+
+def profile_forward(where: str, dtype) -> None:
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    f1, f2, locs, params = flagship_inputs(where, dtype)
+    with torch.inference_mode():
+        attn.TILE_COUNTS.clear()
+        attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+        tile, per_query = attn.tile_counts()
+        name = "f32" if dtype == torch.float32 else "bf16"
+        profile(lambda: attn.epipolar_attention_batch(f1, f2, f2, locs, params),
+                f"forward {name} at {where} locations (tiles: {tile} tile path, "
+                f"{per_query} per-query path)")
+
+
+def profile_backward(where: str) -> None:
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    f1, f2, locs, params = flagship_inputs(where, torch.float32)
+    f1.requires_grad_()
+    f2.requires_grad_()
+    out = attn.epipolar_attention_batch(f1, f2, f2, locs, params)[0]
+    r = torch.randn_like(out)
+    profile(lambda: torch.autograd.grad(out, (f1, f2), r, retain_graph=True),
+            f"backward f32 at {where} locations")
+
+
+def time_forward(tree: Path) -> None:
+    import torch
+
+    from chip_smoke import cuda_ms
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    for where, dtype in (("rig", torch.float32), ("random", torch.float32),
+                         ("rig", torch.bfloat16)):
+        f1, f2, locs, params = flagship_inputs(where, dtype)
+        with torch.inference_mode():
+            ms = [cuda_ms(lambda: attn.epipolar_attention_batch(f1, f2, f2, locs, params))
+                  for _ in range(2)]
+        name = "f32" if dtype == torch.float32 else "bf16"
+        print(f"  forward {name} at {where} locations, tree {tree}: "
+              f"{sum(ms) / 2:.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", nargs="*", default=[], type=Path,
                     help="other .cu sources to report registers for")
+    ap.add_argument("--time-forward", action="store_true",
+                    help="only time the forward of the package in --tree")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="checkout inside this one whose package --time-forward imports")
     args = ap.parse_args()
+    tree = args.tree.resolve()
+    if not tree.is_relative_to(ROOT):
+        ap.error(f"--tree must lie inside {ROOT}")
+    sys.path.insert(0, str(tree))
     import torch
 
     if not torch.cuda.is_available():
@@ -99,10 +171,15 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for src in [ROOT / "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
-                *args.ptxas]:
+    if args.time_forward:
+        time_forward(tree)
+        return 0
+    for src in [SOURCE, *args.ptxas]:
         print(f"ptxas -v, {src.relative_to(ROOT) if src.is_relative_to(ROOT) else src}:")
         ptxas_report(src)
+    for where, dtype in (("rig", torch.float32), ("random", torch.float32),
+                         ("rig", torch.bfloat16)):
+        profile_forward(where, dtype)
     for where in ("rig", "random"):
         profile_backward(where)
     return 0

@@ -11,9 +11,11 @@ wrapper's checks.  The forward: f32 rtol 1e-4 / atol 1e-5 (summation order
 only, TF32 off); bf16 rtol = atol = 5e-2 (the plain version rounds the Gram
 and weight matrices to bf16).  The backward kernel against autograd of the
 plain version: f32 rtol 1e-4 / atol 1e-5 x the gradient's max (summation
-order); bf16 rtol 5e-2 / atol 5e-2 x max.  The backward sums in a fixed
-order, so two runs on the same inputs are bit-equal.  The locations are
-random in (-1.3, 1.3), so lines cross the image edges.
+order); bf16 rtol 5e-2 / atol 5e-2 x max.  Both kernels sum in a fixed
+order, so two runs on the same inputs are bit-equal.  Most locations are
+random in (-1.3, 1.3), so lines cross the image edges and the forward runs
+its per-query kernel; the synthetic rig's epipolar lines (64x64) drive the
+forward's tile path, with the tiles on each path read by `tile_counts()`.
 """
 
 import pytest
@@ -70,6 +72,119 @@ def test_kernel_matches_plain(device, C, K, dt, name, kw, use_prior):
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
     torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
     torch.testing.assert_close(got[2], want[2], **tol)
+
+
+def _rig_locs(device, B, K):
+    """(B, K, 64, 64, 2) sample locations of the synthetic rig's view pairs
+    (each view with its nearest neighbour, cycled), with K samples a line:
+    queries on one epipolar line share their samples, so the forward's
+    tiles take the tile path."""
+    from epipolar_transformers_tpu_torch.config import flagship_cfg
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
+    from epipolar_transformers_tpu_torch.ops.epipolar_sampling import epipolar_sample_locs
+
+    cfg = flagship_cfg()
+    ds = SyntheticMultiview(cfg, is_train=False, n_samples=1)
+    views = [v % ds.n_views for v in range(B)]
+    P1 = torch.as_tensor(ds.rig["KRT"][views], dtype=torch.float32, device=device)
+    P2 = torch.as_tensor(ds.rig["KRT"][[ds.nearest[v] for v in views]],
+                         dtype=torch.float32, device=device)
+    return epipolar_sample_locs(P1, P2, Epipolar(cfg).geometry._replace(sample_size=K))
+
+
+def _counted(*args):
+    """The wrapper's forward, and the tiles it put on each path."""
+    attn.TILE_COUNTS.clear()
+    got = attn.epipolar_attention_batch(*args)
+    return got, attn.tile_counts()
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("K", [1, 33, 128])
+@pytest.mark.parametrize("dt,name,kw,use_prior", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_forward_tile_path_matches_plain(device, C, K, dt, name, kw, use_prior):
+    """The rig's 64x64 lines: the tile path, held to the plain version."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, _, _ = _inputs(device, 2, 64, 64, 1, C, dtype)
+    locs = _rig_locs(device, 2, K)
+    prior = torch.rand(locs.shape[:-1], device=device,
+                       generator=torch.Generator(device).manual_seed(3)) * 0.1
+    params = AttentionParams(softmax_scale=K ** -0.5, **kw)
+    prior = prior if use_prior else None
+    got, (tile, per_query) = _counted(*feats, locs, params, prior)
+    assert tile + per_query == 2 * 64 * 64 // attn.TILE_QUERIES
+    if K > 1:  # K = 1 has no line to group by
+        assert tile > per_query
+    want = attn.epipolar_attention_plain_batch(*feats, locs, params, prior)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[2], want[2], **tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_forward_random_locs_take_the_per_query_path(device, dt):
+    """Random locations have no line structure (their samples do not lie on
+    lines, and a tile's union would be far above the limit), so every tile
+    goes to the per-query kernel, in query order."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, locs, _ = _inputs(device, 2, 64, 64, 64, 256, dtype)
+    params = AttentionParams(softmax_scale=0.125)
+    got, counts = _counted(*feats, locs, params)
+    assert counts == (0, 2 * 64 * 64 // attn.TILE_QUERIES)
+    want = attn.epipolar_attention_plain_batch(*feats, locs, params)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[2], want[2], **tol)
+
+
+def test_forward_counts_match_the_plain_plan(device):
+    """The kernel's tiles on each path at the rig, against the plain twin's
+    grouping and unions (a bin may move by an atan2 ulp, so within 2)."""
+    feats, _, _ = _inputs(device, 8, 64, 64, 1, 64, torch.float32)
+    locs = _rig_locs(device, 8, 64)
+    _, (tile, per_query) = _counted(*feats, locs, AttentionParams(softmax_scale=0.125))
+    flat = locs.reshape(8, 64, 64 * 64, 2)
+    assert attn._items_on_lines(flat, 64, 64).all()
+    _, union = attn._tile_plan(flat, 64, 64)
+    want = int((union.sum(-1) <= attn.MAX_UNION).sum())
+    assert abs(tile - want) <= 2 and tile + per_query == union.shape[0] * union.shape[1]
+    assert tile == 8 * 64 * 64 // attn.TILE_QUERIES
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_forward_two_runs_bit_equal(device, dt):
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, _, _ = _inputs(device, 8, 64, 64, 1, 256, dtype)
+    locs = _rig_locs(device, 8, 64)
+    params = AttentionParams(softmax_scale=0.125)
+    first = attn.epipolar_attention_batch(*feats, locs, params)
+    second = attn.epipolar_attention_batch(*feats, locs, params)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_forward_keys_values_distinct_storage(device):
+    """Keys and values in separate tensors: the tile kernel stages each."""
+    feats, _, _ = _inputs(device, 2, 64, 64, 1, 128, torch.float32)
+    locs = _rig_locs(device, 2, 64)
+    params = AttentionParams(softmax_scale=0.125)
+    assert feats[1].data_ptr() != feats[2].data_ptr()
+    got, (tile, _) = _counted(*feats, locs, params)
+    assert tile > 0
+    want = attn.epipolar_attention_plain_batch(*feats, locs, params)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5)
+    same = attn.epipolar_attention_batch(feats[0], feats[1], feats[1], locs, params)
+    want = attn.epipolar_attention_plain_batch(feats[0], feats[1], feats[1], locs, params)
+    torch.testing.assert_close(same[0], want[0], rtol=1e-4, atol=1e-5)
+
+
+def test_forward_tile_constants_match_the_plain_twin(device):
+    from epipolar_transformers_tpu_torch.ops._build import load_library
+
+    lib = load_library("epipolar_attention")
+    assert lib.epipolar_attention_tile_queries() == attn.TILE_QUERIES
+    assert lib.epipolar_attention_max_union() == attn.MAX_UNION
 
 
 def test_all_out_of_range_is_exactly_zero(device):
