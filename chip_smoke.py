@@ -43,7 +43,25 @@ run, each printed on its own lines:
      are compared, under f32 convolutions every parameter's gradient;
   4. (continued) times as above: the attention backward alone (with and
      without the key/value gradients) and the train step at batch 8, and
-     the peak memory of a train step on each path.
+     the peak memory of a train step on each path;
+  7. the eval engine on [3]'s model: (a) `engine.tester.test` (pymvg) over
+     ENGINE_GROUPS synthetic view groups, finite EPEmean_global,
+     MPJPE@action0, JDR and PCK@*, one forward launch per group, most tiles
+     on the tile kernel; (b) naive, refine, epipolar and epipolar_dlt on
+     the same groups' outputs; (c) each group's ground-truth 2D points with
+     unit scores through naive, refine and pymvg, within 0.1 mm of the 3D
+     points; (d) RPSM with its unary terms on the card, each held to the
+     host's, on one group's target heatmaps (PICT_STRUCT defaults) and at
+     tests/test_pictorial.py's 64 px setting, within its 60 mm; (e) TEST.TRAIN_BN and TEST.RECOMPUTE_BN on 2
+     groups (TRAIN_BN leaves the running statistics bit-equal,
+     `recompute_bn` moves them, `test` restores them); (f) the port's
+     command line in a subprocess (2 train steps, 2 eval groups) with a
+     finite EPEmean_global in its RESULTS line;
+  4. (continued) the eval engine's times per group: the loader's host ms,
+     the eval forward's device ms (inputs on the card, and from the host
+     arrays) and host ms to queue it, host ms of `process_group` under
+     pymvg, wall ms (and groups/s) of the double-buffered drive against a
+     serial one, in turns, and the device's idle share of a profiled run.
 
 The line before the card line is a JSON object with both kernels'
 launches, errors and times, and each kernel's bound: the larger of its
@@ -51,7 +69,7 @@ operations over the f32 rate outside the tensor cores and its bytes (each
 input read once, each output written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3 and 6.  No single PyTorch call
+each path over the forwards of phases 3, 6 and 7(a).  No single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
 the last line is {"ok": true, "device": {...}}.  Any failed check raises.
@@ -72,6 +90,17 @@ SEED = 0
 FLAGSHIP_ATTENTION = dict(B=8, H=64, W=64, K=64, C=256)
 BENCH_BATCH = 8
 EVAL_GROUPS = 8
+ENGINE_GROUPS = 16
+# the eval engine's checks: ground-truth 2D points triangulate to the 3D
+# points (f32 inputs, so ~1e-4 mm); RPSM's unary terms on the card agree
+# with the host's as the CPU tests hold them to JAX; and at
+# tests/test_pictorial.py's setting RPSM on target heatmaps is as close as
+# that test asks
+GT_TRIANGULATION_MM = 0.1
+UNARY_TOL = dict(rtol=1e-5, atol=1e-6)
+RPSM_MM = 60.0
+RPSM_TEST_DEPTH = 6
+CLI_CONFIG = "configs/epipolar/synthetic_zresidual.yaml"
 TRAIN_STEPS = 10
 # f32: both sides compute in f32 (TF32 off); they differ only in summation
 # order, ~1e-6 relative at C=256.
@@ -314,7 +343,7 @@ def slice_phase(cfg, device):
     import torch
 
     from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
-    from epipolar_transformers_tpu_torch.data.pipeline import collate, eval_batches
+    from epipolar_transformers_tpu_torch.data.pipeline import EvalLoader, collate
     from epipolar_transformers_tpu_torch.engine.tester import predict, to_model_inputs
     from epipolar_transformers_tpu_torch.models import ModelBuilder
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
@@ -330,7 +359,7 @@ def slice_phase(cfg, device):
     eval_ds = SyntheticMultiview(cfg, is_train=False, n_samples=EVAL_GROUPS, seed=SEED)
     attn.LAUNCHES = 0
     attn.TILE_COUNTS.clear()
-    outputs = predict(cfg, model, eval_batches(eval_ds), max_batches=EVAL_GROUPS)
+    outputs = predict(cfg, model, EvalLoader(eval_ds), max_batches=EVAL_GROUPS)
     torch.cuda.synchronize(device)
     launches, tiles = attn.LAUNCHES, attn.tile_counts()
     if len(outputs) != EVAL_GROUPS or launches != EVAL_GROUPS:
@@ -360,7 +389,7 @@ def slice_phase(cfg, device):
     close("slice depth", got["depth"], want["depth"], **F32_TOL)
     log(f"  bench batch {BENCH_BATCH}: kernel vs plain path heatmap_pred max abs err "
         f"{e_hm:.3g}, batch_locs within 1 px {ok_locs:.4f}, depth within f32 tol")
-    return launches, tiles, forward
+    return launches, tiles, forward, model
 
 
 def check_main_path_tiles(name, tiles, total):
@@ -619,6 +648,277 @@ def step_parity(cfg, device, per_param: bool):
     return model, batch
 
 
+def finite_metrics(name, results) -> None:
+    """Raise unless the eval metrics are all there and finite."""
+    import math
+
+    keys = {"EPEmean_global", "MPJPE@action0", "JDR"}
+    if not keys <= set(results) or not any(k.startswith("PCK@") for k in results):
+        raise AssertionError(f"{name}: metrics {sorted(results)}")
+    if not all(math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"{name}: non-finite metrics {results}")
+
+
+def rpsm_check(name, cfg, item, device, recur_depth):
+    """RPSM on `item`'s target heatmaps, the boxes at the image centre and
+    scale (tests/test_pictorial.py), with its unary terms on the card, each
+    held to the same sampling on the host (UNARY_TOL); then the whole RPSM
+    on the host.  Returns the mean errors (mm) on the card and the host,
+    whether the poses are equal, the card's seconds and the total."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.geometry import pictorial
+    from epipolar_transformers_tpu_torch.geometry.body import HumanBody, compute_limb_length
+
+    H, W = cfg.DATASETS.IMAGE_SIZE
+    V = item["img"].shape[0]
+    gt = np.asarray(item["points-3d"], np.float64)
+    body, p = HumanBody(), cfg.PICT_STRUCT
+    heatmaps = np.ascontiguousarray(item["heatmap"].transpose(0, 3, 1, 2))
+
+    def run(hm):
+        return pictorial.rpsm(
+            item["K"].astype(np.float64) @ item["RT"].astype(np.float64), hm,
+            center=gt[cfg.KEYPOINT.ROOTIDX],
+            boxes=[{"center": np.array([W / 2.0, H / 2.0]),
+                    "scale": np.array([W / 200.0, H / 200.0])}] * V,
+            body=body, limb_length=compute_limb_length(body, gt), img_size=(W, H),
+            grid_size=p.GRID_SIZE, first_nbins=p.FIRST_NBINS, recur_nbins=p.RECUR_NBINS,
+            recur_depth=recur_depth, tolerance=p.LIMB_LENGTH_TOLERANCE)
+
+    sample, calls = pictorial._sample_unary, []
+
+    def on_card(hm, grids):
+        if hm.device.type != "cuda" or grids.device.type != "cuda":
+            raise AssertionError(f"(d) {name}: unary term on {hm.device}, {grids.device}")
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = sample(hm, grids)
+        torch.cuda.synchronize(device)
+        calls.append(time.perf_counter() - t0)
+        close(f"(d) {name} unary", out.cpu(), sample(hm.cpu(), grids.cpu()), **UNARY_TOL)
+        return out
+
+    pictorial._sample_unary = on_card
+    try:
+        t0 = time.perf_counter()
+        pose = run(torch.from_numpy(heatmaps).to(device))
+        total = time.perf_counter() - t0
+    finally:
+        pictorial._sample_unary = sample
+    if len(calls) != 1 + recur_depth:
+        raise AssertionError(f"(d) {name}: {len(calls)} unary terms on the card")
+    host = run(heatmaps)
+    err = [float(np.linalg.norm(x - gt, axis=-1).mean()) for x in (pose, host)]
+    if not np.isfinite(err).all():
+        raise AssertionError(f"(d) {name}: RPSM errors {err}")
+    return err[0], err[1], bool(np.array_equal(pose, host)), sum(calls), total
+
+
+def eval_phase(cfg, model, device):
+    """The eval engine on `model`: (a)-(f) of the module docstring.
+    Returns the forward launches and tiles of (a), and what timing needs."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import update_from_dict
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.engine import tester
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    # one view group a batch (the tester evaluates each batch's first group)
+    ecfg = update_from_dict(cfg, {"TEST": {"IMS_PER_BATCH": 1}})
+
+    # (a) test() over ENGINE_GROUPS groups; each group and its host outputs
+    # are kept for (b) and (c), corr_pos copied too for the epipolar modes
+    seen = []
+    process, fetch = tester.process_group, tester.fetch_outputs
+
+    def keep(c, group, out, record, ib=0, dev=None):
+        seen.append((group, out))
+        return process(c, group, out, record, ib, dev)
+
+    tester.process_group = keep
+    tester.fetch_outputs = lambda out, keys: fetch(out, [*keys, "corr_pos"])
+    try:
+        attn.LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
+        results = tester.test(ecfg, model, max_batches=ENGINE_GROUPS)
+        torch.cuda.synchronize(device)
+        launches, tiles = attn.LAUNCHES, attn.tile_counts()
+    finally:
+        tester.process_group, tester.fetch_outputs = process, fetch
+    finite_metrics("(a) pymvg", results)
+    if launches != ENGINE_GROUPS or len(seen) != ENGINE_GROUPS:
+        raise AssertionError(f"(a) {len(seen)} groups launched the forward kernel "
+                             f"{launches} times")
+    V = seen[0][0]["img"].shape[0]
+    h, w = cfg.KEYPOINT.HEATMAP_SIZE
+    check_main_path_tiles("eval", tiles, launches * V * -(-h * w // attn.TILE_QUERIES))
+    log(f"  (a) test(), pymvg, {ENGINE_GROUPS} view groups of {V} views: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in results.items()))
+    log(f"      forward kernel launches {launches} (one per group), forward tiles on the "
+        f"tile path / per-query path {tiles[0]} / {tiles[1]}")
+
+    # (b) the other host modes on the same outputs
+    line = []
+    for mode in ("naive", "refine", "epipolar", "epipolar_dlt"):
+        mcfg = update_from_dict(ecfg, {"KEYPOINT": {"TRIANGULATION": mode}})
+        record = tester.EvalRecord()
+        for ib, (group, out) in enumerate(seen):
+            tester.process_group(mcfg, group, out, record, ib)
+        finite_metrics(f"(b) {mode}", record.meters.get_all_avg())
+        line.append(f"{mode} {record.meters.get_all_avg()['EPEmean_global']:.4g}")
+    log("  (b) MPJPE on the same outputs: " + ", ".join(line))
+
+    # (c) ground-truth 2D points, unit scores: a check the weights cannot hide
+    line = []
+    for mode in ("naive", "refine", "pymvg"):
+        mcfg = update_from_dict(ecfg, {"KEYPOINT": {"TRIANGULATION": mode}})
+        errs = []
+        for group, _ in seen:
+            pts = np.asarray(group["points-2d"], np.float64)
+            pred = tester._triangulate(mcfg, group, pts, np.ones(pts.shape[:2]), {})
+            errs.append(np.linalg.norm(pred - group["points-3d"], axis=-1).mean())
+        if not max(errs) < GT_TRIANGULATION_MM:
+            raise AssertionError(f"(c) {mode}: MPJPE of ground-truth 2D points {max(errs)} mm")
+        line.append(f"{mode} {max(errs):.3g}")
+    log(f"  (c) ground-truth 2D points, worst group MPJPE (mm, limit {GT_TRIANGULATION_MM}): "
+        + ", ".join(line))
+
+    # (d) RPSM on the card: the flagship group's target heatmaps with the
+    # PICT_STRUCT defaults, then the JAX test's own setting against its bar
+    p = cfg.PICT_STRUCT
+    card_err, host_err, same, card_s, total_s = rpsm_check(
+        "flagship", cfg, seen[0][0], device, p.RECUR_DEPTH)
+    log(f"  (d) RPSM ({p.FIRST_NBINS}^3 bins, RECUR_DEPTH {p.RECUR_DEPTH}) on the flagship "
+        f"group's 64x64 target heatmaps: {1 + p.RECUR_DEPTH} unary terms on the card, each "
+        f"within rtol {UNARY_TOL['rtol']} of the host's; mean error {card_err:.3f} mm on the "
+        f"card, {host_err:.3f} mm on the host (same pose: {same}); {card_s:.3f} s on the card "
+        f"(unary), {total_s - card_s:.3f} s on the host (grids, pairwise terms, tree)")
+    small = update_from_dict(cfg, {
+        "DATASETS": {"IMAGE_SIZE": (64, 64)},
+        "KEYPOINT": {"HEATMAP_SIZE": (16, 16), "SIGMA": 2.0}})
+    item = SyntheticMultiview(small, is_train=False, n_samples=1)[0]
+    card_err, host_err, same, _, _ = rpsm_check("64 px", small, item, device, RPSM_TEST_DEPTH)
+    if not card_err < RPSM_MM:
+        raise AssertionError(f"(d) RPSM at the 64 px setting: mean error {card_err} mm")
+    log(f"      at tests/test_pictorial.py's setting (64 px, 16x16 heatmaps, RECUR_DEPTH "
+        f"{RPSM_TEST_DEPTH}): mean error {card_err:.3f} mm on the card (limit {RPSM_MM}), "
+        f"{host_err:.3f} mm on the host (same pose: {same})")
+
+    # (e) TEST.TRAIN_BN and TEST.RECOMPUTE_BN
+    before = [b.clone() for b in model.buffers()]
+
+    def unchanged():
+        return all(torch.equal(a, b) for a, b in zip(before, model.buffers()))
+
+    for key in ("TRAIN_BN", "RECOMPUTE_BN"):
+        r = tester.test(update_from_dict(ecfg, {"TEST": {key: True}}), model, max_batches=2)
+        finite_metrics(f"(e) {key}", r)
+        if not unchanged():
+            raise AssertionError(f"(e) {key}: running statistics changed after test()")
+        log(f"  (e) {key}, 2 groups: EPEmean_global {r['EPEmean_global']:.4g}, JDR "
+            f"{r['JDR']:.4g}; running statistics bit-equal after test()")
+    tester.recompute_bn(ecfg, model, max_batches=2)
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, model.buffers()))
+    with torch.no_grad():
+        for b, a in zip(model.buffers(), before):
+            b.copy_(a)
+    if not moved:
+        raise AssertionError("(e) recompute_bn left every running statistic as it was")
+    log(f"  (e) recompute_bn moved {moved} of {len(before)} buffers")
+
+    # (f) the command line in a subprocess
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "epipolar_transformers_tpu_torch.main", "--cfg", CLI_CONFIG,
+             "--max-steps", "2", "--max-eval-batches", "2", "OUTPUT_DIR", out_dir],
+            cwd=root, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULTS: ")]
+    found = re.search(r"'EPEmean_global': ([^,}]+)", lines[-1]) if lines else None
+    if proc.returncode != 0 or not found or not np.isfinite(float(found.group(1))):
+        raise AssertionError(f"(f) CLI rc {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    log(f"  (f) python -m epipolar_transformers_tpu_torch.main --cfg {CLI_CONFIG} --max-steps 2 "
+        f"--max-eval-batches 2: rc 0 in {time.perf_counter() - t0:.1f} s; {lines[-1]}")
+    return launches, tiles, ecfg, seen
+
+
+def eval_times(ecfg, model, seen, device) -> None:
+    """Where an eval group's time goes: the loader's host ms, the forward
+    (device ms with the inputs on the card, host ms to queue it, device ms
+    from the host arrays), `process_group`'s host ms under pymvg, `test`'s
+    wall per group double-buffered against serial in turns, and the
+    device's busy share of one profiled double-buffered `test`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from epipolar_transformers_tpu_torch.data.pipeline import make_eval_loaders
+    from epipolar_transformers_tpu_torch.engine import tester
+
+    n = ENGINE_GROUPS
+    loader = iter(make_eval_loaders(ecfg)[0])
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(loader)
+    log(f"    loader (render a group's {seen[0][0]['img'].shape[0]} views and their "
+        f"neighbours), host: {(time.perf_counter() - t0) * 1e3 / n:.3f} ms per group")
+
+    group = seen[0][0]
+    inputs = tester.to_model_inputs(group, device)
+    eval_step = tester.make_eval_step(ecfg, model, device)
+
+    def resident():
+        with torch.inference_mode():
+            return model(inputs)
+
+    resident_ms = cuda_ms(resident)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        resident()
+    queue_ms = (time.perf_counter() - t0) * 1e3 / 20
+    log(f"    eval forward per group (fused 2N trunk): device {resident_ms:.3f} ms with the "
+        f"inputs on the card, host {queue_ms:.3f} ms to queue it; device "
+        f"{cuda_ms(lambda: eval_step(group)):.3f} ms from the host arrays")
+    host_s = []
+    for _ in range(3):
+        record = tester.EvalRecord()
+        for ib, (g, out) in enumerate(seen):
+            t0 = time.perf_counter()
+            tester.process_group(ecfg, g, out, record, ib)
+            host_s.append(time.perf_counter() - t0)
+    log(f"    process_group under pymvg (f64 triangulation, MPJPE, JDR, PCK), host: "
+        f"{1e3 * sum(host_s) / len(host_s):.3f} ms per group (mean of {len(host_s)})")
+
+    def drive_ms(double: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tester.test(ecfg, model, max_batches=n, double_buffer=double)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    d1, s1, s2, d2 = drive_ms(True), drive_ms(False), drive_ms(False), drive_ms(True)
+    d_ms, s_ms = (d1 + d2) / 2, (s1 + s2) / 2
+    log(f"    test() wall per group over {n} groups (data, forward, host half), in turns: "
+        f"double-buffered {d_ms:.3f} ms ({1e3 / d_ms:.2f} groups/s; {d1:.3f}, {d2:.3f}), "
+        f"serial {s_ms:.3f} ms ({1e3 / s_ms:.2f} groups/s; {s1:.3f}, {s2:.3f})")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = drive_ms(True) * n
+    # the device's own events (kernels, copies), not the host ops above them
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"    profiled double-buffered test(): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / n:.3f} ms a group), idle {100 * (1 - busy / wall):.1f}%")
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -695,7 +995,7 @@ def main() -> int:
     err, (f32, rig, rand_locs, params) = attention_phase(cfg, device)
 
     log("[3] slice: flagship multiview inference")
-    launches, slice_tiles, forward = slice_phase(cfg, device)
+    launches, slice_tiles, forward, slice_model = slice_phase(cfg, device)
 
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
@@ -755,6 +1055,13 @@ def main() -> int:
     log(f"    train step peak memory (max_memory_allocated): kernel path {mem_k:.3f} GiB, "
         f"plain path {mem_p:.3f} GiB")
 
+    log("[7] eval engine: engine.tester.test and the command line on the flagship config")
+    eval_launches, eval_tiles, ecfg, seen = eval_phase(cfg, slice_model, device)
+
+    log(f"[4] times, continued after [7]: the eval engine, {card}")
+    eval_times(ecfg, slice_model, seen, device)
+    launches += eval_launches
+
     fwd_bound = bound(f32, rig, backward=False)
     bwd_bound = bound(f32[:2], rig, backward=True)
     fwd_hits, bwd_hits = (bound(f, rig, b, distinct=False)[0]
@@ -770,8 +1077,8 @@ def main() -> int:
         "replaces": REPLACES, "launches": launches + train_launches, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
         "library_ms": None, "main_path_tiles": {
-            "tile_path": slice_tiles[0] + train_tiles[0],
-            "per_query_path": slice_tiles[1] + train_tiles[1]},
+            "tile_path": slice_tiles[0] + train_tiles[0] + eval_tiles[0],
+            "per_query_path": slice_tiles[1] + train_tiles[1] + eval_tiles[1]},
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",

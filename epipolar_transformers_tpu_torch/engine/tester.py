@@ -1,24 +1,70 @@
-"""Evaluation loop, the slice part (PyTorch).
+"""Evaluation engine (PyTorch): the eval forward on the model's device, then
+triangulation to 3D and the metrics on the host.
 
-Port of `make_eval_step` and the loader loop of epipolar_transformers_tpu/
-engine/tester.py:52-68,299-316.  Test batches are (1, V, ...) view groups;
-the batch dimension is squeezed so that the V views become the device
-batch.  Triangulation and the metrics are ROADMAP A9.
+Port of epipolar_transformers_tpu/engine/tester.py (reference
+engine/tester.py:21-227).  Per multiview group, the fused multiview forward
+runs on the device and decodes the peaks; the host triangulates them in
+float64 in one of six modes (naive, refine, pymvg, epipolar, epipolar_dlt,
+rpsm, whose unary term samples the heatmaps on the model's device) and
+accumulates MPJPE (global and per action, clamped at
+TEST.EPEMEAN_MAX_DIST), JDR and PCK, averaged over the groups.  Also the
+VIS.SAVE_PRED pickles, TEST.TRAIN_BN (BatchNorm on batch statistics at
+eval) and TEST.RECOMPUTE_BN (the running statistics re-estimated over the
+eval groups before the test, and restored after it, as the JAX `test`
+leaves its caller's state as it was).
+
+Test batches are (B, V, ...) view groups of TEST.IMS_PER_BATCH; as in the
+JAX package, each batch's first group is evaluated and its V views become
+the device batch.
+
+The drive is double-buffered: the copies of group n's outputs to pinned host
+buffers are queued behind its forward with one event, group n+1's forward
+is queued, and only then does the host wait for that event and triangulate
+group n while the device runs group n+1.  A serial drive
+(`double_buffer=False`) gives the same results bit for bit.
+
+Not ported yet, each raising when asked: LIFTING (ROADMAP A11), VIS.VIDEO
+and VIS.VIDEO_GT (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import pickle
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.pipeline import make_eval_loaders
+from ..geometry.body import HumanBody, compute_limb_length
+from ..geometry.host import triangulate_epipolar_np, triangulate_pymvg_np, triangulate_ransac_np
+from ..geometry.pictorial import rpsm
+from ..metrics.metrics2d import calculate_err, jdr
+from ..utils.file_utils import pred_pickle_path
+from ..utils.metric_logger import MetricLogger
+
+logger = logging.getLogger(__name__)
 
 EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
 # what a train step also takes: the target heatmaps and joint visibility
 TRAIN_KEYS = EVAL_KEYS + ("heatmap", "visibility")
 NHWC_KEYS = ("img", "other_img", "heatmap")
+
+H36M_ACTIONS = (
+    "Directions", "Discussion", "Eating", "Greeting", "Phoning", "Photo",
+    "Posing", "Purchases", "Sitting", "SittingDown", "Smoking", "Waiting",
+    "WalkDog", "Walking", "WalkTogether",
+)
+
+
+def action_name(idx: int, cfg: Config) -> str:
+    if cfg.is_h36m and 0 <= idx - 2 < len(H36M_ACTIONS):
+        # reference maps action ids 2..16 (multiview_h36m.py:25-89)
+        return H36M_ACTIONS[idx - 2]
+    return f"action{idx}"
 
 
 def to_model_inputs(group: Dict[str, np.ndarray], device,
@@ -33,13 +79,19 @@ def to_model_inputs(group: Dict[str, np.ndarray], device,
     return out
 
 
-def make_eval_step(cfg: Config, model: torch.nn.Module, device) -> Callable:
-    """Eval-mode forward over one view group (V views as the batch)."""
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_eval_step(cfg: Config, model: torch.nn.Module, device,
+                   train_bn: bool = False) -> Callable:
+    """Eval-mode forward over one view group (V views as the batch); with
+    `train_bn`, BatchNorm on batch statistics (TEST.TRAIN_BN)."""
     model.eval()
 
     def eval_step(group: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            return model(to_model_inputs(group, device))
+            return model(to_model_inputs(group, device), bn_train=train_bn)
 
     return eval_step
 
@@ -49,7 +101,7 @@ def predict(cfg: Config, model: torch.nn.Module, loader: Iterable,
     """Run the eval forward over `loader`'s view groups on the model's
     device; returns one output dict per group, left on the device (the
     caller decides when to sync)."""
-    eval_step = make_eval_step(cfg, model, next(model.parameters()).device)
+    eval_step = make_eval_step(cfg, model, _device_of(model))
     outputs = []
     for ib, batch in enumerate(loader):
         if max_batches is not None and ib >= max_batches:
@@ -57,3 +109,245 @@ def predict(cfg: Config, model: torch.nn.Module, loader: Iterable,
         group = {k: v[0] for k, v in batch.items()}
         outputs.append(eval_step(group))
     return outputs
+
+
+def recompute_bn(cfg: Config, model: torch.nn.Module, max_batches: Optional[int] = None) -> None:
+    """TEST.RECOMPUTE_BN: move the running statistics over the eval groups
+    with train-mode forwards under `torch.no_grad()` (flax's update,
+    models/layers.py), the parameters untouched; up to `max_batches` groups
+    of each loader.  Leaves the model in eval mode."""
+    device = _device_of(model)
+    model.train()
+    try:
+        with torch.no_grad():
+            for loader in make_eval_loaders(cfg):
+                for ib, batch in enumerate(loader):
+                    if max_batches is not None and ib >= max_batches:
+                        break
+                    model(to_model_inputs({k: v[0] for k, v in batch.items()}, device))
+    finally:
+        model.eval()
+
+
+def _triangulate(cfg: Config, group, locs, scores, out, device=None) -> np.ndarray:
+    resize = cfg.DATASETS.IMAGE_RESIZE * cfg.DATASETS.PREDICT_RESIZE
+    mode = cfg.KEYPOINT.TRIANGULATION
+    pts = locs * resize
+    if mode == "pymvg":
+        return triangulate_pymvg_np(pts, group["K"], group["RT"], scores,
+                                    conf_thres=cfg.KEYPOINT.CONF_THRES)
+    if mode == "naive":
+        return triangulate_ransac_np(pts, group["KRT"], scores,
+                                     cfg.KEYPOINT.CONF_THRES, cfg.KEYPOINT.RANSAC_THRES)
+    if mode == "refine":
+        return triangulate_ransac_np(pts, group["KRT"], scores,
+                                     cfg.KEYPOINT.CONF_THRES, cfg.KEYPOINT.RANSAC_THRES,
+                                     refine=True)
+    if mode in ("epipolar", "epipolar_dlt"):
+        return triangulate_epipolar_np(
+            pts, group["KRT"], group["K"], group["RT"], scores,
+            np.asarray(out["corr_pos"], dtype=np.float64),
+            group["other_KRT"],
+            cfg.KEYPOINT.CONF_THRES, cfg.KEYPOINT.RANSAC_THRES,
+            resize=resize, downsample=cfg.BACKBONE.DOWNSAMPLE,
+            dlt=(mode == "epipolar_dlt"),
+        )
+    if mode == "rpsm":
+        body = HumanBody()
+        target = np.asarray(group["points-3d"], dtype=np.float64)
+        gt0 = target[0] if target.ndim == 3 else target
+        cams = np.asarray(group["origK"], dtype=np.float64) @ np.asarray(
+            group["RT"], dtype=np.float64
+        )
+        boxes = [
+            {"center": c, "scale": s}
+            for c, s in zip(group["crop_center"], group["crop_scale"])
+        ]
+        p = cfg.PICT_STRUCT
+        return rpsm(
+            cams, out["heatmap_pred"], center=gt0[cfg.KEYPOINT.ROOTIDX], boxes=boxes, body=body,
+            limb_length=compute_limb_length(body, gt0),
+            img_size=tuple(cfg.DATASETS.IMAGE_SIZE),
+            grid_size=p.GRID_SIZE, first_nbins=p.FIRST_NBINS,
+            recur_nbins=p.RECUR_NBINS, recur_depth=p.RECUR_DEPTH,
+            tolerance=p.LIMB_LENGTH_TOLERANCE, root_idx=cfg.KEYPOINT.ROOTIDX,
+            device=device,
+        )
+    raise NotImplementedError(mode)
+
+
+class EvalRecord:
+    """What `process_group` accumulates over a test: the metric meters, the
+    VIS.SAVE_PRED predictions and the PCK curve accumulators."""
+
+    def __init__(self):
+        self.meters = MetricLogger()
+        self.predictions: List[dict] = []
+        self.err_joints: List[np.ndarray] = []
+        self.total_joints: List[np.ndarray] = []
+
+
+def process_group(cfg: Config, group: Dict[str, np.ndarray], out: Dict[str, np.ndarray],
+                  record: EvalRecord, ib: int = 0, device=None) -> Dict[str, float]:
+    """The host half of one view group (the JAX tester's `process`): f64
+    triangulation, MPJPE clamped at TEST.EPEMEAN_MAX_DIST, MPJPE@<action>,
+    JDR and PCK, added to `record`, and the group's SAVE_PRED entry.
+
+    out: host arrays in the port's layout, batch_locs (V, J, 2), score_pred
+    (V, J), heatmap_pred (V, J, h, w) where JDR or RPSM need it, corr_pos
+    (V, h, w, 2) where the epipolar modes or SAVE_PRED need it.  device:
+    where RPSM's unary term runs.  Returns the group's metrics."""
+    locs = np.asarray(out["batch_locs"], dtype=np.float64)  # (V, J, 2)
+    scores = np.asarray(out["score_pred"], dtype=np.float64)  # (V, J)
+
+    metric_dict: Dict[str, float] = {}
+    pred3d = None
+    if cfg.KEYPOINT.TRIANGULATION and "points-3d" in group:
+        pred3d = _triangulate(cfg, group, locs, scores, out, device)
+        target3d = np.asarray(group["points-3d"], dtype=np.float64)
+        if target3d.ndim == 3:
+            target3d = target3d[0]
+        err = np.linalg.norm(pred3d - target3d, axis=-1)
+        err = np.minimum(err, cfg.TEST.EPEMEAN_MAX_DIST)
+        mpjpe = float(err.mean())
+        metric_dict["EPEmean_global"] = mpjpe
+        act = int(np.asarray(group["action"]).reshape(-1)[0])
+        metric_dict[f"MPJPE@{action_name(act, cfg)}"] = mpjpe
+
+    if cfg.TEST.PCK and "heatmap" in group:
+        hm_gt = np.asarray(group["heatmap"]).transpose(0, 3, 1, 2)
+        _, avg_jdr, _, _ = jdr(np.asarray(out["heatmap_pred"]), hm_gt)
+        metric_dict["JDR"] = float(avg_jdr)
+        pcks, err_joints, total_joints = calculate_err(
+            locs.transpose(0, 2, 1),
+            np.asarray(group["points-2d"]).transpose(0, 2, 1),
+            np.asarray(group["visibility"]),
+            cfg.TEST.THRESHOLDS,
+            cfg.TEST.MAX_TH,
+        )
+        metric_dict.update(pcks)
+        record.err_joints.append(err_joints)
+        record.total_joints.append(total_joints)
+
+    record.meters.update(**metric_dict)
+
+    if cfg.VIS.SAVE_PRED and ib % cfg.VIS.SAVE_PRED_FREQ == 0:
+        if cfg.VIS.SAVE_PRED_LIMIT < 0 or len(record.predictions) < cfg.VIS.SAVE_PRED_LIMIT:
+            record.predictions.append({
+                "batch_locs": locs, "score_pred": scores,
+                "pred3d": pred3d,
+                "gt3d": np.asarray(group.get("points-3d")),
+                "corr_pos": np.asarray(out["corr_pos"]) if "corr_pos" in out else None,
+            })
+    return metric_dict
+
+
+def host_output_keys(cfg: Config, group) -> List[str]:
+    """The eval outputs that `process_group` reads for this config."""
+    keys = ["batch_locs", "score_pred"]
+    mode = cfg.KEYPOINT.TRIANGULATION
+    if mode in ("epipolar", "epipolar_dlt") or cfg.VIS.SAVE_PRED:
+        keys.append("corr_pos")
+    if mode == "rpsm" or (cfg.TEST.PCK and "heatmap" in group):
+        keys.append("heatmap_pred")
+    return keys
+
+
+def fetch_outputs(out: Dict[str, torch.Tensor], keys):
+    """Queue the copies of `out[keys]` (floats as float32) to the host.
+    From a CUDA device they go into pinned buffers, non_blocking, with one
+    event recorded behind them; returns the host tensors and that event
+    (None when nothing came from a CUDA device)."""
+    host, on_cuda = {}, False
+    for k in keys:
+        if k not in out:
+            continue
+        t = out[k].float() if out[k].is_floating_point() else out[k]
+        if t.is_cuda:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            t, on_cuda = buf, True
+        host[k] = t
+    event = None
+    if on_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
+
+
+def _check_supported(cfg: Config) -> None:
+    if cfg.LIFTING.ENABLED:
+        raise NotImplementedError("LIFTING.ENABLED: the lifting tasks' eval is ROADMAP A11 "
+                                  "in the port")
+    if cfg.VIS.VIDEO or cfg.VIS.VIDEO_GT:
+        raise NotImplementedError("VIS.VIDEO / VIS.VIDEO_GT (the eval frame dumps) are "
+                                  "ROADMAP A13 in the port")
+
+
+def test(cfg: Config, model: torch.nn.Module, max_batches: Optional[int] = None,
+         double_buffer: bool = True) -> Dict[str, float]:
+    """Run the evaluation on the model's device; returns the averaged
+    metrics (reference tester.py:216-227).  The model's running statistics
+    and train/eval mode are as they were when it returns.
+
+    Args:
+        max_batches: evaluate at most this many batches of each loader.
+        double_buffer: overlap group n's host half with group n+1's forward
+            (False: one group after another; the results are the same).
+    """
+    _check_supported(cfg)
+    was_training = model.training
+    saved = [b.clone() for b in model.buffers()] if cfg.TEST.RECOMPUTE_BN else None
+    try:
+        if saved is not None:
+            recompute_bn(cfg, model, max_batches)
+        return _evaluate(cfg, model, max_batches, double_buffer)
+    finally:
+        if saved is not None:
+            with torch.no_grad():
+                for b, s in zip(model.buffers(), saved):
+                    b.copy_(s)
+        model.train(was_training)
+
+
+def _evaluate(cfg: Config, model: torch.nn.Module, max_batches: Optional[int],
+              double_buffer: bool) -> Dict[str, float]:
+    device = _device_of(model)
+    eval_step = make_eval_step(cfg, model, device, train_bn=cfg.TEST.TRAIN_BN)
+    record = EvalRecord()
+
+    def process(ib, group, host, event):
+        if event is not None:
+            event.synchronize()  # this group's copies only
+        process_group(cfg, group, {k: v.numpy() for k, v in host.items()}, record, ib, device)
+
+    for loader in make_eval_loaders(cfg):
+        pending = None
+        for ib, batch in enumerate(loader):
+            if max_batches is not None and ib >= max_batches:
+                break
+            group = {k: v[0] for k, v in batch.items()}
+            current = (ib, group, *fetch_outputs(eval_step(group), host_output_keys(cfg, group)))
+            if not double_buffer:
+                process(*current)
+                continue
+            if pending is not None:
+                process(*pending)
+            pending = current
+        if pending is not None:
+            process(*pending)
+
+    if cfg.VIS.SAVE_PRED and record.predictions and cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        path = pred_pickle_path(cfg, cfg.OUTPUT_DIR)
+        with open(path, "wb") as f:
+            pickle.dump(record.predictions, f)
+        if record.err_joints:
+            with open(os.path.join(cfg.OUTPUT_DIR, "pck.pkl"), "wb") as f:
+                pickle.dump({"err_joints": np.concatenate(record.err_joints),
+                             "total_joints": np.concatenate(record.total_joints)}, f)
+        logger.info("saved %d predictions to %s", len(record.predictions), path)
+
+    results = record.meters.get_all_avg()
+    logger.info("eval: %s", results)
+    return results

@@ -4,7 +4,8 @@ Port of epipolar_transformers_tpu/engine/trainer.py:94-261 (reference
 engine/trainer.py:18-141) on one device.  `make_train_step` is forward,
 `loss.backward()` and the optimizer step; `train` runs the epoch loop with
 the LOG_FREQ meters, CHECKPOINT_PERIOD saves, the `last_checkpoint` resume
-and `model_final`, as the JAX loop does.
+and `model_final`, as the JAX loop does, and calls `eval_fn(cfg, model)`
+every EVAL_FREQ epochs where EVAL_FREQ > 0.
 
 The device is explicit: `train` runs on `cuda:0` unless its caller names
 another device, and raises where torch sees no GPU; the CPU runs only when
@@ -41,8 +42,8 @@ def resolve_device(device=None) -> torch.device:
     device is asked for and torch sees none."""
     device = torch.device("cuda", 0) if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"train() runs on {device}, but torch sees no GPU; pass "
-                           "device='cpu' to train on the CPU")
+        raise RuntimeError(f"the port runs on {device}, but torch sees no GPU; ask for "
+                           "the CPU (device='cpu', or --device cpu) to run there")
     return device
 
 
@@ -74,7 +75,8 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     return train_step
 
 
-def _check_supported(cfg: Config) -> None:
+def check_supported(cfg: Config) -> None:
+    """Raise on what the port's train loop and weight loading do not run yet."""
     if cfg.DATALOADER.BENCHMARK:
         raise NotImplementedError("DATALOADER.BENCHMARK (the loader-only benchmark) is "
                                   "ROADMAP A13 in the port")
@@ -91,8 +93,9 @@ def _check_supported(cfg: Config) -> None:
                                   "(utils/pretrained.py) are ROADMAP A7a in the port")
 
 
-def train(cfg: Config, max_steps: Optional[int] = None,
-          device=None) -> Tuple[ModelBuilder, Optimizer]:
+def train(cfg: Config, max_steps: Optional[int] = None, device=None,
+          eval_fn: Optional[Callable[[Config, ModelBuilder], Dict]] = None
+          ) -> Tuple[ModelBuilder, Optimizer]:
     """The training loop; returns the model and its optimizer, whose
     `count` is the number of optimizer updates, restored ones included.
 
@@ -101,9 +104,11 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             tests), before the epoch's checkpoint, as the JAX loop does.
         device: where to train; None means cuda:0, and the CPU runs only
             when asked for ("cpu").
+        eval_fn: called as eval_fn(cfg, model) every EVAL_FREQ epochs
+            (reference trainer.py:139-141); EVAL_FREQ <= 0 never calls it.
     """
     device = resolve_device(device)
-    _check_supported(cfg)
+    check_supported(cfg)
     if cfg.TENSORBOARD.USE:
         logger.info("TENSORBOARD.USE: the port writes no event files yet (ROADMAP A13)")
     loader = make_train_loader(cfg)
@@ -146,6 +151,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             t0 = time.time()
         if (epoch + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
             checkpointer.save(f"model_{epoch:03d}", model, optimizer, epoch=epoch + 1)
+        if eval_fn is not None and cfg.EVAL_FREQ > 0 and (epoch + 1) % cfg.EVAL_FREQ == 0:
+            eval_fn(cfg, model)
     if cfg.SOLVER.MAX_EPOCHS > start_epoch:
         checkpointer.save("model_final", model, optimizer, epoch=cfg.SOLVER.MAX_EPOCHS)
     return model, optimizer

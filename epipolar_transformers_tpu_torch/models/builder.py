@@ -6,7 +6,11 @@ PoseResNet `reference` on the target view and its sibling `backbone` on the
 other view (the same module under EPIPOLAR.SHARE_WEIGHTS), then the heatmap
 head and the soft-argmax decode.  At eval with shared weights, the late
 merge and running-stat BN, both views go through ONE 2N-batch trunk call,
-which is numerically the two passes.
+which is numerically the two passes.  `forward(inputs, bn_train=True)`
+in eval mode is TEST.TRAIN_BN (the JAX builder's `bn_train`): the eval
+outputs, with every BatchNorm on batch statistics and its running ones
+untouched; the trunks then run as two passes, each view set normalized by
+its own statistics, as in the JAX package.
 
 Inputs are NCHW tensors.  In eval mode the forward returns the output
 dict: heatmap_pred (N, J, H, W), batch_locs (N, J, 2), score_pred (N, J),
@@ -21,6 +25,7 @@ reprojection loss (ROADMAP A10) raise.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -28,6 +33,7 @@ from torch import nn
 
 from ..config import Config
 from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
+from .layers import BatchNorm2d
 from .registry import build_backbone
 
 
@@ -56,12 +62,24 @@ class ModelBuilder(nn.Module):
         """The other view's backbone (the reference itself when shared)."""
         return self.reference if self.cfg.EPIPOLAR.SHARE_WEIGHTS else self.backbone
 
-    def _can_fuse_trunks(self) -> bool:
+    def _can_fuse_trunks(self, bn_train: bool = False) -> bool:
         """The 2N-batch trunk is the two passes when they are one function:
         shared weights, late merge and BN on running statistics."""
         c = self.cfg
-        return (not self.training and c.EPIPOLAR.SHARE_WEIGHTS
+        return (not self.training and not bn_train and c.EPIPOLAR.SHARE_WEIGHTS
                 and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP)
+
+    @contextlib.contextmanager
+    def _bn_batch_stats(self, on: bool):
+        """Every BatchNorm on batch statistics (`on`) for the call."""
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm2d)] if on else []
+        for m in bns:
+            m.batch_stats = True
+        try:
+            yield
+        finally:
+            for m in bns:
+                del m.batch_stats
 
     def _heatmap_loss(self, heatmaps, scoremap, vis) -> Dict[str, torch.Tensor]:
         """The loss keyed by KEYPOINT.LOSS (JAX builder `_heatmap_loss`)."""
@@ -100,11 +118,12 @@ class ModelBuilder(nn.Module):
             loss_dict = {"loss": next(iter(loss_dict.values()))}
         return loss_dict, {}, out
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor], bn_train: bool = False):
         """
         Args (inputs dict): img, other_img (N, 3, H, W); KRT, other_KRT
             (N, 3, 4); in training also heatmap (N, J, h, w) and visibility
-            (N, J).
+            (N, J).  bn_train: in eval mode, BatchNorm on batch statistics
+            (TEST.TRAIN_BN).
         Returns the eval output dict, or in training (loss_dict,
         metric_dict, out).
         """
@@ -113,7 +132,12 @@ class ModelBuilder(nn.Module):
             return self._train_forward(inputs)
         if c.EPIPOLAR.MULTITEST:
             raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11")
-        if self._can_fuse_trunks():
+        with self._bn_batch_stats(bn_train):
+            return self._eval_forward(inputs, bn_train)
+
+    def _eval_forward(self, inputs: Dict[str, torch.Tensor], bn_train: bool):
+        c = self.cfg
+        if self._can_fuse_trunks(bn_train):
             both = torch.cat([inputs["img"], inputs["other_img"]], dim=0)
             feat_ref, other_features = self.reference.trunk_features(both).chunk(2, dim=0)
             bb = self.reference.head_from_features(

@@ -65,11 +65,18 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` that normalizes in float32 and returns float32, and
     in training moves its running statistics as flax does: with the biased
-    batch variance, `running = (1 - momentum) running + momentum batch`."""
+    batch variance, `running = (1 - momentum) running + momentum batch`.
+
+    `batch_stats` (TEST.TRAIN_BN): outside training, normalize with the
+    batch statistics and leave the running ones untouched."""
+
+    batch_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
+            if self.batch_stats:
+                return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

@@ -13,11 +13,12 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import torch
 
-from ..engine.solver import Optimizer
+if TYPE_CHECKING:  # engine/ imports this module
+    from ..engine.solver import Optimizer
 
 logger = logging.getLogger(__name__)
 

@@ -24,7 +24,7 @@ from __graft_entry__ import _flagship_cfg
 from epipolar_transformers_tpu.models import ModelBuilder as JModelBuilder
 from epipolar_transformers_tpu_torch.config import flagship_cfg
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
-from epipolar_transformers_tpu_torch.data.pipeline import eval_batches
+from epipolar_transformers_tpu_torch.data.pipeline import EvalLoader
 from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, predict, to_model_inputs
 from epipolar_transformers_tpu_torch.models import ModelBuilder
 from epipolar_transformers_tpu_torch.utils.jax_import import load_jax_variables
@@ -38,7 +38,7 @@ def _setup(impl, rng):
     cfg = _flagship_cfg(tiny=True)
     cfg = cfg.replace(EPIPOLAR=cfg.EPIPOLAR.replace(ATTENTION_IMPL=impl))
     ds = SyntheticMultiview(flagship_cfg(tiny=True), is_train=False, n_samples=2)
-    groups = list(eval_batches(ds))
+    groups = list(EvalLoader(ds))
     jmodel = JModelBuilder(cfg)
     inputs0 = {k: jnp.asarray(groups[0][k][0]) for k in EVAL_KEYS}
     variables = jax.jit(lambda k: jmodel.init(k, inputs0, is_train=False))(jax.random.PRNGKey(0))
@@ -102,7 +102,7 @@ def test_fused_trunk_equals_two_passes(jax_runs, monkeypatch):
     model = ModelBuilder(flagship_cfg(tiny=True))
     load_jax_variables(model, variables)
     fused = predict(cfg, model, groups[:1])[0]
-    monkeypatch.setattr(ModelBuilder, "_can_fuse_trunks", lambda self: False)
+    monkeypatch.setattr(ModelBuilder, "_can_fuse_trunks", lambda self, bn_train=False: False)
     two = predict(cfg, model, groups[:1])[0]
     for k in fused:
         np.testing.assert_allclose(fused[k].numpy(), two[k].numpy(), rtol=1e-5, atol=1e-5,
@@ -135,7 +135,7 @@ def test_training_raises():
     from epipolar_transformers_tpu_torch.config import update_from_dict
 
     ds = SyntheticMultiview(flagship_cfg(tiny=True), is_train=False, n_samples=1)
-    group = {k: v[0] for k, v in next(eval_batches(ds)).items()}
+    group = {k: v[0] for k, v in next(iter(EvalLoader(ds))).items()}
     inputs = to_model_inputs(group, "cpu", TRAIN_KEYS)
     for override, error, match in (
         ({"ATTENTION_IMPL": "pallas"}, ValueError, "forward-only"),
