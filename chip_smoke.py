@@ -61,15 +61,38 @@ run, each printed on its own lines:
      the eval forward's device ms (inputs on the card, and from the host
      arrays) and host ms to queue it, host ms of `process_group` under
      pymvg, wall ms (and groups/s) of the double-buffered drive against a
-     serial one, in turns, and the device's idle share of a profiled run.
+     serial one, in turns, and the device's idle share of a profiled run;
+     then the kernels' bounds at [2]'s inputs;
+  8. epipolarHG1 as configs/epipolar/synthetic_hg.yaml writes it (64 px,
+     NFEATS 128, K=16, 16x16 maps, batch 16, DEVICE_RENDER on): the
+     attention forward and backward alone at that shape against the plain
+     version ([2]'s and [5]'s tolerances, two runs bit-equal, the forward's
+     tiles on each path), their times beside the plain version and the
+     bound; 10 steps of `train` (one forward and one backward launch a
+     step); one f32 step, kernel path against plain path ([6]'s limits);
+     `test` on 4 view groups of the trained model;
+  9. configs/epipolar/synthetic_zresidual_flagship.yaml as written (R-50
+     in f32, 256 px, batch 16, DEVICE_RENDER on): the device-rendered
+     `img`, `other_img` and `heatmap` against the host's render of the same
+     items (atol 2e-5), render ms on the card beside the host's, 3 steps of
+     `train`, then ms per train step and peak memory at batch 16, and the
+     `train` loop's wall per step with DEVICE_RENDER on and off;
+ 10. weight import: a reference-format R-50 checkpoint (the state dict that
+     tests/test_torch_resnet.py rebuilds from poseresnet50_golden.npz, keys
+     under `module.`, in {'model': ...}) through the command line's
+     eval-only path, every imported key bit-equal to the file; then a port
+     checkpoint tagged in `last_checkpoint` wins over that cfg.WEIGHTS.
 
 The line before the card line is a JSON object with both kernels'
-launches, errors and times, and each kernel's bound: the larger of its
+launches on the main path (phases 3, 6, 7(a), 8 and 9), errors and times,
+each entry's `hourglass_shape` times at [8]'s shape, and each kernel's
+bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
-input read once, each output written once) over the memory rate, counted
+input read once, a tensor passed as keys and values once, each output
+written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6 and 7(a).  No single PyTorch call
+each path over the forwards of phases 3, 6, 7(a), 8 and 9.  No single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
 the last line is {"ok": true, "device": {...}}.  Any failed check raises.
@@ -81,6 +104,7 @@ import contextlib
 import json
 import logging
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -102,6 +126,15 @@ RPSM_MM = 60.0
 RPSM_TEST_DEPTH = 6
 CLI_CONFIG = "configs/epipolar/synthetic_zresidual.yaml"
 TRAIN_STEPS = 10
+# [8]-[10]: the two synthetic recipes as written, and the weight import
+HG_CONFIG = "configs/epipolar/synthetic_hg.yaml"
+FLAGSHIP_RECIPE = "configs/epipolar/synthetic_zresidual_flagship.yaml"
+HG_TRAIN_STEPS = 10
+HG_EVAL_GROUPS = 4
+RECIPE_TRAIN_STEPS = 3
+RECIPE_LOOP_STEPS = 6  # a run each with DEVICE_RENDER on and off
+# device render against the host's windowed render (tests/test_device_render.py)
+RENDER_ATOL = 2e-5
 # f32: both sides compute in f32 (TF32 off); they differ only in summation
 # order, ~1e-6 relative at C=256.
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -128,6 +161,10 @@ GRAD_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 STEP_LOSS_RTOL = 2e-2
 STEP_GRAD_REL_L2 = 2e-2
 STEP_BF16_NOISE_FACTOR = 1.5
+# a parameter whose gradient stays below this share of the largest on both
+# paths has a true gradient of 0 (a bias feeding a batch-statistics BN; the
+# hourglass has ~50), and its rounding noise is left out of the comparison
+STEP_NOISE_FLOOR = 1e-5
 # feeds the zero-init BN, which runs on batch statistics in training and
 # removes any constant shift: its true gradient is 0 on both paths
 ZERO_GRAD_PARAMS = ("reference.epipolar_sampler.z.bias",)
@@ -202,7 +239,7 @@ def agreement(name, got, want, tol) -> float:
 
 
 def rig_sample_locs(cfg, batch, device):
-    """(batch, K, 64, 64, 2) locations of the synthetic rig's view pairs
+    """(batch, K, h, w, 2) locations of `cfg`'s synthetic rig view pairs
     (each view with its nearest neighbour, cycled), through the port."""
     import torch
 
@@ -307,9 +344,8 @@ def randomize(model, images, seed):
                                  * (2.0 / fan_in) ** 0.5)
                 if mod.bias is not None:
                     mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.1)
+        randomize_fusion(model, gen)
         sampler = model.reference.epipolar_sampler
-        sampler.bn.weight.copy_(torch.randn(sampler.bn.weight.shape, generator=gen) * 0.5)
-        sampler.bn.bias.copy_(torch.randn(sampler.bn.bias.shape, generator=gen) * 0.1)
         bns = [m for m in model.reference.modules()
                if isinstance(m, BatchNorm2d) and m is not sampler.bn]
         for m in bns:
@@ -500,21 +536,70 @@ def backward_phase(cfg, device):
 
 
 class _Messages(logging.Handler):
-    """Collects the formatted messages of one logger."""
+    """Collects the formatted messages of one logger and their times."""
 
     def __init__(self):
         super().__init__(logging.INFO)
-        self.messages = []
+        self.messages, self.times = [], []
 
     def emit(self, record):
         self.messages.append(record.getMessage())
+        self.times.append(record.created)
+
+
+def counted_train(name, tcfg, steps, device):
+    """`engine.trainer.train` for `steps` steps of `tcfg` (LOG_FREQ 1), the
+    main path: the kernels' counters set to 0 just before and read just
+    after.  Raises unless every step's loss is finite, each step launched
+    the forward and the backward kernel once, the model ran on the card and
+    most forward tiles took the tile kernel.  Returns the model, the
+    optimizer, the forward and backward launches, the tiles on each path,
+    the losses, the wall seconds, and the loop's wall per step after the
+    first in ms: loader, inputs and step, between two of the step log
+    lines, each written after the step's loss reached the host."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    messages = _Messages()
+    train_log = logging.getLogger(trainer.__name__)
+    train_log.addHandler(messages)
+    train_log.setLevel(logging.INFO)
+    np.random.seed(SEED)  # the loader's reference views and augmentation
+    try:
+        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
+        t0 = time.perf_counter()
+        model, optimizer = trainer.train(tcfg, max_steps=steps, device=device)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
+        tiles = attn.tile_counts()
+    finally:
+        train_log.removeHandler(messages)
+    logged = [(t, float(m)) for t, msg in zip(messages.times, messages.messages)
+              for m in re.findall(r"\bloss (\S+)", msg)]
+    losses = [loss for _, loss in logged]
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(logged, logged[1:])]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} train losses {losses}")
+    if not launches == backward_launches == optimizer.count == steps:
+        raise AssertionError(f"{name}: {optimizer.count} steps launched the forward kernel "
+                             f"{launches} and the backward kernel {backward_launches} times")
+    if next(model.parameters()).device != device:
+        raise AssertionError(f"{name}: the trainer did not run on the card")
+    h, w = tcfg.KEYPOINT.HEATMAP_SIZE
+    check_main_path_tiles(f"{name} train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
+                          * -(-h * w // attn.TILE_QUERIES))
+    return model, optimizer, launches, backward_launches, tiles, losses, wall, step_ms
 
 
 def train_phase(cfg, device):
     """The training main path through `engine.trainer.train`, its
     checkpoint resume, and one step on each attention path.  Returns the
     launch counts and what timing needs."""
-    import numpy as np
     import torch
 
     from epipolar_transformers_tpu_torch.config import update_from_dict
@@ -523,32 +608,11 @@ def train_phase(cfg, device):
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
     from epipolar_transformers_tpu_torch.utils.checkpoint import Checkpointer
 
-    messages = _Messages()
-    train_log = logging.getLogger(trainer.__name__)
-    train_log.addHandler(messages)
-    train_log.setLevel(logging.INFO)
     with tempfile.TemporaryDirectory() as out_dir:
         tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
-        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
-        attn.TILE_COUNTS.clear()
-        t0 = time.perf_counter()
-        model, optimizer = trainer.train(tcfg, max_steps=TRAIN_STEPS, device=device)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-        tiles = attn.tile_counts()
-        losses = [float(m) for msg in messages.messages for m in re.findall(r"\bloss (\S+)", msg)]
-        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-            raise AssertionError(f"train losses {losses}")
-        if not launches == backward_launches == optimizer.count == TRAIN_STEPS:
-            raise AssertionError(f"{optimizer.count} steps launched the forward kernel "
-                                 f"{launches} and the backward kernel {backward_launches} times")
-        if next(model.parameters()).device != device:
-            raise AssertionError("the trainer did not run on the card")
-        h, w = cfg.KEYPOINT.HEATMAP_SIZE
-        check_main_path_tiles("train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
-                              * -(-h * w // attn.TILE_QUERIES))
+        model, optimizer, launches, backward_launches, tiles, losses, wall, _ = counted_train(
+            "[6]", tcfg, TRAIN_STEPS, device)
         log(f"  train: {TRAIN_STEPS} steps of batch {tcfg.SOLVER.IMS_PER_BATCH} in {wall:.1f} s "
             f"(first steps include cuDNN autotuning and the loader's start), loss "
             f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches "
@@ -566,7 +630,6 @@ def train_phase(cfg, device):
                 raise AssertionError(f"resume: {k} differs from the checkpoint")
         log(f"  checkpoint: saved, resumed with {resumed_opt.count} optimizer steps and "
             "identical weights, no step taken")
-    train_log.removeHandler(messages)
     del model, optimizer, resumed, resumed_opt
 
     model, batch = step_parity(cfg, device, per_param=False)
@@ -582,7 +645,18 @@ def train_phase(cfg, device):
     return launches, backward_launches, tiles, train_step
 
 
-def step_parity(cfg, device, per_param: bool):
+def randomize_fusion(model, gen):
+    """A random affine for the zero-init fusion BN, drawn from `gen` (else
+    the `z` branch gets no gradient)."""
+    import torch
+
+    bn = model.reference.epipolar_sampler.bn
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(bn.weight.shape, generator=gen) * 0.5)
+        bn.bias.copy_(torch.randn(bn.bias.shape, generator=gen) * 0.1)
+
+
+def step_parity(cfg, device, per_param: bool, hourglass: bool = False):
     """One train step's loss and gradients on the kernel path (twice, which
     gives the noise floor of cuDNN's algorithm choices; the attention
     backward is bit-equal) and on the plain path, from the same randomized
@@ -592,7 +666,11 @@ def step_parity(cfg, device, per_param: bool):
     held, the gradient against the kernel path's own spread; f32
     convolutions (per_param) hold every parameter's gradient, where bf16
     rounding downstream of the attention would otherwise amplify f32-level
-    differences through the deep trunk.
+    differences through the deep trunk.  A parameter whose gradient lies
+    below STEP_NOISE_FLOOR of the largest on both paths is rounding noise
+    of a true 0 (a bias that feeds a batch-statistics BN) and is left out.
+    The PoseResNet's weights are randomized (`randomize`); the hourglass
+    keeps its initial weights, the fusion BN's affine randomized.
     Returns the model and the batch."""
     import numpy as np
     import torch
@@ -600,13 +678,18 @@ def step_parity(cfg, device, per_param: bool):
     from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
     from epipolar_transformers_tpu_torch.data.pipeline import collate
     from epipolar_transformers_tpu_torch.engine import trainer
-    from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, to_model_inputs
+    from epipolar_transformers_tpu_torch.ops.synthetic_render import make_batch_renderer
 
     model = trainer.build_model(cfg, device)
+    n = cfg.SOLVER.IMS_PER_BATCH if hourglass else BENCH_BATCH
     np.random.seed(SEED)
-    ds = SyntheticMultiview(cfg, is_train=True, n_samples=BENCH_BATCH, seed=SEED)
-    batch = to_model_inputs(collate([ds[i] for i in range(BENCH_BATCH)]), device, TRAIN_KEYS)
-    randomize(model, torch.cat([batch["img"], batch["other_img"]]), SEED)
+    ds = SyntheticMultiview(cfg, is_train=True, n_samples=n, seed=SEED)
+    batch = trainer.model_inputs(collate([ds[i] for i in range(n)]), device,
+                                 make_batch_renderer(cfg))
+    if hourglass:
+        randomize_fusion(model, torch.Generator().manual_seed(SEED))
+    else:
+        randomize(model, torch.cat([batch["img"], batch["other_img"]]), SEED)
     model.train()
 
     def loss_and_grads(plain: bool):
@@ -624,10 +707,17 @@ def step_parity(cfg, device, per_param: bool):
     _, grads_k2 = loss_and_grads(False)
     loss_p, grads_p = loss_and_grads(True)
     dtype = "bf16" if cfg.DTYPE == "bfloat16" else "f32"
+    name = f"{dtype} {'epipolarHG1' if hourglass else 'flagship'}"
     if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or not np.isfinite(loss_k):
-        raise AssertionError(f"{dtype} train step loss: kernel path {loss_k}, plain {loss_p}")
+        raise AssertionError(f"{name} train step loss: kernel path {loss_k}, plain {loss_p}")
     if set(grads_k) != set(grads_p):
         raise AssertionError("the two paths give gradients to different parameters")
+    floor = STEP_NOISE_FLOOR * max(float(g.abs().max()) for g in grads_p.values())
+    noise = {k for k in grads_p
+             if max(float(grads_k[k].abs().max()), float(grads_p[k].abs().max())) < floor}
+    for grads in (grads_k, grads_k2, grads_p):
+        for k in noise:
+            del grads[k]
     whole = rel(torch.cat([g.flatten() for g in grads_k.values()]),
                 torch.cat([g.flatten() for g in grads_p.values()]))
     whole_self = rel(torch.cat([g.flatten() for g in grads_k2.values()]),
@@ -635,16 +725,17 @@ def step_parity(cfg, device, per_param: bool):
     limit = STEP_GRAD_REL_L2 if per_param else max(STEP_GRAD_REL_L2,
                                                    STEP_BF16_NOISE_FACTOR * whole_self)
     if not whole <= limit:
-        raise AssertionError(f"{dtype} whole-model gradient relative L2 error {whole:.3g} "
+        raise AssertionError(f"{name} whole-model gradient relative L2 error {whole:.3g} "
                              f"above {limit:.3g} (kernel path against itself {whole_self:.3g})")
     errs = {k: rel(grads_k[k], g) for k, g in grads_p.items()}
     worst = max(errs, key=errs.get)
     if per_param and not errs[worst] <= STEP_GRAD_REL_L2:
-        raise AssertionError(f"{dtype} {worst}: gradient relative L2 error {errs[worst]:.3g}")
-    log(f"  one {dtype} step, kernel vs plain path: loss {loss_k:.6g} vs {loss_p:.6g}; "
-        f"gradient relative L2 error {whole:.3g} over the model (kernel path against itself "
-        f"{whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel path against "
-        f"itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} parameters")
+        raise AssertionError(f"{name} {worst}: gradient relative L2 error {errs[worst]:.3g}")
+    log(f"  one {name} step (batch {n}), kernel vs plain path: loss {loss_k:.6g} vs "
+        f"{loss_p:.6g}; gradient relative L2 error {whole:.3g} over the model (kernel path "
+        f"against itself {whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel "
+        f"path against itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} "
+        f"parameters ({len(noise)} with a true gradient of 0 left out)")
     return model, batch
 
 
@@ -919,6 +1010,273 @@ def eval_times(ecfg, model, seen, device) -> None:
         f"({busy / n:.3f} ms a group), idle {100 * (1 - busy / wall):.1f}%")
 
 
+def hourglass_phase(device):
+    """[8]: epipolarHG1 as configs/epipolar/synthetic_hg.yaml writes it.
+    Returns the main path's launches and tiles and the attention's times."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import load_config, update_from_dict
+    from epipolar_transformers_tpu_torch.engine import tester
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    cfg = load_config(HG_CONFIG)
+    B, C, K = cfg.SOLVER.IMS_PER_BATCH, cfg.KEYPOINT.NFEATS, cfg.EPIPOLAR.SAMPLESIZE
+    H, W = cfg.KEYPOINT.HEATMAP_SIZE
+    params = Epipolar(cfg).attention_params
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    # channels_last (B, C, H, W) activations viewed as NHWC, as the model
+    # hands them over; keys = values one tensor
+    f1, f2 = (torch.randn(B, C, H, W, device=device, generator=gen)
+              .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+              for _ in range(2))
+    locs = rig_sample_locs(cfg, B, device)
+    shape = f"B={B} {H}x{W} K={K} C={C} f32"
+
+    attn.TILE_COUNTS.clear()
+    got = attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+    tiles = attn.tile_counts()
+    want = attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params)
+    err = max(close("[8] out", got[0], want[0], **F32_TOL),
+              close("[8] depth", got[2], want[2], **F32_TOL))
+    agree = agreement("[8] corr_pos", got[1], want[1], 1e-3)
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, attn.epipolar_attention_batch(f1, f2, f2, locs, params))):
+        raise AssertionError("[8] two forward runs on the same inputs differ")
+    if sum(tiles) != B * -(-H * W // attn.TILE_QUERIES):
+        raise AssertionError(f"[8] forward tiles {tiles}")
+    log(f"  attention forward at {shape}, rig locations: max abs err {err:.3g}, corr_pos "
+        f"agree {agree:.4f}; two runs bit-equal; forward tiles on the tile path / per-query "
+        f"path {tiles[0]} / {tiles[1]}")
+
+    def grads(fn):
+        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
+        out = fn(q, kv, kv, locs, params)[0]
+        r = torch.randn(out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED + 1))
+        return torch.autograd.grad((out.float() * r).sum(), (q, kv))
+
+    before = attn.BACKWARD_LAUNCHES
+    got_g = grads(attn.epipolar_attention_batch)
+    if attn.BACKWARD_LAUNCHES != before + 1:
+        raise AssertionError("[8] the backward kernel did not launch once")
+    bwd_err = close_grads("[8] keys = values one tensor", list(got_g) + [None],
+                          list(grads(attn.epipolar_attention_plain_batch)) + [None],
+                          **GRAD_F32_TOL)
+    if not all(torch.equal(a, b) for a, b in zip(got_g, grads(attn.epipolar_attention_batch))):
+        raise AssertionError("[8] two backward runs on the same inputs differ")
+    log(f"  attention backward at {shape}, keys = values one tensor ({H * W}-row key set): "
+        f"max abs err {bwd_err:.3g}; two runs bit-equal")
+
+    def backward_only(fn):
+        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
+        out = fn(q, kv, kv, locs, params)[0]
+        r = torch.randn_like(out)
+        return lambda: torch.autograd.grad(out, (q, kv), r, retain_graph=True)
+
+    fk, fp = in_turns(lambda: attn.epipolar_attention_batch(f1, f2, f2, locs, params),
+                      lambda: attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params))
+    bk, bp = in_turns(backward_only(attn.epipolar_attention_batch),
+                      backward_only(attn.epipolar_attention_plain_batch))
+    fwd_bound, bwd_bound = bound([f1, f2, f2], locs, False), bound([f1, f2], locs, True)
+    log(f"  times (CUDA events, 2x20 calls in turns) at {shape}: forward kernel {fk:.4f} ms, "
+        f"plain {fp:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); backward kernel "
+        f"{bk:.4f} ms, plain autograd {bp:.4f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
+                                      "TENSORBOARD": {"USE": False}})
+        model, _, launches, backward_launches, train_tiles, losses, wall, _ = counted_train(
+            "[8]", tcfg, HG_TRAIN_STEPS, device)
+    log(f"  train (DEVICE_RENDER on): {HG_TRAIN_STEPS} steps of batch {B} in {wall:.1f} s, loss "
+        f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches {launches}, "
+        f"backward kernel launches {backward_launches} (one each per step); forward tiles on "
+        f"the tile path / per-query path {train_tiles[0]} / {train_tiles[1]}")
+
+    step_parity(cfg, device, per_param=True, hourglass=True)
+
+    ecfg = update_from_dict(cfg, {"TEST": {"IMS_PER_BATCH": 1}})
+    attn.LAUNCHES = 0
+    attn.TILE_COUNTS.clear()
+    results = tester.test(ecfg, model, max_batches=HG_EVAL_GROUPS)
+    torch.cuda.synchronize(device)
+    eval_launches, eval_tiles = attn.LAUNCHES, attn.tile_counts()
+    finite_metrics("[8] test", results)
+    if eval_launches != HG_EVAL_GROUPS:
+        raise AssertionError(f"[8] {HG_EVAL_GROUPS} groups launched the forward kernel "
+                             f"{eval_launches} times")
+    log(f"  test(), pymvg, {HG_EVAL_GROUPS} view groups on the trained model: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in results.items())
+        + f"; forward kernel launches {eval_launches} (one per group, two passes), tiles "
+        f"{eval_tiles[0]} / {eval_tiles[1]}")
+    return dict(launches=launches + eval_launches, backward_launches=backward_launches,
+                tiles=[train_tiles[i] + eval_tiles[i] for i in range(2)],
+                entry={"shape": shape, "ms": fk, "plain_ms": fp, "bound_ms": fwd_bound[0],
+                       "bound_by": fwd_bound[1], "max_abs_err": err,
+                       "tiles": {"tile_path": tiles[0], "per_query_path": tiles[1]}},
+                backward_entry={"shape": shape, "ms": bk, "plain_ms": bp,
+                                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                                "max_abs_err": bwd_err})
+
+
+def recipe_phase(device):
+    """[9]: configs/epipolar/synthetic_zresidual_flagship.yaml as written
+    (R-50 in f32, 256 px, batch 16, K=64, DEVICE_RENDER on).  Returns the
+    main path's launches and tiles."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import load_config, update_from_dict
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import collate
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.engine.tester import to_model_inputs
+    from epipolar_transformers_tpu_torch.ops.synthetic_render import (RENDER_PARAM_KEYS,
+                                                                       make_batch_renderer)
+
+    cfg = load_config(FLAGSHIP_RECIPE)
+    B = cfg.SOLVER.IMS_PER_BATCH
+
+    def items(device_render):
+        np.random.seed(SEED)  # the reference view and the augmentation draw from it
+        ds = SyntheticMultiview(cfg, is_train=True, n_samples=B, seed=SEED,
+                                device_render=device_render)
+        t0 = time.perf_counter()
+        batch = collate([ds[i] for i in range(B)])
+        return batch, (time.perf_counter() - t0) * 1e3
+
+    host, host_ms = items(False)
+    light, light_ms = items(True)
+    render = make_batch_renderer(cfg)
+    upload = to_model_inputs(light, device, ("KRT", "other_KRT", "visibility", *RENDER_PARAM_KEYS))
+    got = render(upload)
+    line = []
+    for k in ("img", "other_img", "heatmap"):
+        err = close(f"[9] device-rendered {k}", got[k].permute(0, 2, 3, 1).cpu(),
+                    torch.from_numpy(host[k]), rtol=0, atol=RENDER_ATOL)
+        line.append(f"{k} {err:.3g}")
+    render_ms = cuda_ms(lambda: render(upload))
+    log(f"  device render vs host render of the same {B} items, max abs err (atol "
+        f"{RENDER_ATOL}): " + ", ".join(line))
+    log(f"  render per batch of {B} at 256 px: device {render_ms:.3f} ms (CUDA events); host "
+        f"{host_ms:.1f} ms for the items with their pixels, {light_ms:.1f} ms for the "
+        f"coordinates only")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
+                                      "TENSORBOARD": {"USE": False}})
+        model, optimizer, launches, backward_launches, tiles, _, _, _ = counted_train(
+            "[9]", tcfg, RECIPE_TRAIN_STEPS, device)
+        # the loop as a whole, the rig rendered on the card against the host
+        loop_ms = {}
+        for on in (True, False):
+            lcfg = update_from_dict(tcfg, {"DATALOADER": {"DEVICE_RENDER": on}})
+            loop_ms[on] = counted_train(f"[9] DEVICE_RENDER {on}", lcfg, RECIPE_LOOP_STEPS,
+                                        device)[-1]
+
+    step = trainer.make_train_step(cfg, model, optimizer)
+    inputs = trainer.model_inputs(light, device, render)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: losses.append(step(inputs)["loss"]), iters=RECIPE_TRAIN_STEPS,
+                      warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(torch.isfinite(v) for v in losses):
+        raise AssertionError(f"[9] losses {losses}")
+    log(f"  train(): {RECIPE_TRAIN_STEPS} steps of batch {B}, forward kernel launches "
+        f"{launches}, backward kernel launches {backward_launches} (one each per step), "
+        f"forward tiles on the tile path / per-query path {tiles[0]} / {tiles[1]}")
+    log(f"  train step at batch {B} (forward, backward, adam; device-rendered inputs): "
+        f"{step_ms:.3f} ms (CUDA events, mean of {RECIPE_TRAIN_STEPS} after 1), peak memory "
+        f"{peak:.3f} GiB, losses {', '.join(f'{float(v):.5g}' for v in losses)}")
+    log(f"  train() loop wall per step after the first ({RECIPE_LOOP_STEPS} steps a run; loader, "
+        f"upload, render and step): DEVICE_RENDER on {statistics.mean(loop_ms[True]):.3f} ms "
+        f"(steps {', '.join(f'{t:.1f}' for t in loop_ms[True])}), off "
+        f"{statistics.mean(loop_ms[False]):.3f} ms "
+        f"(steps {', '.join(f'{t:.1f}' for t in loop_ms[False])})")
+    return launches, backward_launches, tiles
+
+
+def weight_import_phase(device):
+    """[10]: a reference-format checkpoint of R-50 (the state dict that
+    tests/test_torch_resnet.py rebuilds from poseresnet50_golden.npz, keys
+    under `module.`, wrapped in {'model': ...}) through the command line's
+    eval-only path; then a port checkpoint tagged in last_checkpoint wins."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.utils.checkpoint import Checkpointer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    before = set(sys.modules)
+    spec = importlib.util.spec_from_file_location(
+        "make_golden_fixtures", os.path.join(root, "scripts", "make_golden_fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    jax_side = sorted(m for m in set(sys.modules) - before
+                      if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
+    if jax_side:
+        raise AssertionError(f"[10] loading det_tensor imported {jax_side[:5]}")
+    g = np.load(os.path.join(root, "tests", "fixtures", "poseresnet50_golden.npz"))
+    sd = {}
+    for key, shape in zip(g["sd_keys"], g["sd_shapes"]):
+        shape = tuple(int(s) for s in str(shape).split("x")) if str(shape) else ()
+        sd[str(key)] = torch.as_tensor(np.asarray(fixtures.det_tensor(str(key), shape)))
+
+    captured = []
+    test = cli.test
+
+    def keep(c, model, **kw):
+        captured.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        return test(c, model, **kw)
+
+    cli.test = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "reference_r50.pth")
+            torch.save({"model": {"module." + k: v for k, v in sd.items()}}, path)
+            out = os.path.join(tmp, "out")
+            argv = ["--cfg", CLI_CONFIG, "--max-eval-batches", "2", "BACKBONE.BODY",
+                    "epipolarposeR-50", "WEIGHTS", path, "WEIGHTS_PREFIX", "module.",
+                    "DOTRAIN", "False", "OUTPUT_DIR", out]
+            results = cli.main(argv)
+            finite_metrics("[10] eval", results)
+            state = captured[-1]
+            imported = [k for k in sd if not k.endswith("num_batches_tracked")]
+            for k in imported:
+                if not torch.equal(state["reference." + k], sd[k].to(state["reference." + k].dtype)):
+                    raise AssertionError(f"[10] reference.{k} differs from the file")
+            kept = sorted(k for k in state if not k.endswith("num_batches_tracked")
+                          and k[len("reference."):] not in sd)
+            log(f"  main(--cfg {CLI_CONFIG} BACKBONE.BODY epipolarposeR-50 WEIGHTS "
+                f"<reference .pth> WEIGHTS_PREFIX module. DOTRAIN False) returned (rc 0): "
+                f"{len(imported)} imported keys bit-equal to the file, {len(kept)} kept their "
+                f"initial values ({', '.join(kept)}); EPEmean_global "
+                f"{results['EPEmean_global']:.4g}")
+
+            cfg = load_config(CLI_CONFIG, argv[4:])
+            other = trainer.build_model(cfg.replace(SEED=SEED + 7, WEIGHTS=""), device)
+            Checkpointer(out).save("model_000", other, None, epoch=1)
+            finite_metrics("[10] eval after the tag", cli.main(argv))
+            state = captured[-1]
+            for k, v in other.state_dict().items():
+                if not torch.equal(state[k], v.cpu()):
+                    raise AssertionError(f"[10] {k}: the tagged checkpoint did not win")
+            if torch.equal(state["reference.conv1.weight"], sd["conv1.weight"]):
+                raise AssertionError("[10] the file's weights survived the tagged checkpoint")
+    finally:
+        cli.test = test
+    log(f"  a port checkpoint tagged in last_checkpoint wins over that cfg.WEIGHTS: all "
+        f"{len(state)} keys bit-equal to the tagged checkpoint")
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -947,14 +1305,15 @@ def bound(feats, locs, backward: bool, distinct: bool = True):
     distinct=False per live corner hit, as PR 1-3 counted) for each time
     the function reads that row: the forward twice (similarity, output), the
     backward five times (similarity, g, dfeat1, and the key and value
-    gradients).  The bytes read each input once and write each output once."""
+    gradients).  The bytes read each input once (a tensor passed as both
+    keys and values is one input) and write each output once."""
     B, K, H, W, _ = locs.shape
     C = feats[0].shape[-1]
     flops = live_pairs(locs, distinct) * 2 * C * (5 if backward else 2)
     feature = B * H * W * C * 4
     # inputs (features, locations; the backward's dout) and outputs (out and
     # depth; the backward's dfeat1 and keys' = values' gradient)
-    nbytes = len(feats) * feature + locs.numel() * 4 + (
+    nbytes = len({f.data_ptr() for f in feats}) * feature + locs.numel() * 4 + (
         3 * feature if backward else feature + B * K * H * W * 4)
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1061,7 +1420,7 @@ def main() -> int:
     log(f"[4] times, continued after [7]: the eval engine, {card}")
     eval_times(ecfg, slice_model, seen, device)
     launches += eval_launches
-
+    del slice_model, seen
     fwd_bound = bound(f32, rig, backward=False)
     bwd_bound = bound(f32[:2], rig, backward=True)
     fwd_hits, bwd_hits = (bound(f, rig, b, distinct=False)[0]
@@ -1071,20 +1430,36 @@ def main() -> int:
         f"{live_pairs(rig)} distinct live (query, key row) pairs; counted per live "
         f"corner hit, {live_pairs(rig, False)} of them, as before: {fwd_hits:.4f} and "
         f"{bwd_hits:.4f} ms)")
+
+    log(f"[8] epipolarHG1 as {HG_CONFIG} writes it (64 px, NFEATS 128, K=16, 16x16, "
+        f"5 joints, batch 16, DEVICE_RENDER on), {card}")
+    hg = hourglass_phase(device)
+    log(f"[9] the flagship recipe as written: {FLAGSHIP_RECIPE} (R-50 f32, 256 px, K=64, "
+        f"batch 16, DEVICE_RENDER on), {card}")
+    recipe_launches, recipe_backward, recipe_tiles = recipe_phase(device)
+    log("[10] weight import through the command line")
+    weight_import_phase(device)
+
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
-        "replaces": REPLACES, "launches": launches + train_launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-        "library_ms": None, "main_path_tiles": {
-            "tile_path": slice_tiles[0] + train_tiles[0] + eval_tiles[0],
-            "per_query_path": slice_tiles[1] + train_tiles[1] + eval_tiles[1]},
+        "replaces": REPLACES,
+        "launches": launches + train_launches + hg["launches"] + recipe_launches,
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1], "library_ms": None, "main_path_tiles": {
+            "tile_path": (slice_tiles[0] + train_tiles[0] + eval_tiles[0] + hg["tiles"][0]
+                          + recipe_tiles[0]),
+            "per_query_path": (slice_tiles[1] + train_tiles[1] + eval_tiles[1]
+                               + hg["tiles"][1] + recipe_tiles[1])},
+        "hourglass_shape": hg["entry"],
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
-        "replaces": BACKWARD_REPLACES, "launches": backward_launches, "max_abs_err": bwd_err,
-        "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-        "library_ms": None,
+        "replaces": BACKWARD_REPLACES,
+        "launches": backward_launches + hg["backward_launches"] + recipe_backward,
+        "max_abs_err": bwd_err, "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1], "library_ms": None,
+        "hourglass_shape": hg["backward_entry"],
     }]}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))

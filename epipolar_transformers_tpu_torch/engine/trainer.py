@@ -12,25 +12,30 @@ another device, and raises where torch sees no GPU; the CPU runs only when
 the caller passes `device="cpu"`.  On the GPU the model runs
 channels_last, so the (N, H, W, C) views the attention kernels read need no
 copy.  Initial weights come from a `torch.Generator` seeded with cfg.SEED,
-drawn with the JAX package's initializers.  Not ported here, each said when
-met: DATALOADER.BENCHMARK (ROADMAP A13), DATALOADER.DEVICE_RENDER (ROADMAP
-A12) and tensorboard (ROADMAP A13, skipped with a log line), data parallel
-(ROADMAP A8), pretrained weights (`utils/pretrained.py`, ROADMAP A7a).
+drawn with the JAX package's initializers; then `load_weights` imports the
+pretrained and foreign weights (utils/pretrained.py) and restores a native
+checkpoint, as the JAX `create_train_state` and its Checkpointer do.  A
+batch without `img` is a DATALOADER.DEVICE_RENDER batch: only its
+coordinates, cameras and visibility go to the device, where
+ops/synthetic_render.py renders the images and heatmaps.  Not ported here,
+each said when met: DATALOADER.BENCHMARK (ROADMAP A13), tensorboard
+(ROADMAP A13, skipped with a log line) and data parallel (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..config import BackboneCatalog, Config
+from ..config import Config
 from ..data.pipeline import make_train_loader
 from ..models import ModelBuilder
+from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
+from ..utils.pretrained import apply_pretrained
 from .solver import Optimizer, make_optimizer
 from .tester import TRAIN_KEYS, to_model_inputs
 
@@ -59,6 +64,35 @@ def build_model(cfg: Config, device: torch.device) -> ModelBuilder:
     return model.train()
 
 
+def load_weights(cfg: Config, model: torch.nn.Module, optimizer: Optional[Optimizer] = None,
+                 load_opt: bool = True) -> Optional[Dict]:
+    """The pretrained and foreign weights (`apply_pretrained`), then the
+    native resume: the `last_checkpoint` tag of OUTPUT_DIR, else a
+    cfg.WEIGHTS that the port wrote, which wins over the imports as in the
+    JAX package (engine/trainer.py:73-91,163-182 there).  With load_opt
+    False (WEIGHTS_LOAD_OPT) the optimizer is not restored.  Returns the
+    resumed checkpoint's metadata, or None."""
+    imported = apply_pretrained(cfg, model)
+    native = cfg.WEIGHTS if cfg.WEIGHTS.endswith(".pth") and not imported else None
+    extra = Checkpointer(cfg.OUTPUT_DIR).load(model, optimizer, native, load_opt=load_opt)
+    if extra is None and native:
+        logger.warning("cfg.WEIGHTS=%r was not loaded (missing file and no last_checkpoint): "
+                       "the initial weights stay", cfg.WEIGHTS)
+    return extra
+
+
+def model_inputs(batch, device: torch.device, render: Callable) -> Dict[str, torch.Tensor]:
+    """A host train batch -> the model inputs on `device`.  A batch without
+    `img` carries joint coordinates instead of pixels (DATALOADER.
+    DEVICE_RENDER): only those, the cameras and the visibility are uploaded,
+    and `render` (`make_batch_renderer`) splats the images and the target
+    heatmaps there."""
+    if "img" in batch:
+        return to_model_inputs(batch, device, TRAIN_KEYS)
+    keys = [k for k in TRAIN_KEYS if k in batch] + list(RENDER_PARAM_KEYS)
+    return render(to_model_inputs(batch, device, keys))
+
+
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     optimizer: Optimizer) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """(model inputs) -> {loss terms and metrics, as detached tensors}: one
@@ -76,21 +110,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on what the port's train loop and weight loading do not run yet."""
+    """Raise on what the port's train loop does not run yet."""
     if cfg.DATALOADER.BENCHMARK:
         raise NotImplementedError("DATALOADER.BENCHMARK (the loader-only benchmark) is "
                                   "ROADMAP A13 in the port")
-    if cfg.DATALOADER.DEVICE_RENDER:
-        raise NotImplementedError("DATALOADER.DEVICE_RENDER (on-device splatting) is "
-                                  "ROADMAP A12 in the port")
-    # the JAX package loads these when their files exist and otherwise
-    # keeps its initial weights (utils/pretrained.py there)
-    single_view = (cfg.EPIPOLAR.PRETRAINED or not cfg.EPIPOLAR.SHARE_WEIGHTS) and \
-        os.path.exists(BackboneCatalog.get(cfg.BACKBONE.BODY)[1])
-    if (cfg.BACKBONE.PRETRAINED and cfg.BACKBONE.PRETRAINED_WEIGHTS) or single_view or (
-            cfg.WEIGHTS and not cfg.WEIGHTS.endswith(".pth")):
-        raise NotImplementedError("pretrained and foreign-format weights "
-                                  "(utils/pretrained.py) are ROADMAP A7a in the port")
 
 
 def train(cfg: Config, max_steps: Optional[int] = None, device=None,
@@ -118,25 +141,19 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
 
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     start_epoch = 0
-    # a native .pth WEIGHTS goes through the Checkpointer, whose
-    # last_checkpoint tag still wins; WEIGHTS_LOAD_OPT=False restores the
-    # model weights only (reference trainer.py:34, checkpoint.py:62-68)
-    extra = checkpointer.load(model, optimizer, cfg.WEIGHTS or None,
-                              load_opt=cfg.WEIGHTS_LOAD_OPT)
+    extra = load_weights(cfg, model, optimizer, load_opt=cfg.WEIGHTS_LOAD_OPT)
     if extra is not None:
         start_epoch = int(extra.get("epoch", 0))
         logger.info("Resumed from epoch %d", start_epoch)
-    elif cfg.WEIGHTS:
-        logger.warning("cfg.WEIGHTS=%r was not loaded (missing file and no "
-                       "last_checkpoint): training from scratch", cfg.WEIGHTS)
 
     train_step = make_train_step(cfg, model, optimizer)
+    render = make_batch_renderer(cfg)
     step = 0
     t_data = t_step = 0.0
     for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS):
         t0 = time.time()
         for batch in loader:
-            inputs = to_model_inputs(batch, device, TRAIN_KEYS)
+            inputs = model_inputs(batch, device, render)
             t_data += time.time() - t0
             metrics = train_step(inputs)
             step += 1

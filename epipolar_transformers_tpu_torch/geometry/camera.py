@@ -104,6 +104,24 @@ def coord2pix(y, downsample):
     return (y + 0.5 - downsample / 2.0) / downsample
 
 
+def crossmat(vec: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix [v]_x, batched over leading dims."""
+    zeros = torch.zeros_like(vec[..., 0])
+    rows = [
+        torch.stack([zeros, -vec[..., 2], vec[..., 1]], dim=-1),
+        torch.stack([vec[..., 2], zeros, -vec[..., 0]], dim=-1),
+        torch.stack([-vec[..., 1], vec[..., 0], zeros], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def fundamental_matrix(P1: torch.Tensor, P2: torch.Tensor) -> torch.Tensor:
+    """F = [e2]_x P2 P1^+ of two (..., 3, 4) projections, x2^T F x1 = 0
+    (reference vision/multiview.py:85-147)."""
+    e2 = (P2 @ camera_center_h(P1)[..., None])[..., 0]
+    return crossmat(e2) @ (P2 @ pinv34(P1))
+
+
 def neighbor_cameras(krt_by_cam: dict) -> dict:
     """Rank the other cameras by distance between centers (numpy, host).
 

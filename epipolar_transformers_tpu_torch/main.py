@@ -7,7 +7,9 @@ YAML and `KEY VALUE` overrides, dispatching DOTRAIN (with the periodic eval
 when DOTEST is set) and then DOTEST, and printing `RESULTS: {...}`.  It runs
 on `--device`, cuda:0 by default, and raises where torch sees no GPU; the
 CPU runs only when asked for (`--device cpu`).  The eval-only branch builds
-the model and restores cfg.WEIGHTS or the `last_checkpoint` of OUTPUT_DIR.
+the model, imports the pretrained and foreign weights (a reference `.pth`
+in cfg.WEIGHTS), then restores a native checkpoint: the `last_checkpoint`
+of OUTPUT_DIR, which wins, or a cfg.WEIGHTS that the port wrote.
 
 Not ported yet, each raising when asked: VIS.FLOPS, the visualization
 dispatch and `--trace` (ROADMAP A13), `--multihost` (ROADMAP A8).
@@ -25,8 +27,7 @@ import torch
 
 from .config import load_config
 from .engine import test, train
-from .engine.trainer import build_model, check_supported, resolve_device
-from .utils.checkpoint import Checkpointer
+from .engine.trainer import build_model, load_weights, resolve_device
 
 logger = logging.getLogger("main")
 
@@ -95,17 +96,11 @@ def main(argv=None):
     if not cfg.DOTEST:
         return None
     if model is None:
-        # eval-only: build the model and restore its weights
-        check_supported(cfg)
+        # eval-only: build the model, then the foreign imports and the
+        # native restore (root main.py:109-131); an unloadable WEIGHTS warns
         model = build_model(cfg, device)
-        restored = Checkpointer(cfg.OUTPUT_DIR).load(model, None, cfg.WEIGHTS or None,
-                                                     load_opt=False)
-        if restored is None and not cfg.WEIGHTS:
+        if load_weights(cfg, model, load_opt=False) is None and not cfg.WEIGHTS:
             logger.warning("no checkpoint found; evaluating fresh init")
-        elif restored is None:
-            # a set-but-unloadable WEIGHTS means garbage metrics; say so loudly
-            logger.warning("cfg.WEIGHTS=%r was not loaded (missing file and no "
-                           "last_checkpoint): evaluating fresh init", cfg.WEIGHTS)
     results = test(cfg, model, max_batches=args.max_eval_batches)
     print("RESULTS:", {k: round(v, 4) for k, v in sorted(results.items())})
     return results

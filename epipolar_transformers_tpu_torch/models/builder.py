@@ -1,16 +1,21 @@
 """Task-level model builder (PyTorch).
 
-Port of the `multiview_keypoint` eval path of epipolar_transformers_tpu/
+Port of the `multiview_keypoint` task of epipolar_transformers_tpu/
 models/builder.py (reference modeling/model.py:25-493): an epipolar
-PoseResNet `reference` on the target view and its sibling `backbone` on the
-other view (the same module under EPIPOLAR.SHARE_WEIGHTS), then the heatmap
-head and the soft-argmax decode.  At eval with shared weights, the late
-merge and running-stat BN, both views go through ONE 2N-batch trunk call,
-which is numerically the two passes.  `forward(inputs, bn_train=True)`
-in eval mode is TEST.TRAIN_BN (the JAX builder's `bn_train`): the eval
-outputs, with every BatchNorm on batch statistics and its running ones
-untouched; the trunks then run as two passes, each view set normalized by
-its own statistics, as in the JAX package.
+backbone `reference` (PoseResNet or hourglass) on the target view and its
+sibling `backbone` on the other view (the same module under
+EPIPOLAR.SHARE_WEIGHTS), then the heatmap head and the soft-argmax decode.
+The sibling's `features` feed the reference's fusion: one map for a
+PoseResNet (its `trunk_features`), a tuple with one map per merge point for
+an hourglass (its forward without the decode).  At eval with shared
+weights, the late merge, running-stat BN and a backbone with
+`trunk_features`, both views go through ONE 2N-batch trunk call, which is
+numerically the two passes; the hourglass runs two.
+`forward(inputs, bn_train=True)` in eval mode is TEST.TRAIN_BN (the JAX
+builder's `bn_train`): the eval outputs, with every BatchNorm on batch
+statistics and its running ones untouched; the trunks then run as two
+passes, each view set normalized by its own statistics, as in the JAX
+package.
 
 Inputs are NCHW tensors.  In eval mode the forward returns the output
 dict: heatmap_pred (N, J, H, W), batch_locs (N, J, 2), score_pred (N, J),
@@ -19,8 +24,8 @@ what the JAX builder returns with is_train=True: (loss_dict, metric_dict,
 out), with the total under loss_dict['loss'].  Training runs the two views
 as two passes (sibling on the other view first, then the reference, so
 that shared BN statistics move twice, as in flax), with batch-statistics
-BN and no peak decode.  MULTITEST and the other tasks (ROADMAP A11) and the
-reprojection loss (ROADMAP A10) raise.
+BN and no peak decode.  MULTITEST (ROADMAP A11b), the other tasks (ROADMAP
+A11c) and the reprojection loss (ROADMAP A10) raise.
 """
 
 from __future__ import annotations
@@ -43,13 +48,14 @@ class ModelBuilder(nn.Module):
         self.cfg = cfg
         if cfg.DATASETS.TASK != "multiview_keypoint":
             raise NotImplementedError(
-                f"DATASETS.TASK={cfg.DATASETS.TASK!r} is ROADMAP A11 (the port "
+                f"DATASETS.TASK={cfg.DATASETS.TASK!r} is ROADMAP A11c (the port "
                 "has multiview_keypoint)")
         self.reference = build_backbone(cfg)
         if not cfg.EPIPOLAR.SHARE_WEIGHTS:
+            # an epipolarHG* body keeps its name (JAX models/builder.py:47)
             single = cfg.BACKBONE.BODY.replace("epipolarpose", "pose")
             self.backbone = build_backbone(
-                cfg.replace(BACKBONE=cfg.BACKBONE.replace(BODY=single)))
+                cfg.replace(BACKBONE=cfg.BACKBONE.replace(BODY=single)), single_view=True)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's initial weights, drawn from `generator`."""
@@ -67,7 +73,19 @@ class ModelBuilder(nn.Module):
         shared weights, late merge and BN on running statistics."""
         c = self.cfg
         return (not self.training and not bn_train and c.EPIPOLAR.SHARE_WEIGHTS
-                and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP)
+                and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP
+                and hasattr(self.reference, "trunk_features"))
+
+    def _other_features(self, other_img):
+        """The sibling's features of the other view, detached unless
+        EPIPOLAR.OTHER_GRAD: a PoseResNet's trunk (its deconv output), an
+        hourglass's per-merge-point tuple from its forward."""
+        sibling = self.sibling
+        if hasattr(sibling, "trunk_features"):
+            features = sibling.trunk_features(other_img)
+            return features if self.cfg.EPIPOLAR.OTHER_GRAD else features.detach()
+        features = sibling(other_img, decode_peaks=False).features
+        return features if self.cfg.EPIPOLAR.OTHER_GRAD else tuple(f.detach() for f in features)
 
     @contextlib.contextmanager
     def _bn_batch_stats(self, on: bool):
@@ -97,9 +115,7 @@ class ModelBuilder(nn.Module):
         if c.EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0:
             raise NotImplementedError(
                 "EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0: the reprojection loss is ROADMAP A10")
-        other_features = self.sibling.trunk_features(inputs["other_img"])
-        if not c.EPIPOLAR.OTHER_GRAD:
-            other_features = other_features.detach()
+        other_features = self._other_features(inputs["other_img"])
         bb = self.reference(inputs["img"], other_features=other_features,
                             other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
                             decode_peaks=False)
@@ -131,7 +147,7 @@ class ModelBuilder(nn.Module):
         if self.training:
             return self._train_forward(inputs)
         if c.EPIPOLAR.MULTITEST:
-            raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11")
+            raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11b")
         with self._bn_batch_stats(bn_train):
             return self._eval_forward(inputs, bn_train)
 
@@ -144,10 +160,8 @@ class ModelBuilder(nn.Module):
                 feat_ref, other_features=other_features,
                 other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
         else:
-            other_features = self.sibling.trunk_features(inputs["other_img"])
-            if not c.EPIPOLAR.OTHER_GRAD:
-                other_features = other_features.detach()
-            bb = self.reference(inputs["img"], other_features=other_features,
+            bb = self.reference(inputs["img"],
+                                other_features=self._other_features(inputs["other_img"]),
                                 other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
         out = {"heatmap_pred": bb.heatmaps[-1], "batch_locs": bb.locs,
                "score_pred": bb.scores}

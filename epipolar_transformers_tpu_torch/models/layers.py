@@ -63,7 +63,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` that normalizes in float32 and returns float32, and
+    """`nn.BatchNorm2d` that normalizes in float32 and returns float32
+    (float64 for a float64 input, as the parity tests run it), and
     in training moves its running statistics as flax does: with the biased
     batch variance, `running = (1 - momentum) running + momentum batch`.
 
@@ -73,7 +74,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             if self.batch_stats:
                 return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

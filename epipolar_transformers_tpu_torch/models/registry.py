@@ -1,24 +1,32 @@
 """Backbone registry (reference modeling/registry.py:5 + resnet.py:495-519).
 
-Maps BACKBONE.BODY names to module constructors taking the config.  The
-port has the PoseResNet family; the classifier ResNet and the hourglass
-nets are ROADMAP A11.
+Maps BACKBONE.BODY names to module constructors taking the config and
+`single_view` (a sibling that never fuses holds no fusion layer): the
+PoseResNet family and the eight hourglass bodies of the JAX registry
+(epipolar_transformers_tpu/models/registry.py:35-37).  The classifier
+ResNet of the single-view and lifting tasks is ROADMAP A11c.
 """
 
 from __future__ import annotations
 
+from .hourglass import HG_BODIES, HourglassNet
 from .resnet import RESNET_SPEC, PoseResNet
 
 BACKBONES = {}
 for _depth in RESNET_SPEC:
     BACKBONES[f"poseR-{_depth}"] = PoseResNet
     BACKBONES[f"epipolarposeR-{_depth}"] = PoseResNet
+for _body in HG_BODIES:
+    BACKBONES[_body] = HourglassNet
 
 
-def build_backbone(cfg):
+def build_backbone(cfg, single_view: bool = False):
+    """The backbone of cfg.BACKBONE.BODY; `single_view` builds one that is
+    only ever run on one view (a sibling under unshared weights), which
+    holds no fusion layer."""
     body = cfg.BACKBONE.BODY
     if body not in BACKBONES:
         raise NotImplementedError(
             f"BACKBONE.BODY={body!r}: the port has {sorted(BACKBONES)}; "
-            "the others are ROADMAP A11")
-    return BACKBONES[body](cfg)
+            "the others are ROADMAP A11c")
+    return BACKBONES[body](cfg, single_view=single_view)

@@ -118,7 +118,10 @@ class Bottleneck(nn.Module):
 
 
 class PoseResNet(nn.Module):
-    def __init__(self, cfg: Config):
+    """`single_view` builds a trunk that never fuses: no `epipolar_sampler`,
+    as for a `poseR-*` body."""
+
+    def __init__(self, cfg: Config, single_view: bool = False):
         super().__init__()
         self.cfg = cfg
         c = cfg
@@ -146,7 +149,7 @@ class PoseResNet(nn.Module):
             inplanes = 256
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = Conv2d(256, c.KEYPOINT.NUM_PTS, 1, bias=True, dtype=d)
-        self.is_epipolar = "epipolarpose" in c.BACKBONE.BODY
+        self.is_epipolar = "epipolarpose" in c.BACKBONE.BODY and not single_view
         if self.is_epipolar:
             if c.EPIPOLAR.MERGE != "late":
                 raise NotImplementedError(

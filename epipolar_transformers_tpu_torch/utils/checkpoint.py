@@ -7,6 +7,10 @@ plus metadata such as the epoch to `<name>.pth` with `torch.save`, and tags
 it in `last_checkpoint`.  `load` prefers the tagged file over an explicit
 path (the tag wins over cfg.WEIGHTS, as in the reference), and with
 load_opt=False (WEIGHTS_LOAD_OPT) restores the model weights only.
+
+A file `save` wrote holds exactly the keys {"model", "optimizer", "extra"}
+(`is_native`); any other `.pth` is a foreign torch file, which
+utils/pretrained.py imports instead.
 """
 
 from __future__ import annotations
@@ -24,10 +28,17 @@ logger = logging.getLogger(__name__)
 
 
 class Checkpointer:
+    NATIVE_KEYS = frozenset({"model", "optimizer", "extra"})
+
     def __init__(self, save_dir: str = ""):
         self.save_dir = save_dir
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
+
+    @classmethod
+    def is_native(cls, payload) -> bool:
+        """Whether an unpickled `.pth` payload is one that `save` wrote."""
+        return isinstance(payload, dict) and set(payload) == cls.NATIVE_KEYS
 
     def save(self, name: str, model: torch.nn.Module,
              optimizer: Optional[Optimizer] = None, **extra) -> None:

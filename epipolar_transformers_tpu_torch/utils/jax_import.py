@@ -10,6 +10,7 @@ epipolar_transformers_tpu.utils.torch_import: each port key goes through
 leaf conversion is undone:
   * conv kernel HWIO -> OIHW;
   * deconv kernel (kh, kw, I, O) -> (I, O, kh, kw) with the spatial flip;
+  * dense kernel (I, O) -> (O, I) (the hourglass's Meta `fc0`/`fc1`);
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
 Trap: flax's ZeroInitBatchNorm nests its BatchNorm one level deeper
@@ -49,6 +50,8 @@ def _to_torch_layout(value: np.ndarray, leaf_name: str, is_deconv: bool) -> np.n
             # flax (kh, kw, I, O), spatially flipped -> torch (I, O, kh, kw)
             return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
         return np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
+    if leaf_name == "kernel" and value.ndim == 2:
+        return value.T  # nn.Dense (I, O) -> nn.Linear (O, I)
     return value
 
 

@@ -1,0 +1,145 @@
+"""Pretrained and foreign weights into a freshly built model, in place.
+
+Port of epipolar_transformers_tpu/utils/pretrained.py (reference
+modeling/model.py:37-54, utils/checkpoint.py:49-70), in the same order
+(`apply_pretrained`):
+  * BACKBONE.PRETRAINED_WEIGHTS: a torch checkpoint into every trunk, without
+    `final_layer` (reference resnet.py:511-517);
+  * EPIPOLAR.PRETRAINED, or weights not shared: the BackboneCatalog
+    single-view torch checkpoint under `backbone.module.` into `reference`,
+    and into the sibling `backbone` when weights are not shared;
+  * a foreign `.pth` in cfg.WEIGHTS, under WEIGHTS_PREFIX,
+    WEIGHTS_PREFIX_REPLACE and WEIGHTS_ALLOW_DIFF_PREFIX.
+
+The port's own checkpoints also end in `.pth`; `Checkpointer.is_native`
+tells them apart by content, and they go through the Checkpointer, whose
+`last_checkpoint` tag wins over all of this.  Not ported, each raising: a
+JAX `.ckpt` (flax msgpack; ROADMAP A7b) and the TF `.pickle` weights of the
+lifting nets (ROADMAP A11c).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+import torch
+
+from ..config import BackboneCatalog, Config
+from .checkpoint import Checkpointer
+from .torch_import import load_into_model, load_torch_state_dict, read_torch_file
+
+logger = logging.getLogger(__name__)
+
+
+def _refuse(path: str) -> None:
+    """Raise on the weight formats the port does not read."""
+    ext = os.path.splitext(path)[1]
+    if ext == ".ckpt":
+        raise NotImplementedError(f"{path!r}: a JAX checkpoint (flax msgpack .ckpt) is "
+                                  "ROADMAP A7b in the port")
+    if ext in (".pickle", ".pkl"):
+        raise NotImplementedError(f"{path!r}: the TF lifting weights (.pickle) are "
+                                  "ROADMAP A11c in the port")
+
+
+def resolve_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The checkpoint of a single-view output dir: the `last_checkpoint`
+    tag wins (reference checkpoint.py:54-57,77-96), then the conventional
+    names."""
+    if not ckpt_dir or not os.path.isdir(ckpt_dir):
+        return None
+    tag = os.path.join(ckpt_dir, "last_checkpoint")
+    if os.path.exists(tag):
+        with open(tag) as f:
+            name = f.read().strip()
+        # the reference stores absolute paths in the tag; tolerate both
+        path = name if os.path.isabs(name) else os.path.join(ckpt_dir, name)
+        if os.path.exists(path):
+            return path
+    for name in ("model_final.ckpt", "model.pth", "model_final.pth"):
+        path = os.path.join(ckpt_dir, name)
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def load_single_view_pretrained(cfg: Config, model: torch.nn.Module) -> None:
+    """EPIPOLAR.PRETRAINED / not SHARE_WEIGHTS: the BackboneCatalog
+    single-view checkpoint into the multiview model's backbones (reference
+    modeling/model.py:35-54)."""
+    if cfg.DATASETS.TASK != "multiview_keypoint":
+        return
+    if not (cfg.EPIPOLAR.PRETRAINED or not cfg.EPIPOLAR.SHARE_WEIGHTS):
+        return
+    _, ckpt_dir = BackboneCatalog.get(cfg.BACKBONE.BODY)
+    path = resolve_checkpoint(ckpt_dir)
+    if path is None:
+        logger.info("pretrained: no single-view checkpoint under %s", ckpt_dir)
+        return
+    _refuse(path)
+    targets = (["reference"] if cfg.EPIPOLAR.PRETRAINED else []) + \
+        (["backbone"] if not cfg.EPIPOLAR.SHARE_WEIGHTS else [])
+    # keys carry the DataParallel wrapper prefix 'backbone.module.'
+    # (reference model.py:42,53)
+    sd = load_torch_state_dict(path)
+    for sub in targets:
+        missing = load_into_model(model, sd, prefix="backbone.module.", submodule=sub)
+        logger.info("pretrained: torch import into %s (%d leaves kept init)", sub, len(missing))
+
+
+def load_backbone_pretrained(cfg: Config, model: torch.nn.Module) -> None:
+    """BACKBONE.PRETRAINED + BACKBONE.PRETRAINED_WEIGHTS: a torch checkpoint
+    into every trunk the builder made, `final_layer` excluded (reference
+    resnet.py:511-517 -> init_weights:439-471)."""
+    if not (cfg.BACKBONE.PRETRAINED and cfg.BACKBONE.PRETRAINED_WEIGHTS):
+        return
+    path = cfg.BACKBONE.PRETRAINED_WEIGHTS
+    if not os.path.exists(path):
+        logger.warning("BACKBONE.PRETRAINED_WEIGHTS=%r does not exist: the backbone keeps "
+                       "its initial weights", path)
+        return
+    sd = {k: v for k, v in load_torch_state_dict(path).items()
+          if not k.split("module.")[-1].startswith("final_layer.")}
+    for sub in ("backbone", "reference"):
+        if isinstance(getattr(model, sub, None), torch.nn.Module):
+            missing = load_into_model(
+                model, sd, prefix=cfg.WEIGHTS_PREFIX, prefix_replace=cfg.WEIGHTS_PREFIX_REPLACE,
+                submodule=sub, allow_diff_prefix=cfg.WEIGHTS_ALLOW_DIFF_PREFIX)
+            logger.info("BACKBONE.PRETRAINED_WEIGHTS: imported into %s (%d leaves kept init)",
+                        sub, len(missing))
+
+
+def load_cfg_weights(cfg: Config, model: torch.nn.Module) -> bool:
+    """Import cfg.WEIGHTS when it is a foreign torch file; returns whether
+    it did.  The port's own checkpoints are left to the Checkpointer."""
+    path = cfg.WEIGHTS
+    if not path:
+        return False
+    _refuse(path)
+    if not os.path.exists(path):
+        logger.warning("cfg.WEIGHTS=%r does not exist: proceeding from the initial weights",
+                       path)
+        return False
+    if os.path.splitext(path)[1] != ".pth":
+        logger.warning("cfg.WEIGHTS=%r has an unrecognized extension (expect .pth): "
+                       "nothing loaded", path)
+        return False
+    payload = read_torch_file(path)
+    if Checkpointer.is_native(payload):
+        return False
+    missing = load_into_model(
+        model, load_torch_state_dict(payload), prefix=cfg.WEIGHTS_PREFIX,
+        prefix_replace=cfg.WEIGHTS_PREFIX_REPLACE,
+        allow_diff_prefix=cfg.WEIGHTS_ALLOW_DIFF_PREFIX)
+    logger.info("Imported torch weights from %s (%d leaves kept init)", path, len(missing))
+    return True
+
+
+def apply_pretrained(cfg: Config, model: torch.nn.Module) -> bool:
+    """The construction-time chain, in the JAX package's order; returns
+    whether cfg.WEIGHTS was imported here (a foreign file)."""
+    load_backbone_pretrained(cfg, model)
+    load_single_view_pretrained(cfg, model)
+    return load_cfg_weights(cfg, model)

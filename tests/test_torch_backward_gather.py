@@ -27,6 +27,7 @@ from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
 from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
 from epipolar_transformers_tpu_torch.ops.epipolar_sampling import epipolar_sample_locs
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 C = 8
 # (name, locations, AttentionParams fields, prior, keys/values get gradients)

@@ -18,6 +18,7 @@ from epipolar_transformers_tpu_torch import main as cli
 from epipolar_transformers_tpu_torch.config import DatasetCatalog, flagship_cfg, load_config
 from epipolar_transformers_tpu_torch.engine import trainer
 from epipolar_transformers_tpu_torch.utils.checkpoint import Checkpointer
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 TRAIN_SET = "synthetic_multiview_train_8"
 TINY_FLAGSHIP_YAML = f"""\

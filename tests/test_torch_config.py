@@ -64,6 +64,17 @@ def test_torch_key_map_is_the_jax_packages():
         assert torch_key_to_flax_path(key) == jax_key_map(key), key
 
 
+@pytest.mark.parametrize("body", ["epipolarHG", "metaHG"])
+def test_torch_key_map_is_the_jax_packages_on_the_hourglass(body):
+    cfg = config.update_from_dict(config.flagship_cfg(tiny=True), {
+        "BACKBONE": {"BODY": body}, "KEYPOINT": {"NFEATS": 32},
+        "EPIPOLAR": {"SHARE_WEIGHTS": False}})
+    keys = ModelBuilder(cfg).state_dict().keys()
+    assert len(keys) > 500 and any(".meta0.fc1." in k for k in keys) == (body == "metaHG")
+    for key in keys:
+        assert torch_key_to_flax_path(key) == jax_key_map(key), key
+
+
 class _Indices:
     """Items that are their own index."""
 

@@ -314,3 +314,65 @@ def test_backward_one_of_keys_values(device, which):
     got, want = grads(attn.epipolar_attention_batch), grads(attn.epipolar_attention_plain_batch)
     assert (got[1] is None) == (which == "values") and (got[2] is None) == (which == "keys")
     _assert_grads_close(got, want, torch.float32)
+
+
+def _hourglass_inputs(device, dtype, B=16):
+    """The epipolarHG1 recipe's attention (configs/epipolar/synthetic_hg.yaml:
+    16x16 maps, K=16, C=128): channels_last (B, C, H, W) activations viewed
+    as NHWC, as the hourglass hands them over, at the rig's locations."""
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
+    from epipolar_transformers_tpu_torch.ops.epipolar_sampling import epipolar_sample_locs
+
+    cfg = load_config("configs/epipolar/synthetic_hg.yaml")
+    g = torch.Generator(device=device).manual_seed(4)
+    feats = [torch.randn(B, 128, 16, 16, device=device, generator=g).to(dtype)
+             .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+             for _ in range(2)]
+    ds = SyntheticMultiview(cfg, is_train=False, n_samples=1)
+    views = [v % ds.n_views for v in range(B)]
+    P1 = torch.as_tensor(ds.rig["KRT"][views], dtype=torch.float32, device=device)
+    P2 = torch.as_tensor(ds.rig["KRT"][[ds.nearest[v] for v in views]],
+                         dtype=torch.float32, device=device)
+    locs = epipolar_sample_locs(P1, P2, Epipolar(cfg).geometry)
+    return feats, locs, AttentionParams(softmax_scale=cfg.EPIPOLAR.SOFTMAXSCALE)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_hourglass_shape_forward_matches_plain(device, dt):
+    """B=16, 16x16, K=16, C=128: every tile counted once on one of the two
+    paths, the output held to the plain version, two runs bit-equal."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    (f1, f2), locs, params = _hourglass_inputs(device, dtype)
+    assert f1.is_contiguous() and f1.data_ptr() % 16 == 0
+    got, (tile, per_query) = _counted(f1, f2, f2, locs, params)
+    assert tile + per_query == 16 * -(-16 * 16 // attn.TILE_QUERIES)
+    want = attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[2], want[2], **tol)
+    again = attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_hourglass_shape_backward_matches_plain(device, dt):
+    """The backward at the hourglass's shape (a 256-row key set), keys =
+    values one tensor as the model has them; two runs bit-equal."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    (f1, f2), locs, params = _hourglass_inputs(device, dtype)
+
+    def grads(fn):
+        q = f1.detach().clone().requires_grad_()
+        kv = f2.detach().clone().requires_grad_()
+        out = fn(q, kv, kv, locs, params)[0]
+        r = torch.randn(out.shape, device=device, generator=torch.Generator(device).manual_seed(1))
+        return torch.autograd.grad((out.float() * r).sum(), (q, kv))
+
+    before = attn.BACKWARD_LAUNCHES
+    got = grads(attn.epipolar_attention_batch)
+    assert attn.BACKWARD_LAUNCHES == before + 1
+    again = grads(attn.epipolar_attention_batch)
+    _assert_grads_close(got, grads(attn.epipolar_attention_plain_batch), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -31,6 +31,7 @@ from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
 from epipolar_transformers_tpu_torch.ops.epipolar_sampling import (
     EpipolarGeometry, epipolar_sample_locs)
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 # (name, locations, AttentionParams fields, prior, values apart from keys)

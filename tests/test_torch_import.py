@@ -17,6 +17,7 @@ from epipolar_transformers_tpu.utils.torch_import import (
     strip_prefix,
     torch_key_to_flax_path,
 )
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_conv_conversion_numeric(rng):

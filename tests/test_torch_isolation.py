@@ -4,9 +4,11 @@ A fresh interpreter with `sys.modules[name] = None` for `jax`, `flax` and
 `epipolar_transformers_tpu` (so any import of one raises) imports every
 module of the port and `chip_smoke.py`, runs the tiny flagship slice on the
 CPU through `engine.tester.predict`, one tiny train step through
-`engine.trainer.train`, the eval engine `engine.test` (pymvg, two groups)
-and the port's command line (one train step, then one eval group); no
-module of the three is loaded at the end.
+`engine.trainer.train`, the eval engine `engine.test` (pymvg, two groups),
+the port's command line (one train step, then one eval group), a train
+step of the epipolarHG1 recipe (cut to NFEATS 32, batch 2), a tiny train
+step from DATALOADER.DEVICE_RENDER batches and the import of a
+reference-format `.pth`; no module of the three is loaded at the end.
 """
 
 import os
@@ -21,6 +23,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "epipolar_transformers_tpu")
 for name in BLOCKED:
     sys.modules[name] = None
 import torch
+torch.set_num_threads(1)  # one process among the suite's workers
 import epipolar_transformers_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
@@ -53,6 +56,22 @@ with tempfile.TemporaryDirectory() as out_dir:
     results = main(["--cfg", "configs/epipolar/synthetic_zresidual.yaml", "--device", "cpu",
                     "--max-steps", "1", "--max-eval-batches", "1", "OUTPUT_DIR", out_dir])
 assert math.isfinite(results["EPEmean_global"]), results
+from epipolar_transformers_tpu_torch.config import load_config
+hg = update_from_dict(load_config("configs/epipolar/synthetic_hg.yaml"), {
+    "KEYPOINT": {"NFEATS": 32}, "SOLVER": {"IMS_PER_BATCH": 2},
+    "DATALOADER": {"DEVICE_RENDER": False}})
+rendered = update_from_dict(cfg, {"DATALOADER": {"DEVICE_RENDER": True}})
+for c in (hg, rendered):
+    with tempfile.TemporaryDirectory() as out_dir:
+        model, optimizer = train(c.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
+    assert optimizer.count == 1 and all(bool(torch.isfinite(p).all()) for p in model.parameters())
+from epipolar_transformers_tpu_torch.engine.trainer import build_model, load_weights
+with tempfile.TemporaryDirectory() as out_dir:
+    path = out_dir + "/reference.pth"
+    torch.save({"model": {"module." + k: v for k, v in model.state_dict().items()}}, path)
+    imported = build_model(cfg.replace(SEED=1, WEIGHTS=path), torch.device("cpu"))
+    load_weights(cfg.replace(WEIGHTS=path), imported)
+assert torch.equal(imported.reference.conv1.weight, model.reference.conv1.weight)
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded

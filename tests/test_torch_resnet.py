@@ -20,7 +20,7 @@ import torch
 from epipolar_transformers_tpu.models import PoseResNet as JPoseResNet
 from epipolar_transformers_tpu_torch.models.resnet import PoseResNet
 from epipolar_transformers_tpu_torch.utils.jax_import import load_jax_variables
-from torch_configs import config_pair
+from torch_configs import config_pair, one_torch_thread  # noqa: F401 (autouse)
 
 
 def flatten_variables(variables):

@@ -30,6 +30,7 @@ from epipolar_transformers_tpu_torch.models import ModelBuilder
 from epipolar_transformers_tpu_torch.utils.jax_import import load_jax_variables
 from test_torch_resnet import (assert_heatmaps_close, flatten_variables, randomize_variables,
                                to_numpy_tree)
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
 

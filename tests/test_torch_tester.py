@@ -48,7 +48,7 @@ from epipolar_transformers_tpu_torch.engine import tester
 from epipolar_transformers_tpu_torch.models import ModelBuilder
 from epipolar_transformers_tpu_torch.utils.jax_import import jax_state_dict, load_jax_variables
 from test_torch_resnet import randomize_variables, to_numpy_tree
-from torch_configs import config_pair
+from torch_configs import config_pair, one_torch_thread  # noqa: F401 (autouse)
 
 GROUPS = 2
 MODES = ("naive", "refine", "pymvg", "epipolar", "epipolar_dlt")

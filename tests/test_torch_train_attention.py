@@ -26,6 +26,7 @@ from epipolar_transformers_tpu.ops.epipolar_attention import AttentionParams as 
 from epipolar_transformers_tpu.ops.epipolar_attention_matmul import epipolar_attention_matmul
 from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 

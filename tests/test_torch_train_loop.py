@@ -16,6 +16,7 @@ import torch
 from epipolar_transformers_tpu_torch.config import DatasetCatalog, flagship_cfg, update_from_dict
 from epipolar_transformers_tpu_torch.engine import trainer
 from epipolar_transformers_tpu_torch.engine.trainer import train
+from torch_configs import one_torch_thread  # noqa: F401 (autouse)
 
 TRAIN_SET = "synthetic_multiview_train_16"
 

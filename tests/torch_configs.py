@@ -6,6 +6,9 @@ package, from the same dict; tests/test_torch_config.py holds the two trees
 equal.
 """
 
+import pytest
+import torch
+
 from __graft_entry__ import _flagship_cfg
 from epipolar_transformers_tpu.config import Config as JConfig
 from epipolar_transformers_tpu.config import update_from_dict as jax_update
@@ -19,3 +22,15 @@ def config_pair(d=None, tiny_flagship: bool = False):
     if tiny_flagship:
         return update_from_dict(flagship_cfg(tiny=True), d), jax_update(_flagship_cfg(tiny=True), d)
     return update_from_dict(Config(), d), jax_update(JConfig(), d)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for a test module that imports this
+    fixture: the suite runs one worker per core, and each worker's default
+    of one torch thread per core oversubscribes the machine (a tiny train
+    step on the CPU then reads ~6x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
