@@ -81,10 +81,27 @@ run, each printed on its own lines:
      tests/test_torch_resnet.py rebuilds from poseresnet50_golden.npz, keys
      under `module.`, in {'model': ...}) through the command line's
      eval-only path, every imported key bit-equal to the file; then a port
-     checkpoint tagged in `last_checkpoint` wins over that cfg.WEIGHTS.
+     checkpoint tagged in `last_checkpoint` wins over that cfg.WEIGHTS;
+ 11. the other attention configs: (a) configs/epipolar/keypoint_h36m_param.yaml
+     (theta/phi/g, BOTTLENECK 2, POOLING, RPSM; R-50, 256 px, batch 16)
+     through the command line with only the synthetic datasets, no ImageNet
+     file and 17 joints as overrides: 3 train steps with finite losses,
+     `test` on 2 groups with finite metrics, one f32 step against the plain
+     oracle route, ms per train step, peak memory and the pooled attention
+     alone; (b) the learned prior through the kernels at the flagship
+     attention shape, f32 and bf16, in each prior mode, forward and the
+     backward's gradients (the prior's included) against the plain version
+     ([2]/[5]'s tolerances), dprior exactly 0 on queries out of range, two
+     runs bit-equal, the backward's time with and without the prior
+     gradient; `train` on the flagship with EPIPOLAR.PRIOR (one forward and
+     one backward launch a step, a finite nonzero table gradient) and one
+     step against the plain path; (c) `train` with MERGE 'both' (two
+     launches each way a step), then a step each with MERGE 'early', the
+     reprojection loss, and epipolarHG1 with WARPEDHEATMAP and FIND_CORR
+     'rgb'.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8 and 9), errors and times,
+launches on the main path (phases 3, 6, 7(a), 8, 9 and 11), errors and times,
 each entry's `hourglass_shape` times at [8]'s shape, and each kernel's
 bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
@@ -92,7 +109,10 @@ input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8 and 9.  No single PyTorch call
+each path over the forwards of phases 3, 6, 7(a), 8, 9 and 11; the
+backward's, `prior_gradient`, its time with and without the prior's
+gradient at the flagship shape; `param_recipe` holds [11](a)'s times.  No
+single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
 the last line is {"ok": true, "device": {...}}.  Any failed check raises.
@@ -168,6 +188,20 @@ STEP_NOISE_FLOOR = 1e-5
 # feeds the zero-init BN, which runs on batch statistics in training and
 # removes any constant shift: its true gradient is 0 on both paths
 ZERO_GRAD_PARAMS = ("reference.epipolar_sampler.z.bias",)
+# [11]: the other attention configs.  The param recipe's overrides, each
+# named in its log line: the synthetic rig's datasets, no ImageNet file, and
+# 17 joints (RPSM's skeleton; the rig renders any count)
+PARAM_RECIPE = "configs/epipolar/keypoint_h36m_param.yaml"
+PARAM_OVERRIDES = ["DATASETS.TRAIN", "('synthetic_multiview_train',)",
+                   "DATASETS.TEST", "('synthetic_multiview_val',)",
+                   "BACKBONE.PRETRAINED", "False", "KEYPOINT.NUM_PTS", "17"]
+PARAM_TRAIN_STEPS = 3
+PARAM_EVAL_GROUPS = 2
+PRIOR_MODES = [("additive", dict()), ("additive, softmax off", dict(softmax_enabled=False)),
+               ("priormul", dict(priormul=True)), ("similarity 'prior'", dict(similarity="prior"))]
+DEAD_QUERIES = 8  # queries of each item's first row whose samples all lie out of range
+RIG_CAMERAS = (0, 1, 2, 3)
+FUSION_TRAIN_STEPS = 3
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
@@ -359,17 +393,20 @@ def randomize(model, images, seed):
 
 @contextlib.contextmanager
 def attention_path(model, plain: bool):
-    """Run `model`'s epipolar layer through the plain version (plain) or
+    """Run `model`'s epipolar layers through the plain version (plain) or
     the kernels, on the same weights."""
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
-    sampler = model.reference.epipolar_sampler
-    sampler.attention = (attn.epipolar_attention_plain_batch if plain
-                         else attn.epipolar_attention_batch)
+    samplers = [m for m in model.modules() if isinstance(m, Epipolar)]
+    for sampler in samplers:
+        sampler.attention = (attn.epipolar_attention_plain_batch if plain
+                             else attn.epipolar_attention_batch)
     try:
         yield
     finally:
-        del sampler.attention
+        for sampler in samplers:
+            del sampler.attention
 
 
 def slice_phase(cfg, device):
@@ -547,16 +584,17 @@ class _Messages(logging.Handler):
         self.times.append(record.created)
 
 
-def counted_train(name, tcfg, steps, device):
+def counted_train(name, tcfg, steps, device, per_step=1, terms=()):
     """`engine.trainer.train` for `steps` steps of `tcfg` (LOG_FREQ 1), the
     main path: the kernels' counters set to 0 just before and read just
-    after.  Raises unless every step's loss is finite, each step launched
-    the forward and the backward kernel once, the model ran on the card and
-    most forward tiles took the tile kernel.  Returns the model, the
-    optimizer, the forward and backward launches, the tiles on each path,
-    the losses, the wall seconds, and the loop's wall per step after the
-    first in ms: loader, inputs and step, between two of the step log
-    lines, each written after the step's loss reached the host."""
+    after.  Raises unless every step's loss (and each loss term in `terms`)
+    is finite, each step launched the forward and the backward kernel
+    `per_step` times (once per fusion layer on the kernel route), the model
+    ran on the card and most forward tiles took the tile kernel.  Returns
+    the model, the optimizer, the forward and backward launches, the tiles
+    on each path, the losses, the wall seconds, and the loop's wall per
+    step after the first in ms: loader, inputs and step, between two of the
+    step log lines, each written after the step's loss reached the host."""
     import numpy as np
     import torch
 
@@ -585,14 +623,20 @@ def counted_train(name, tcfg, steps, device):
     step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(logged, logged[1:])]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"{name} train losses {losses}")
-    if not launches == backward_launches == optimizer.count == steps:
+    for term in terms:
+        values = [float(v) for msg in messages.messages
+                  for v in re.findall(rf"\b{term} (\S+)", msg)]
+        if len(values) != steps or not all(np.isfinite(values)):
+            raise AssertionError(f"{name} train {term} {values}")
+    if not (launches == backward_launches == per_step * steps and optimizer.count == steps):
         raise AssertionError(f"{name}: {optimizer.count} steps launched the forward kernel "
                              f"{launches} and the backward kernel {backward_launches} times")
     if next(model.parameters()).device != device:
         raise AssertionError(f"{name}: the trainer did not run on the card")
     h, w = tcfg.KEYPOINT.HEATMAP_SIZE
-    check_main_path_tiles(f"{name} train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
-                          * -(-h * w // attn.TILE_QUERIES))
+    if launches:
+        check_main_path_tiles(f"{name} train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
+                              * -(-h * w // attn.TILE_QUERIES))
     return model, optimizer, launches, backward_launches, tiles, losses, wall, step_ms
 
 
@@ -1277,6 +1321,280 @@ def weight_import_phase(device):
         f"{len(state)} keys bit-equal to the tagged checkpoint")
 
 
+def param_recipe_phase(device):
+    """[11](a): configs/epipolar/keypoint_h36m_param.yaml through the
+    command line with PARAM_OVERRIDES only (train PARAM_TRAIN_STEPS steps,
+    then `test` on PARAM_EVAL_GROUPS groups under RPSM); one f32 step of
+    the trained model against the same step through the plain oracle
+    route; then ms per train step at batch 16, peak memory, and the pooled
+    attention alone.  Returns the times."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import collate
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.ops.epipolar_attention_pooled import \
+        epipolar_attention_pooled
+
+    captured, losses = [], []
+    make_step, test = trainer.make_train_step, cli.test
+
+    def recording(cfg, model, optimizer):
+        step = make_step(cfg, model, optimizer)
+
+        def run(inputs):
+            out = step(inputs)
+            losses.append(float(out["loss"]))
+            return out
+        return run
+
+    def keep(c, model, **kw):
+        captured.append(model)
+        return test(c, model, **kw)
+
+    trainer.make_train_step, cli.test = recording, keep
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            argv = ["--cfg", PARAM_RECIPE, "--max-steps", str(PARAM_TRAIN_STEPS),
+                    "--max-eval-batches", str(PARAM_EVAL_GROUPS), *PARAM_OVERRIDES,
+                    "OUTPUT_DIR", out_dir]
+            attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step, cli.test = make_step, test
+    model = captured[-1]
+    sampler = model.reference.epipolar_sampler
+    if len(losses) != PARAM_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"(a) train losses {losses}")
+    finite_metrics("(a) test", results)
+    if sampler.route != "streaming" or attn.LAUNCHES or attn.BACKWARD_LAUNCHES:
+        raise AssertionError(f"(a) route {sampler.route}, kernel launches {attn.LAUNCHES}, "
+                             f"{attn.BACKWARD_LAUNCHES}")
+    cfg = load_config(PARAM_RECIPE, PARAM_OVERRIDES)
+    log(f"  (a) main(--cfg {PARAM_RECIPE} " + " ".join(PARAM_OVERRIDES) + " OUTPUT_DIR <tmp>) "
+        f"in {wall:.1f} s: the rig's datasets, no ImageNet file, and 17 joints (the rig renders "
+        f"any count; RPSM's tree is the 17-joint H36M one); as written R-50, 256 px, batch "
+        f"{cfg.SOLVER.IMS_PER_BATCH}, K={cfg.EPIPOLAR.SAMPLESIZE} pooled to "
+        f"{cfg.EPIPOLAR.SAMPLESIZE // 2}, C={cfg.KEYPOINT.NFEATS // cfg.EPIPOLAR.BOTTLENECK} after "
+        f"the bottleneck, {cfg.KEYPOINT.TRIANGULATION}; attention route {sampler.route} "
+        f"(pooled, plain PyTorch: no kernel, {attn.LAUNCHES} launches); {PARAM_TRAIN_STEPS} "
+        f"train losses {', '.join(f'{v:.5g}' for v in losses)}; test() on {PARAM_EVAL_GROUPS} "
+        f"groups: " + ", ".join(f"{k} {v:.4g}" for k, v in results.items()
+                                if not k.startswith("PCK@") or k in ("PCK@5", "PCK@20")))
+
+    B = cfg.SOLVER.IMS_PER_BATCH
+    np.random.seed(SEED)
+    ds = SyntheticMultiview(cfg, is_train=True, n_samples=B, seed=SEED)
+    batch = trainer.model_inputs(collate([ds[i] for i in range(B)]), device, None)
+    model.train()
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(batch)[0]["loss"]
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                             if p.grad is not None}
+
+    loss_s, grads_s = loss_and_grads()
+    sampler.route = "plain"
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        sampler.route = "streaming"
+    # a gradient below STEP_NOISE_FLOOR of the largest on both routes is a
+    # true 0's rounding noise (z's bias feeds a batch-statistics BN; phi's
+    # adds one constant to every valid logit of a softmax)
+    floor = STEP_NOISE_FLOOR * max(float(g.abs().max()) for g in grads_p.values())
+    errs = {k: float((grads_s[k] - g).norm() / g.norm().clamp_min(1e-30))
+            for k, g in grads_p.items()
+            if max(float(g.abs().max()), float(grads_s[k].abs().max())) >= floor}
+    worst = max(errs, key=errs.get)
+    if abs(loss_s - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or errs[worst] > STEP_GRAD_REL_L2:
+        raise AssertionError(f"(a) step: loss {loss_s} vs {loss_p}, {worst} {errs[worst]:.3g}")
+    log(f"  (a) one f32 step of the trained model (batch {B}), its route against the plain "
+        f"oracle route (full weight stack): loss {loss_s:.6g} vs {loss_p:.6g}, worst parameter "
+        f"gradient relative L2 error {errs[worst]:.3g} ({worst}) over {len(errs)} parameters "
+        f"({len(grads_p) - len(errs)} with a true gradient of 0 left out)")
+
+    step = trainer.make_train_step(cfg, model, make_optimizer(cfg, model))
+    step_losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step_losses.append(step(batch)["loss"]), iters=PARAM_TRAIN_STEPS,
+                      warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(torch.isfinite(v) for v in step_losses):
+        raise AssertionError(f"(a) losses {step_losses}")
+
+    H, W = cfg.KEYPOINT.HEATMAP_SIZE
+    C = cfg.KEYPOINT.NFEATS // cfg.EPIPOLAR.BOTTLENECK
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    q, k, v = (torch.randn(B, H, W, C, device=device, generator=gen) for _ in range(3))
+    locs = rig_sample_locs(cfg, B, device)
+    params = sampler.attention_params
+    fwd_ms = cuda_ms(lambda: epipolar_attention_pooled(q, k, v, locs, params, depth="rank"),
+                     iters=10)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    r = torch.randn(B, H, W, C, device=device, generator=gen)
+
+    def forward_backward():
+        out = epipolar_attention_pooled(*leaves, locs, params, depth="rank")[0]
+        torch.autograd.grad(out, leaves, r)
+
+    fb_ms = cuda_ms(forward_backward, iters=10)
+    log(f"  (a) train step at batch {B} (forward, backward, adam; host-rendered inputs): "
+        f"{step_ms:.3f} ms (CUDA events, mean of {PARAM_TRAIN_STEPS} after 1), peak memory "
+        f"{peak:.3f} GiB; the pooled attention alone, B={B} {H}x{W} "
+        f"K={cfg.EPIPOLAR.SAMPLESIZE}->{cfg.EPIPOLAR.SAMPLESIZE // 2} C={C} f32, keys and values "
+        f"apart: forward {fwd_ms:.3f} ms, forward and backward {fb_ms:.3f} ms")
+    return dict(step_ms=step_ms, peak_gib=peak, pooled_ms=fwd_ms, pooled_fwd_bwd_ms=fb_ms)
+
+
+def prior_phase(cfg, device):
+    """[11](b): the kernels with a prior at the flagship attention shape, in
+    each prior mode, against the plain version (forward, and the backward's
+    gradients to the queries, keys, values and prior); the backward's time
+    with and without the prior gradient; then `train` on the flagship with
+    EPIPOLAR.PRIOR and one step against the plain path.  Returns the main
+    path's launches and tiles and the prior gradient's numbers."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import update_from_dict
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
+
+    s = FLAGSHIP_ATTENTION
+    B, H, W, K, C = s["B"], s["H"], s["W"], s["K"], s["C"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    locs = rig_sample_locs(cfg, B, device).clone()
+    locs[:, :, 0, :DEAD_QUERIES] = -9.0  # queries with every sample out of range
+    prior = torch.rand(B, K, H, W, device=device, generator=gen) * 0.1
+    f32 = [torch.randn(B, H, W, C, device=device, generator=gen) for _ in range(3)]
+
+    def grads(fn, feats, params):
+        leaves = [t.detach().clone().requires_grad_() for t in (*feats, prior)]
+        out = fn(*leaves[:3], locs, params, leaves[3])[0]
+        r = torch.randn(out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED + 1))
+        (out.float() * r).sum().backward()
+        return [t.grad for t in leaves]
+
+    prior_err = 0.0
+    for dt in ("f32", "bf16"):
+        feats = f32 if dt == "f32" else [t.to(torch.bfloat16) for t in f32]
+        tol, gtol = (F32_TOL, GRAD_F32_TOL) if dt == "f32" else (BF16_TOL, GRAD_BF16_TOL)
+        for name, kw in PRIOR_MODES:
+            if dt == "bf16" and not kw.get("softmax_enabled", True):
+                continue  # a bf16 sim rounding to exactly 0 in one version only ([2]'s rule)
+            params = AttentionParams(softmax_scale=cfg.EPIPOLAR.SOFTMAXSCALE, **kw)
+            label = f"(b) {dt} {name}"
+            got = attn.epipolar_attention_batch(*feats, locs, params, prior)
+            want = attn.epipolar_attention_plain_batch(*feats, locs, params, prior)
+            e_fwd = max(close(f"{label} out", got[0], want[0], **tol),
+                        close(f"{label} depth", got[2], want[2], **tol))
+            before = attn.BACKWARD_LAUNCHES
+            g = grads(attn.epipolar_attention_batch, feats, params)
+            if attn.BACKWARD_LAUNCHES != before + 1:
+                raise AssertionError(f"{label}: the backward kernel did not launch once")
+            w = [torch.zeros_like(a) if b is None else b
+                 for a, b in zip(g, grads(attn.epipolar_attention_plain_batch, feats, params))]
+            errs = [close(f"{label} {which}", a, b, gtol["rtol"],
+                          gtol["atol"] * max(float(b.float().abs().max()), 1e-30))
+                    for which, a, b in zip(("dfeat1", "dother1", "dother2", "dprior"), g, w)]
+            if g[3][:, :, 0, :DEAD_QUERIES].abs().max().item() != 0.0:
+                raise AssertionError(f"{label}: dprior on the out-of-range queries is not 0")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(g, grads(attn.epipolar_attention_batch, feats, params))):
+                raise AssertionError(f"{label}: two backward runs differ")
+            if dt == "f32":
+                prior_err = max(prior_err, errs[3])
+            log(f"  {label}: forward max abs err {e_fwd:.3g}; backward dfeat1 {errs[0]:.3g}, "
+                f"dother1 {errs[1]:.3g}, dother2 {errs[2]:.3g}, dprior {errs[3]:.3g}; dprior "
+                f"exactly 0 on the {B * DEAD_QUERIES} queries out of range; two runs bit-equal")
+
+    def backward_only(fn, with_prior):
+        f1 = f32[0].clone().requires_grad_()
+        f2 = f32[1].clone().requires_grad_()
+        pr = prior.clone().requires_grad_(with_prior)
+        out = fn(f1, f2, f2, locs, AttentionParams(softmax_scale=cfg.EPIPOLAR.SOFTMAXSCALE), pr)[0]
+        r = torch.randn_like(out)
+        wrt = (f1, f2, pr) if with_prior else (f1, f2)
+        return lambda: torch.autograd.grad(out, wrt, r, retain_graph=True)
+
+    with_ms, without_ms = in_turns(backward_only(attn.epipolar_attention_batch, True),
+                                   backward_only(attn.epipolar_attention_batch, False))
+    plain_ms = cuda_ms(backward_only(attn.epipolar_attention_plain_batch, True))
+    log(f"  (b) attention backward alone, B={B} {H}x{W} K={K} C={C} f32, additive prior, grads "
+        f"to queries and keys=values: kernel with the prior gradient {with_ms:.4f} ms, without "
+        f"{without_ms:.4f} ms (in turns); plain autograd with it {plain_ms:.4f} ms")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = update_from_dict(cfg, {"EPIPOLAR": {"PRIOR": True},
+                                      "DATASETS": {"CAMERAS": RIG_CAMERAS},
+                                      "OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
+                                      "TENSORBOARD": {"USE": False}})
+        model, _, launches, backward_launches, tiles, losses, wall, _ = counted_train(
+            "[11](b) PRIOR", tcfg, FUSION_TRAIN_STEPS, device)
+    table = model.reference.epipolar_sampler.prior
+    if table.grad is None or not torch.isfinite(table.grad).all() or \
+            float(table.grad.abs().max()) == 0.0:
+        raise AssertionError("(b) the prior table's gradient is missing, zero or not finite")
+    log(f"  (b) train() on the flagship with EPIPOLAR.PRIOR True DATASETS.CAMERAS "
+        f"{RIG_CAMERAS}: {FUSION_TRAIN_STEPS} steps in {wall:.1f} s, losses "
+        f"{', '.join(f'{v:.5g}' for v in losses)}; forward kernel launches {launches}, backward "
+        f"{backward_launches} (one each per step); tiles {tiles[0]} / {tiles[1]}; the table "
+        f"{tuple(table.shape)} got a finite gradient, max |g| {float(table.grad.abs().max()):.3g}")
+    step_parity(tcfg, device, per_param=False)
+    return dict(launches=launches, backward_launches=backward_launches, tiles=tiles,
+                prior_grad={"ms": with_ms, "ms_without_prior_grad": without_ms,
+                            "plain_ms": plain_ms, "max_abs_err": prior_err})
+
+
+def fusion_phase(cfg, device):
+    """[11](c): `train` on the flagship with MERGE 'both' (two fusion
+    layers, two forward and two backward launches a step); then a step each
+    with MERGE 'early', with the reprojection loss, and on epipolarHG1 with
+    WARPEDHEATMAP and FIND_CORR 'rgb'.  Returns the main path's launches and
+    tiles."""
+    from epipolar_transformers_tpu_torch.config import load_config, update_from_dict
+
+    totals = dict(launches=0, backward_launches=0, tiles=[0, 0])
+    runs = [
+        ("MERGE both", cfg, {"EPIPOLAR": {"MERGE": "both"}}, FUSION_TRAIN_STEPS, 2, ()),
+        ("MERGE early", cfg, {"EPIPOLAR": {"MERGE": "early"}}, 1, 1, ()),
+        ("REPROJECT_LOSS_WEIGHT 1.0", cfg, {"EPIPOLAR": {"REPROJECT_LOSS_WEIGHT": 1.0}}, 1, 1,
+         ("reproject_loss",)),
+        # 'rgb' keys are the images: no gradient to them ('other1'); their 3
+        # channels take the plain route
+        ("epipolarHG1 WARPEDHEATMAP True FIND_CORR rgb OTHER_GRAD ('other2',)",
+         load_config(HG_CONFIG), {"EPIPOLAR": {"WARPEDHEATMAP": True, "FIND_CORR": "rgb",
+                                               "OTHER_GRAD": ("other2",)}}, 1, 0, ()),
+    ]
+    for name, base, d, steps, per_step, terms in runs:
+        with tempfile.TemporaryDirectory() as out_dir:
+            tcfg = update_from_dict(base, {**d, "OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
+                                           "TENSORBOARD": {"USE": False}})
+            _, _, launches, backward_launches, tiles, losses, wall, _ = counted_train(
+                f"[11](c) {name}", tcfg, steps, device, per_step=per_step, terms=terms)
+        totals["launches"] += launches
+        totals["backward_launches"] += backward_launches
+        totals["tiles"] = [a + b for a, b in zip(totals["tiles"], tiles)]
+        log(f"  (c) train() with {name}: {steps} step(s) in {wall:.1f} s, losses "
+            f"{', '.join(f'{v:.5g}' for v in losses)}" + (f" ({', '.join(terms)} finite)" if terms
+                                                          else "")
+            + f"; forward kernel launches {launches}, backward {backward_launches} ({per_step} "
+            f"each per step); tiles {tiles[0]} / {tiles[1]}")
+    return totals
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -1296,7 +1614,7 @@ def live_pairs(locs, distinct: bool = True) -> int:
     return int((new & (rows >= 0)).sum())
 
 
-def bound(feats, locs, backward: bool, distinct: bool = True):
+def bound(feats, locs, backward: bool, distinct: bool = True, prior: bool = False):
     """(ms, "operations" or "bytes"): the least time the card could take for
     the attention forward (queries, keys, values) or backward (queries and
     keys = values one tensor, all gradients) on these f32 inputs.  The
@@ -1306,7 +1624,9 @@ def bound(feats, locs, backward: bool, distinct: bool = True):
     the function reads that row: the forward twice (similarity, output), the
     backward five times (similarity, g, dfeat1, and the key and value
     gradients).  The bytes read each input once (a tensor passed as both
-    keys and values is one input) and write each output once."""
+    keys and values is one input) and write each output once; `prior` adds
+    the (B, K, HW) f32 prior read and, in the backward, its gradient
+    written."""
     B, K, H, W, _ = locs.shape
     C = feats[0].shape[-1]
     flops = live_pairs(locs, distinct) * 2 * C * (5 if backward else 2)
@@ -1315,6 +1635,8 @@ def bound(feats, locs, backward: bool, distinct: bool = True):
     # depth; the backward's dfeat1 and keys' = values' gradient)
     nbytes = len({f.data_ptr() for f in feats}) * feature + locs.numel() * 4 + (
         3 * feature if backward else feature + B * K * H * W * 4)
+    if prior:
+        nbytes += B * K * H * W * 4 * (2 if backward else 1)
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1422,6 +1744,7 @@ def main() -> int:
     launches += eval_launches
     del slice_model, seen
     fwd_bound = bound(f32, rig, backward=False)
+    prior_bound = bound(f32[:2], rig, backward=True, prior=True)
     bwd_bound = bound(f32[:2], rig, backward=True)
     fwd_hits, bwd_hits = (bound(f, rig, b, distinct=False)[0]
                           for f, b in ((f32, False), (f32[:2], True)))
@@ -1439,28 +1762,39 @@ def main() -> int:
     recipe_launches, recipe_backward, recipe_tiles = recipe_phase(device)
     log("[10] weight import through the command line")
     weight_import_phase(device)
+    log(f"[11] the other attention configs: the param recipe, the learned prior through "
+        f"the kernels, MERGE early/both, the reprojection loss, {card}")
+    param = param_recipe_phase(device)
+    prior = prior_phase(cfg, device)
+    fusion = fusion_phase(cfg, device)
+    extra = [prior, fusion]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
         "replaces": REPLACES,
-        "launches": launches + train_launches + hg["launches"] + recipe_launches,
+        "launches": (launches + train_launches + hg["launches"] + recipe_launches
+                     + sum(e["launches"] for e in extra)),
         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": fwd_bound[0],
         "bound_by": fwd_bound[1], "library_ms": None, "main_path_tiles": {
             "tile_path": (slice_tiles[0] + train_tiles[0] + eval_tiles[0] + hg["tiles"][0]
-                          + recipe_tiles[0]),
+                          + recipe_tiles[0] + sum(e["tiles"][0] for e in extra)),
             "per_query_path": (slice_tiles[1] + train_tiles[1] + eval_tiles[1]
-                               + hg["tiles"][1] + recipe_tiles[1])},
+                               + hg["tiles"][1] + recipe_tiles[1]
+                               + sum(e["tiles"][1] for e in extra))},
         "hourglass_shape": hg["entry"],
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
         "replaces": BACKWARD_REPLACES,
-        "launches": backward_launches + hg["backward_launches"] + recipe_backward,
+        "launches": (backward_launches + hg["backward_launches"] + recipe_backward
+                     + sum(e["backward_launches"] for e in extra)),
         "max_abs_err": bwd_err, "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
         "hourglass_shape": hg["backward_entry"],
-    }]}))
+        "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],
+                           "bound_by": prior_bound[1]},
+    }], "param_recipe": param}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:

@@ -12,9 +12,18 @@
 //
 //   sim[q,k] = sum_c w_c <f1[q], f2k[corner_c]>          (0 when all w_c = 0)
 //   masked   = sim == 0 ? -1e10 : sim
-//   w[q,k]   = softmax_k(scale * (masked [+ prior])) [* prior]
+//   w[q,k]   = softmax_k(scale * masked) [* prior]
+//              | softmax over the valid slots (sim != 0) of scale * (sim + prior),
+//                0 on the others, 1/K on a row with none  (additive prior)
 //              | masked [+ prior] / K                  (softmax off)
 //              | prior                                 (similarity 'prior')
+//
+// The additive prior's softmax is the JAX package's masked form
+// (epipolar_transformers_tpu/ops/epipolar_attention.py:
+// epipolar_similarity_weights), not softmax(scale * (-1e10 + prior)): that
+// one tracks the prior on rows with no valid slot (|prior| > ~512 moves it,
+// and its gradient to the prior is not 0 there), where the masked form is
+// the constant 1/K.
 //   depth[b,k,q] = w[q,k]
 //   out[q]   = sum_k w[q,k] sum_c w_c f2v[corner_c]
 //
@@ -36,6 +45,14 @@
 //   dfeat1[q]  = sum_k ds[k] sum_c w_c f2k[corner_c]
 //   dother1[r] = sum over entries (q,k,c) with corner_c = r of ds[q,k] w_c f1[q]
 //   dother2[r] = sum over the same entries of w[q,k] w_c dout[q]
+//   dprior[k]  = ds[k]              (additive prior, softmax on: 0 where
+//                                     sim == 0, and on a row with no valid slot)
+//              | g_k / K            (additive prior, softmax off, on every slot:
+//                                     (masked + prior) / K is linear in prior)
+//              | g_k p_k            (priormul, softmax on)
+//              | 0                  (priormul, softmax off: the prior is unused)
+//              | g_k                (similarity 'prior')
+//   Each (q, k) belongs to one lane of pass A, which writes it: no atomics.
 //
 // It recomputes the slot data and the similarities with the forward's rules
 // instead of reading the forward's weights: the zero-sentinel mask and,
@@ -127,7 +144,7 @@
 //
 // At the flagship shape on an H100 (f32, keys = values, the synthetic rig's
 // locations) the backward takes ~2.95 ms: A ~1.65, B ~0.28, C ~0.99 ms,
-// against a bound of ~0.16 ms.
+// against a bound of ~0.16 ms; ~0.02 ms more with the prior's gradient.
 //
 // Two runs on the same inputs give bit-equal gradients.
 //
@@ -290,6 +307,7 @@ struct Params {
   float* dfeat1;       // backward: (B, HW, C)
   float* ds;           // backward: (B, HW, K) logit gradients, or null
   float* w;            // backward: (B, HW, K) attention weights, or null
+  float* dprior;       // backward: (B, K, HW) gradient of the prior, or null
   int B, H, W, K;
   float scale;
   int use_sim;   // similarity != 'prior'
@@ -398,19 +416,26 @@ __device__ __forceinline__ float corner_dot(const T* rows, const Corners& c,
 
 // Zero-sentinel mask, additive prior, softmax or 1/K, prior multiply: the
 // similarities s of this lane's samples -> their weights w, and (softmax
-// on) the softmax p before the prior multiply.
+// on) the softmax p before the prior multiply.  With an additive prior the
+// softmax runs over the valid slots (s != 0) only, and a row without one
+// is uniform (the JAX package's masked form).
 __device__ __forceinline__ void attention_weights(
     const Params& p, const Slots& sl, int lane, const float (&s)[kMaxSlotsPerLane],
     float (&prob)[kMaxSlotsPerLane], float (&w)[kMaxSlotsPerLane]) {
+  const bool additive = p.prior != nullptr && !p.priormul;
+  const bool masked_softmax = additive && p.softmax;
   float logit[kMaxSlotsPerLane];
+  bool live[kMaxSlotsPerLane];
   float mx = -INFINITY;
 #pragma unroll
   for (int i = 0; i < kMaxSlotsPerLane; ++i) {
     const bool valid = lane + 32 * i < p.K;
     float m = (s[i] == 0.f) ? kNegInf : s[i];
-    if (p.prior != nullptr && !p.priormul) m = m + sl.pr[i];
+    if (additive) m = m + sl.pr[i];
+    // the masked softmax keeps the valid slots only
+    live[i] = valid && (!masked_softmax || s[i] != 0.f);
     if (p.softmax) {
-      logit[i] = valid ? m * p.scale : -INFINITY;
+      logit[i] = live[i] ? m * p.scale : -INFINITY;
       mx = fmaxf(mx, logit[i]);
     } else {
       w[i] = valid ? m / (float)p.K : 0.f;
@@ -423,13 +448,15 @@ __device__ __forceinline__ void attention_weights(
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxSlotsPerLane; ++i) {
-      e[i] = (lane + 32 * i < p.K) ? expf(logit[i] - mx) : 0.f;
+      e[i] = live[i] ? expf(logit[i] - mx) : 0.f;
       sum += e[i];
     }
     sum = warp_sum(sum);
 #pragma unroll
     for (int i = 0; i < kMaxSlotsPerLane; ++i) {
-      prob[i] = e[i] / sum;
+      // a row with no valid slot (masked softmax only: otherwise every
+      // slot k < K is live) is uniform over the K slots
+      prob[i] = sum > 0.f ? e[i] / sum : (lane + 32 * i < p.K ? 1.f / (float)p.K : 0.f);
       w[i] = prob[i];
       if (p.prior != nullptr && p.priormul) w[i] = w[i] * sl.pr[i];
     }
@@ -1189,9 +1216,8 @@ query_backward_kernel(const Params p) {
   }
 
   // the weights and the logit gradient ds
-  float w[kMaxSlotsPerLane], ds[kMaxSlotsPerLane];
+  float w[kMaxSlotsPerLane], ds[kMaxSlotsPerLane], prob[kMaxSlotsPerLane];
   if (p.use_sim) {
-    float prob[kMaxSlotsPerLane];
     attention_weights(p, sl, lane, s, prob, w);
     // g' rounded once (no fma contraction), so that a one-hot softmax
     // gives g' - sum_j p_j g'_j == 0 exactly
@@ -1213,8 +1239,22 @@ query_backward_kernel(const Params p) {
   } else {
 #pragma unroll
     for (int i = 0; i < kMaxSlotsPerLane; ++i) {
-      w[i] = sl.pr[i];
+      w[i] = prob[i] = sl.pr[i];
       ds[i] = 0.f;
+    }
+  }
+
+  // the prior's gradient, by mode (the header's dprior)
+  if (p.dprior != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kMaxSlotsPerLane; ++i) {
+      const int k = lane + 32 * i;
+      if (k >= K) continue;
+      float dp;
+      if (!p.use_sim) dp = g[i];
+      else if (p.priormul) dp = p.softmax ? g[i] * prob[i] : 0.f;
+      else dp = p.softmax ? ds[i] : g[i] / (float)K;
+      p.dprior[((size_t)b * K + k) * HW + q] = dp;
     }
   }
 
@@ -1816,12 +1856,13 @@ extern "C" long long epipolar_attention_backward_scratch_bytes(
 }
 
 // dother1 / dother2 may be null (no gradient wanted); when they are the same
-// buffer it receives dother1 + dother2.  Every row of every buffer given is
-// written.  `scratch` holds epipolar_attention_backward_scratch_bytes.
+// buffer it receives dother1 + dother2.  dprior (B, K, HW) may be null; it
+// needs a prior.  Every row of every buffer given is written.  `scratch`
+// holds epipolar_attention_backward_scratch_bytes.
 extern "C" int epipolar_attention_backward(
     const void* f1, const void* f2k, const void* f2v, const void* locs,
     const void* prior, const void* dout, void* dfeat1, void* dother1,
-    void* dother2, void* scratch, int B, int H, int W, int K, int C,
+    void* dother2, void* dprior, void* scratch, int B, int H, int W, int K, int C,
     int is_bf16, float scale, int use_sim, int softmax, int priormul,
     void* stream) {
   if (!valid_shape(B, H, W, K)) return (int)cudaErrorInvalidValue;
@@ -1829,10 +1870,12 @@ extern "C" int epipolar_attention_backward(
   const bool kv = dother1 != nullptr || dother2 != nullptr;
   if (kv && (scratch == nullptr || !valid_transpose_shape(B, H, W, K)))
     return (int)cudaErrorInvalidValue;
+  if (dprior != nullptr && prior == nullptr) return (int)cudaErrorInvalidValue;
   Params p = make_params(f1, f2k, f2v, locs, prior, B, H, W, K, scale,
                          use_sim, softmax, priormul);
   p.dout = static_cast<const float*>(dout);
   p.dfeat1 = static_cast<float*>(dfeat1);
+  p.dprior = static_cast<float*>(dprior);
   Transpose t = {};
   if (kv) {
     t.d1 = static_cast<float*>(dother1);

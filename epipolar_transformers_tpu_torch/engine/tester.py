@@ -48,7 +48,7 @@ from ..utils.metric_logger import MetricLogger
 
 logger = logging.getLogger(__name__)
 
-EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT")
+EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT", "camera", "other_camera")
 # what a train step also takes: the target heatmaps and joint visibility
 TRAIN_KEYS = EVAL_KEYS + ("heatmap", "visibility")
 NHWC_KEYS = ("img", "other_img", "heatmap")
@@ -69,11 +69,11 @@ def action_name(idx: int, cfg: Config) -> str:
 
 def to_model_inputs(group: Dict[str, np.ndarray], device,
                     keys=EVAL_KEYS) -> Dict[str, torch.Tensor]:
-    """Host arrays -> model inputs on `device`.  Images and heatmaps come
-    NHWC; permuted to NCHW they are already channels_last in memory, so no
-    copy is made."""
+    """Host arrays -> model inputs on `device`, the `keys` the group has.
+    Images and heatmaps come NHWC; permuted to NCHW they are already
+    channels_last in memory, so no copy is made."""
     out = {}
-    for k in keys:
+    for k in (k for k in keys if k in group):
         t = torch.from_numpy(np.ascontiguousarray(group[k])).to(device, non_blocking=True)
         out[k] = t.permute(0, 3, 1, 2) if k in NHWC_KEYS else t
     return out
@@ -156,13 +156,17 @@ def _triangulate(cfg: Config, group, locs, scores, out, device=None) -> np.ndarr
         body = HumanBody()
         target = np.asarray(group["points-3d"], dtype=np.float64)
         gt0 = target[0] if target.ndim == 3 else target
-        cams = np.asarray(group["origK"], dtype=np.float64) @ np.asarray(
-            group["RT"], dtype=np.float64
-        )
-        boxes = [
-            {"center": c, "scale": s}
-            for c, s in zip(group["crop_center"], group["crop_scale"])
-        ]
+        if "origK" in group:
+            K, boxes = group["origK"], [{"center": c, "scale": s} for c, s in
+                                        zip(group["crop_center"], group["crop_scale"])]
+        else:
+            # an uncropped view (the synthetic rig): its K is the original
+            # one and its box the whole image (tests/test_pictorial.py's setting)
+            H, W = cfg.DATASETS.IMAGE_SIZE
+            K = group["K"]
+            boxes = [{"center": np.array([W / 2.0, H / 2.0]),
+                      "scale": np.array([W / 200.0, H / 200.0])}] * len(K)
+        cams = np.asarray(K, dtype=np.float64) @ np.asarray(group["RT"], dtype=np.float64)
         p = cfg.PICT_STRUCT
         return rpsm(
             cams, out["heatmap_pred"], center=gt0[cfg.KEYPOINT.ROOTIDX], boxes=boxes, body=body,

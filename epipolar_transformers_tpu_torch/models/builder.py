@@ -24,8 +24,11 @@ what the JAX builder returns with is_train=True: (loss_dict, metric_dict,
 out), with the total under loss_dict['loss'].  Training runs the two views
 as two passes (sibling on the other view first, then the reference, so
 that shared BN statistics move twice, as in flax), with batch-statistics
-BN and no peak decode.  MULTITEST (ROADMAP A11b), the other tasks (ROADMAP
-A11c) and the reprojection loss (ROADMAP A10) raise.
+BN and no peak decode.  With EPIPOLAR.REPROJECT_LOSS_WEIGHT the loss gains
+`reproject_loss` (JAX models/builder.py:162-191, ops/epipolar_reproject.py)
+on a PoseResNet.  The inputs' `camera` and `other_camera` reach the fusion
+(the learned prior), and `other_img` the hourglass (FIND_CORR 'rgb').
+MULTITEST (ROADMAP A11b) and the other tasks (ROADMAP A11c) raise.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch import nn
 
 from ..config import Config
 from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
+from ..ops.epipolar_reproject import gt_grid, reproject_consistency, reprojection_loss
 from .layers import BatchNorm2d
 from .registry import build_backbone
 
@@ -110,19 +114,44 @@ class ModelBuilder(nn.Module):
         _, stage_losses = compute_stage_loss(heatmaps, scoremap)
         return {f"stage_loss{i}": v for i, v in enumerate(stage_losses)}
 
+    def _reproject_loss(self, bb, other_features, inputs) -> torch.Tensor:
+        """EPIPOLAR.REPROJECT_LOSS_WEIGHT x the masked MSE of the attention's
+        round trip to the other view and back (JAX models/builder.py:162-191)."""
+        if isinstance(bb.features, tuple):
+            raise NotImplementedError("the reprojection loss takes a PoseResNet's single "
+                                      "feature map, as in the JAX package")
+        sampler = self.reference.epipolar_sampler
+        geom = sampler.geometry
+
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1)
+
+        reproj, mask = reproject_consistency(
+            nhwc(bb.features), nhwc(other_features), bb.sample_locs, bb.depth,
+            inputs["KRT"].float(), inputs["other_KRT"].float(), geom, sampler.attention_params)
+        grid = torch.as_tensor(gt_grid(geom), device=reproj.device)
+        return self.cfg.EPIPOLAR.REPROJECT_LOSS_WEIGHT * reprojection_loss(reproj, grid[None],
+                                                                           mask)
+
+    def _reference(self, inputs, other_features, decode_peaks: bool):
+        """The reference backbone on the target view, fused with the other's."""
+        return self.reference(inputs["img"], other_features=other_features,
+                              other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
+                              camera=inputs.get("camera"),
+                              other_camera=inputs.get("other_camera"),
+                              other_img=inputs["other_img"], decode_peaks=decode_peaks)
+
     def _train_forward(self, inputs: Dict[str, torch.Tensor]):
         c = self.cfg
-        if c.EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0:
-            raise NotImplementedError(
-                "EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0: the reprojection loss is ROADMAP A10")
         other_features = self._other_features(inputs["other_img"])
-        bb = self.reference(inputs["img"], other_features=other_features,
-                            other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
-                            decode_peaks=False)
+        bb = self._reference(inputs, other_features, decode_peaks=False)
         loss_dict = {}
         if "heatmap" in inputs:
             loss_dict = self._heatmap_loss(bb.heatmaps, inputs["heatmap"],
                                            inputs.get("visibility"))
+        if (c.EPIPOLAR.REPROJECT_LOSS_WEIGHT != 0 and bb.depth is not None
+                and bb.sample_locs is not None):
+            loss_dict["reproject_loss"] = self._reproject_loss(bb, other_features, inputs)
         out = {"heatmap_pred": bb.heatmaps[-1]}
         if bb.corr_pos is not None:
             out["corr_pos"] = bb.corr_pos
@@ -137,7 +166,8 @@ class ModelBuilder(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor], bn_train: bool = False):
         """
         Args (inputs dict): img, other_img (N, 3, H, W); KRT, other_KRT
-            (N, 3, 4); in training also heatmap (N, J, h, w) and visibility
+            (N, 3, 4); camera, other_camera (N,) where EPIPOLAR.PRIOR reads
+            them; in training also heatmap (N, J, h, w) and visibility
             (N, J).  bn_train: in eval mode, BatchNorm on batch statistics
             (TEST.TRAIN_BN).
         Returns the eval output dict, or in training (loss_dict,
@@ -158,11 +188,11 @@ class ModelBuilder(nn.Module):
             feat_ref, other_features = self.reference.trunk_features(both).chunk(2, dim=0)
             bb = self.reference.head_from_features(
                 feat_ref, other_features=other_features,
-                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
+                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"], camera=inputs.get("camera"),
+                other_camera=inputs.get("other_camera"))
         else:
-            bb = self.reference(inputs["img"],
-                                other_features=self._other_features(inputs["other_img"]),
-                                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"])
+            bb = self._reference(inputs, self._other_features(inputs["other_img"]),
+                                 decode_peaks=True)
         out = {"heatmap_pred": bb.heatmaps[-1], "batch_locs": bb.locs,
                "score_pred": bb.scores}
         if bb.corr_pos is not None:

@@ -17,8 +17,14 @@ Child names are the flax module names (`stem_conv0`, `ress0`,
 so utils/jax_import.py maps them.  The convolutions compute in float32 and
 carry biases, as flax's `nn.Conv` there; `init_weights` draws flax's
 initializers (LeCun truncated normal kernels, zero biases, unit BN) from an
-explicit generator.  EPIPOLAR.WARPEDHEATMAP and FIND_CORR 'rgb' raise
-(ROADMAP A10).
+explicit generator.
+
+EPIPOLAR.FIND_CORR 'rgb' matches the images, average-pooled by
+BACKBONE.DOWNSAMPLE and detached, instead of the features (JAX
+models/hourglass.py:221-231); it needs `other_img`.  EPIPOLAR.WARPEDHEATMAP
+warps `other_heatmaps`, when given, along each pixel's epipolar line to the
+sample of highest attention weight (`_warp_heatmaps`, JAX :303-304,
+324-345) into `warped_heatmap`.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops.epipolar_sampling import epipolar_sample_locs
+from ..ops.grid_sample import grid_sample_nhwc
 from ..ops.resize import resize_bilinear_align_corners
 from ..ops.soft_argmax import find_tensor_peak_batch
 from .epipolar import Epipolar
@@ -146,9 +154,6 @@ class HourglassNet(nn.Module):
                  HG_CONFIGS["HG"])
         self.n_stack, self.n_modules = v["stages"], v["n_modules"]
         nf = self.n_feats = c.KEYPOINT.NFEATS
-        if c.EPIPOLAR.WARPEDHEATMAP:
-            raise NotImplementedError("EPIPOLAR.WARPEDHEATMAP (the warped-heatmap head) is "
-                                      "ROADMAP A10 in the port")
         self.fusion = ("epipolar" if "epipolarHG" in body else "meta" if "metaHG" in body
                        else "simple" if "simplemultiviewHG" in body else None)
         self.stem_conv0 = Conv2d(3, 32, 3, 2, 1)
@@ -186,7 +191,9 @@ class HourglassNet(nn.Module):
         unit BN, zero for the zero-init BN), drawn from `generator` on the
         CPU in module order."""
         for m in self.modules():
-            if isinstance(m, BatchNorm2d):
+            if isinstance(m, Epipolar):
+                m.init_weights(generator)
+            elif isinstance(m, BatchNorm2d):
                 m.weight.fill_(0.0 if isinstance(m, ZeroInitBatchNorm) else 1.0)
                 m.bias.zero_()
                 m.reset_running_stats()
@@ -200,7 +207,7 @@ class HourglassNet(nn.Module):
             z = getattr(self, f"tower{i}_mod{m}")(z)
         return torch.relu(getattr(self, f"tower{i}_bn")(getattr(self, f"tower{i}_conv")(z)))
 
-    def _fuse(self, idx, feat, other_features, KRT, other_KRT):
+    def _fuse(self, idx, feat, other_features, KRT, other_KRT, ids, refs):
         """The idx-th merge point: (fused, corr_pos, depth, sample_locs)."""
         if other_features is None:
             return feat, None, None, None
@@ -210,14 +217,16 @@ class HourglassNet(nn.Module):
         elif self.fusion == "meta":
             ret = getattr(self, f"meta{idx}")(KRT, other_KRT, other_features[idx])
         elif self.fusion == "epipolar":
-            ret, cp, d, sl = self.epipolar_sampler(feat, other_features[idx], KRT, other_KRT)
+            ret, cp, d, sl = self.epipolar_sampler(feat, other_features[idx], KRT, other_KRT,
+                                                   *ids, *refs)
         else:
             raise NotImplementedError(self.cfg.BACKBONE.BODY)
         if self.cfg.EPIPOLAR.OTHER_ONLY:
             return ret, cp, d, sl
         return ret + feat, cp, d, sl
 
-    def forward(self, x, other_features=None, other_KRT=None, KRT=None,
+    def forward(self, x, other_features=None, other_KRT=None, KRT=None, camera=None,
+                other_camera=None, other_img=None, other_heatmaps=None,
                 decode_peaks: bool = True) -> BackboneOutput:
         """
         Args:
@@ -225,8 +234,20 @@ class HourglassNet(nn.Module):
             other_features: the sibling's `features`, one (N, C, h, w) map
                 per merge point, or None for single-view.
             other_KRT / KRT: (N, 3, 4) projections.
+            camera / other_camera: (N,) camera ids (EPIPOLAR.PRIOR).
+            other_img: (N, 3, H, W) the other view's images (FIND_CORR 'rgb').
+            other_heatmaps: (N, J, h, w) the other view's heatmaps to warp
+                (WARPEDHEATMAP).
         """
         c = self.cfg
+        refs = ()
+        if other_features is not None and self.fusion == "epipolar" \
+                and c.EPIPOLAR.FIND_CORR == "rgb":
+            if other_img is None:
+                raise ValueError("EPIPOLAR.FIND_CORR='rgb' needs other_img")
+            ds = c.BACKBONE.DOWNSAMPLE
+            refs = tuple(torch.nn.functional.avg_pool2d(t, ds, ds).detach()
+                         for t in (x, other_img))
         h = torch.relu(self.stem_bn0(self.stem_conv0(x)))
         h = torch.relu(self.stem_bn1(self.stem_conv1(h)))
         h = torch.relu(self.stem_bn2(self.stem_conv2(h)))
@@ -238,8 +259,8 @@ class HourglassNet(nn.Module):
 
         def fuse(feat):
             nonlocal n_fused, corr_pos, depth, sample_locs
-            fused, corr_pos, depth, sample_locs = self._fuse(n_fused, feat, other_features,
-                                                             KRT, other_KRT)
+            fused, corr_pos, depth, sample_locs = self._fuse(
+                n_fused, feat, other_features, KRT, other_KRT, (camera, other_camera), refs)
             n_fused += 1
             return fused
 
@@ -270,11 +291,26 @@ class HourglassNet(nn.Module):
             if i < self.n_stack - 1:
                 h = h + getattr(self, f"trsfea{i}")(feature) + getattr(self, f"trstmp{i}")(hm)
 
+        warped = None
+        if c.EPIPOLAR.WARPEDHEATMAP and other_heatmaps is not None and depth is not None:
+            warped = self._warp_heatmaps(other_heatmaps, KRT, other_KRT, depth)
+
         locs = scores = None
         if decode_peaks:
             locs, scores = find_tensor_peak_batch(heatmaps[-1].float(), c.KEYPOINT.SIGMA,
                                                   c.BACKBONE.DOWNSAMPLE)
         return BackboneOutput(
             features=tuple(features), heatmaps=tuple(heatmaps), locs=locs, scores=scores,
-            corr_pos=corr_pos, depth=depth, sample_locs=sample_locs,
+            corr_pos=corr_pos, depth=depth, sample_locs=sample_locs, warped_heatmap=warped,
         )
+
+    def _warp_heatmaps(self, other_heatmaps, KRT, other_KRT, depth):
+        """The other view's heatmaps (N, J, h, w) sampled along each pixel's
+        epipolar line at the sample of highest attention weight (reference
+        epipolar.py:470-514, the hard-max variant; sample 0 reads zero, as
+        there at :502) -> (N, J, h, w)."""
+        locs = epipolar_sample_locs(KRT, other_KRT, self.epipolar_sampler.geometry)
+        samples = grid_sample_nhwc(other_heatmaps.permute(0, 2, 3, 1), locs)  # (N, K, h, w, J)
+        samples = torch.cat([torch.zeros_like(samples[:, :1]), samples[:, 1:]], dim=1)
+        idx = depth.argmax(1)[:, None, ..., None].expand(-1, 1, -1, -1, samples.shape[-1])
+        return torch.gather(samples, 1, idx)[:, 0].permute(0, 3, 1, 2)

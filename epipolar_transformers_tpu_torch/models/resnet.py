@@ -1,20 +1,30 @@
-"""PoseResNet backbone (PyTorch, NCHW) with the late epipolar merge.
+"""PoseResNet backbone (PyTorch, NCHW) with the epipolar merge.
 
 Port of epipolar_transformers_tpu/models/resnet.py (reference
 modeling/backbones/resnet.py): ResNet-18..152 trunk (stride on the 3x3
 conv of a Bottleneck), 3 deconv layers (256 ch, 4x4, stride 2) + BN + ReLU,
-a 1x1 heatmap head, the epipolar fusion after the deconvs (MERGE='late')
-merged as `fused + feat`, and the soft-argmax decode.
+a 1x1 heatmap head, the epipolar fusion merged as `fused + feat`, and the
+soft-argmax decode.
+
+EPIPOLAR.MERGE (JAX models/resnet.py:272-274, 360-385): 'late' fuses the
+deconv output with the other view's deconv features; 'early' fuses the
+layer1 output with them instead (the same channels and resolution on R-50
+and up); 'both' does both, the early merge through `epipolar_sampler` and
+the late one through `epipolar_sampler1`, and returns the late one's
+corr_pos, depth and sample locations.  Any other MERGE fuses nothing and
+holds no fusion layer, as flax creates none for a layer never called.
 
 `init_weights(generator)` draws the JAX package's initial weights from an
 explicit generator: He (fan-out) truncated normal for the trunk convs,
 N(0, 0.001) for the deconvs and the heatmap head, LeCun truncated normal
-for the epipolar `z`, zero biases, unit BN (zero for the zero-init BN).
+for the epipolar `z`, `theta`, `phi` and `g`, zero biases, unit BN (zero
+for the zero-init BN), U[0, 0.1) for the learned prior table.
 
 Child names are the reference's (conv1, bn1, layerX.N.convK/bnK,
 downsample.{0,1}, deconv_layers.{0,1,3,4,6,7}, final_layer,
-epipolar_sampler.{z,bn}), so a reference state dict loads with strict=True.
-The TPU's space-to-depth stem is a plain Conv2d(7, 2, 3).
+epipolar_sampler.{z,bn,theta,phi,g,prior}, epipolar_sampler1), so a
+reference state dict loads with strict=True.  The TPU's space-to-depth
+stem is a plain Conv2d(7, 2, 3).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ class BackboneOutput(NamedTuple):
     corr_pos: Optional[torch.Tensor]  # (N, H, W, 2)
     depth: Optional[torch.Tensor]  # (N, K, H, W) attention weights
     sample_locs: Optional[torch.Tensor]  # (N, K, H, W, 2)
+    warped_heatmap: Optional[torch.Tensor] = None  # (N, J, H, W), hourglass WARPEDHEATMAP
 
 
 def _bn(cfg, planes):
@@ -149,12 +160,11 @@ class PoseResNet(nn.Module):
             inplanes = 256
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = Conv2d(256, c.KEYPOINT.NUM_PTS, 1, bias=True, dtype=d)
-        self.is_epipolar = "epipolarpose" in c.BACKBONE.BODY and not single_view
+        self.is_epipolar = ("epipolarpose" in c.BACKBONE.BODY and not single_view
+                            and c.EPIPOLAR.MERGE in ("late", "early", "both"))
         if self.is_epipolar:
-            if c.EPIPOLAR.MERGE != "late":
-                raise NotImplementedError(
-                    f"EPIPOLAR.MERGE={c.EPIPOLAR.MERGE!r} is ROADMAP A10 (the port "
-                    "merges 'late')")
+            if c.EPIPOLAR.MERGE == "both":
+                self.epipolar_sampler1 = Epipolar(c)
             self.epipolar_sampler = Epipolar(c)
 
     @torch.no_grad()
@@ -162,9 +172,12 @@ class PoseResNet(nn.Module):
         """The JAX package's initializers (models/resnet.py, models/epipolar.py
         there), drawn from `generator` on the CPU in module order."""
         head = {id(m) for m in self.deconv_layers.modules()} | {id(self.final_layer)}
-        z = getattr(getattr(self, "epipolar_sampler", None), "z", None)
+        fusion = {id(getattr(m, name)) for m in self.modules() if isinstance(m, Epipolar)
+                  for name in ("z", "theta", "phi", "g") if hasattr(m, name)}
         for m in self.modules():
-            if isinstance(m, BatchNorm2d):
+            if isinstance(m, Epipolar):
+                m.init_weights(generator)
+            elif isinstance(m, BatchNorm2d):
                 value = 0.0 if isinstance(m, ZeroInitBatchNorm) else 1.0
                 m.weight.fill_(value)
                 m.bias.zero_()
@@ -172,7 +185,7 @@ class PoseResNet(nn.Module):
             elif isinstance(m, (Conv2d, ConvTranspose2d)):
                 if id(m) in head:
                     _normal_(m.weight, 0.001, generator)
-                elif m is z:
+                elif id(m) in fusion:
                     _truncated_normal_(m.weight, 1.0, m.weight[0].numel(), generator)
                 else:
                     _truncated_normal_(m.weight, 2.0, m.weight.shape[0] * m.weight[0, 0].numel(),
@@ -187,13 +200,24 @@ class PoseResNet(nn.Module):
         h = self.layer4(self.layer3(self.layer2(self.layer1(h))))
         return self.deconv_layers(h)
 
+    def _late_sampler(self) -> Optional[Epipolar]:
+        """The fusion layer of the deconv output, if MERGE has one."""
+        merge = self.cfg.EPIPOLAR.MERGE
+        if not self.is_epipolar or merge == "early":
+            return None
+        return self.epipolar_sampler1 if merge == "both" else self.epipolar_sampler
+
     def head_from_features(self, feature, other_features=None, other_KRT=None,
-                           KRT=None, decode_peaks: bool = True) -> BackboneOutput:
-        """Late-merge fusion + heatmap head + decode on deconv features."""
-        corr_pos = depth = sample_locs = None
-        if other_features is not None and self.is_epipolar:
-            fused, corr_pos, depth, sample_locs = self.epipolar_sampler(
-                feature, other_features, KRT, other_KRT)
+                           KRT=None, camera=None, other_camera=None,
+                           decode_peaks: bool = True, fused_early=None) -> BackboneOutput:
+        """Late-merge fusion + heatmap head + decode on deconv features;
+        `fused_early` carries the early merge's (corr_pos, depth,
+        sample_locs) where MERGE is 'early'."""
+        corr_pos, depth, sample_locs = fused_early or (None, None, None)
+        sampler = self._late_sampler()
+        if other_features is not None and sampler is not None:
+            fused, corr_pos, depth, sample_locs = sampler(
+                feature, other_features, KRT, other_KRT, camera, other_camera)
             h = fused + feature  # reference resnet.py:388
         else:
             h = feature
@@ -207,14 +231,27 @@ class PoseResNet(nn.Module):
             corr_pos=corr_pos, depth=depth, sample_locs=sample_locs,
         )
 
-    def forward(self, x, other_features=None, other_KRT=None, KRT=None,
-                decode_peaks: bool = True) -> BackboneOutput:
+    def forward(self, x, other_features=None, other_KRT=None, KRT=None, camera=None,
+                other_camera=None, other_img=None, decode_peaks: bool = True) -> BackboneOutput:
         """
         Args:
             x: (N, 3, H, W) reference-view images.
             other_features: (N, 256, h, w) other-view deconv features, or
                 None for single-view mode.
             other_KRT / KRT: (N, 3, 4) projections for the epipolar geometry.
+            camera / other_camera: (N,) camera ids (EPIPOLAR.PRIOR).
+            other_img: unused (the hourglass's FIND_CORR 'rgb' reads it).
         """
-        return self.head_from_features(self.trunk_features(x), other_features,
-                                       other_KRT, KRT, decode_peaks)
+        merge = self.cfg.EPIPOLAR.MERGE
+        h = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        h = self.layer1(h)
+        early = None
+        if other_features is not None and self.is_epipolar and merge in ("early", "both"):
+            fused, *early = self.epipolar_sampler(h, other_features, KRT, other_KRT, camera,
+                                                  other_camera)
+            h = fused + h  # reference resnet.py:388
+            if merge == "both":
+                early = None  # the late merge's outputs are returned
+        feature = self.deconv_layers(self.layer4(self.layer3(self.layer2(h))))
+        return self.head_from_features(feature, other_features, other_KRT, KRT, camera,
+                                       other_camera, decode_peaks, fused_early=early)

@@ -27,8 +27,12 @@ PyTorch, so that the CPU tests can check their math.
 
 Coverage is the TPU kernel's (`supports_pallas_attention`): avg attention
 over dot or prior similarity, softmax on or off, an additive prior or
-`priormul`, no sample pooling.  A prior that needs a gradient (the learned
-prior table) is ROADMAP A10 and raises.
+`priormul`, no sample pooling.  The additive prior under the softmax is the
+JAX package's masked softmax (ops/epipolar_attention.py:
+`epipolar_similarity_weights`).  A prior that needs a gradient (the learned
+EPIPOLAR.PRIOR table) gets it from the backward kernel: (B, K, HW), each
+entry written by the lane that owns its (query, sample).  The other configs
+(cos/max, POOLING) run the plain paths of ops/epipolar_attention.py.
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ import numpy as np
 import torch
 
 from ..geometry.camera import denormalize_pixel
-from .epipolar_attention import NEG_INF, AttentionParams
-from .quad_gather import axis_slot_weights
+from .epipolar_attention import AttentionParams, epipolar_similarity_weights
+from .quad_gather import corner_data
 
 # kernel launches made by `epipolar_attention_batch` in this process:
 # forward kernels, and backward kernels run by autograd
@@ -57,7 +61,7 @@ KERNEL_CHANNELS = (32, 64, 128, 256)
 
 def supports_fused_attention(params: AttentionParams) -> bool:
     """Configs the fused kernel covers: avg attention over dot or prior
-    similarity, without sample pooling (cos/max and POOLING are ROADMAP A10)."""
+    similarity, without sample pooling."""
     return (
         params.attention == "avg"
         and params.similarity in ("dot", "prior")
@@ -69,17 +73,21 @@ def _check_params(params: AttentionParams) -> None:
     if not supports_fused_attention(params):
         raise ValueError(
             f"fused epipolar attention covers avg attention with dot or prior "
-            f"similarity and no pooling, not {params}; the other configs are "
-            "ROADMAP A10")
+            f"similarity and no pooling, not {params}; the other configs take "
+            "ops/epipolar_attention.py")
 
 
 def _compute_dtype(f1: torch.Tensor, f2k: torch.Tensor) -> torch.dtype:
-    return torch.bfloat16 if torch.bfloat16 in (f1.dtype, f2k.dtype) else torch.float32
+    """bf16 if either is, else f32; f64 queries (the CPU tests' f64 runs,
+    which the kernels refuse) stay f64."""
+    if torch.bfloat16 in (f1.dtype, f2k.dtype):
+        return torch.bfloat16
+    return torch.float64 if f1.dtype == torch.float64 else torch.float32
 
 
 def _flat(feat1, other1, other2, sample_locs, prior):
     """NHWC features -> (B, HW, C) in the compute dtype, locations ->
-    (B, K, HW, 2) f32, prior -> (B, K, HW) f32."""
+    (B, K, HW, 2) f32, prior -> (B, K, HW) f32 (f64 with f64 features)."""
     B, H, W, _ = feat1.shape
     K = sample_locs.shape[1]
     cd = _compute_dtype(feat1, other1)
@@ -89,7 +97,8 @@ def _flat(feat1, other1, other2, sample_locs, prior):
     # can sum both gradients into one buffer
     f2v = f2k if other2 is other1 else other2.reshape(B, H * W, -1).to(cd)
     locs = sample_locs.reshape(B, K, H * W, 2).to(torch.float32)
-    prior = None if prior is None else prior.reshape(B, K, H * W).to(torch.float32)
+    acc = torch.promote_types(cd, torch.float32)
+    prior = None if prior is None else prior.reshape(B, K, H * W).to(acc)
     return f1, f2k, f2v, locs, prior
 
 
@@ -112,37 +121,25 @@ def _corners(locs, H, W):
     """Corner key rows and bilinear weights (B, HW, K, 4) of every sample,
     in the kernels' slot order (00, 01, 10, 11).  A zero-weight corner may
     fall off the image; its row is clamped to a harmless in-range index."""
-    B, K, HW, _ = locs.shape
-    x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
-    y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
-    xb, wx0, wx1 = axis_slot_weights(x, W)
-    yb, wy0, wy1 = axis_slot_weights(y, H)
-    base = yb * W + xb
-    rows = torch.stack([base, base + 1, base + W, base + W + 1], dim=-1).clamp(0, HW - 1)
-    wc = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
+    rows, wc = corner_data(locs, H, W)
     return rows.permute(0, 2, 1, 3), wc.permute(0, 2, 1, 3)
 
 
 def _weights(sim, prior_q, params):
-    """Zero-sentinel mask, additive prior, softmax or 1/K, prior multiply:
-    similarities (B, HW, K) -> attention weights."""
+    """Zero-sentinel mask, additive prior (the masked softmax), softmax or
+    1/K, prior multiply: similarities (B, HW, K) -> attention weights."""
     if params.similarity == "prior":
         return prior_q
-    masked = torch.where(sim == 0.0, torch.full_like(sim, NEG_INF), sim)
-    if prior_q is not None and not params.priormul:
-        masked = masked + prior_q
-    if not params.softmax_enabled:
-        return masked / sim.shape[-1]
-    w = torch.softmax(masked * params.softmax_scale, dim=-1)
-    return w * prior_q if prior_q is not None and params.priormul else w
+    return epipolar_similarity_weights(sim, params, prior_q, dim=-1)
 
 
 def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
     """Gram + corner-gather form: G = f1 f2k^T, the four corner columns of
     G weighted into the similarity, then a scatter of the attention weights
-    into n (B, HW, HW) and out = n f2v.  Returns out (B, HW, Cv) f32 and
-    depth (B, K, HW) f32."""
+    into n (B, HW, HW) and out = n f2v.  Returns out (B, HW, Cv) and depth
+    (B, K, HW) in f32 (f64 for f64 features)."""
     B, K, HW, _ = locs.shape
+    acc = torch.promote_types(f1.dtype, torch.float32)
     rows, wc = _corners(locs, H, W)
     idx = rows.reshape(B, HW, K * 4)
     prior_q = None if prior is None else prior.permute(0, 2, 1)  # (B, HW, K)
@@ -150,12 +147,12 @@ def _plain_core(f1, f2k, f2v, locs, prior, H, W, params):
     sim = None
     if params.similarity != "prior":
         G = torch.matmul(f1, f2k.transpose(1, 2))  # (B, HW, HW) compute dtype
-        sim = (torch.gather(G, 2, idx).float().reshape(B, HW, K, 4) * wc).sum(-1)
+        sim = (torch.gather(G, 2, idx).to(acc).reshape(B, HW, K, 4) * wc).sum(-1)
     w = _weights(sim, prior_q, params)
 
-    n = torch.zeros(B, HW, HW, dtype=torch.float32, device=f1.device)
-    n.scatter_add_(2, idx, (w[..., None] * wc).reshape(B, HW, K * 4))
-    out = torch.matmul(n.to(f2v.dtype), f2v).float()
+    n = torch.zeros(B, HW, HW, dtype=acc, device=f1.device)
+    n.scatter_add_(2, idx, (w[..., None] * wc).reshape(B, HW, K * 4).to(acc))
+    out = torch.matmul(n.to(f2v.dtype), f2v).to(acc)
     return out, w.permute(0, 2, 1).contiguous()
 
 
@@ -262,19 +259,14 @@ def _tiled_forward_core(f1, f2k, f2v, locs, prior, H, W, params,
 
 def _transposed_backward_core(f1, f2k, f2v, locs, prior, dout, H, W, params):
     """The backward kernels' three passes in plain PyTorch, f32: per query
-    the weights w, the logit gradients ds and dfeat1 (pass A); the entries
-    (row, q, ds w_c, w w_c) of every corner with w_c != 0, in (q, k, c)
-    order, stably sorted by key row (pass B); their sums per row (pass C).
-    Returns dfeat1, dother1, dother2 (B, HW, C) f32."""
+    the weights w, the logit gradients ds, dfeat1 and the prior's gradient
+    (pass A); the entries (row, q, ds w_c, w w_c) of every corner with
+    w_c != 0, in (q, k, c) order, stably sorted by key row (pass B); their
+    sums per row (pass C).  Returns dfeat1, dother1, dother2 (B, HW, C) f32
+    and dprior (B, K, HW) f32, or None without a prior."""
     B, K, HW, _ = locs.shape
     f1, f2k, f2v, dout = (t.float() for t in (f1, f2k, f2v, dout))
-    x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
-    y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
-    xb, wx0, wx1 = axis_slot_weights(x, W)
-    yb, wy0, wy1 = axis_slot_weights(y, H)
-    base = yb * W + xb
-    rows = torch.stack([base, base + 1, base + W, base + W + 1], -1).permute(0, 2, 1, 3)
-    wc = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], -1).permute(0, 2, 1, 3)
+    rows, wc = _corners(locs, H, W)
     rows = torch.where(wc != 0, rows, torch.zeros_like(rows))  # (B, HW, K, 4)
     items = torch.arange(B, device=f1.device)[:, None, None, None]
 
@@ -286,22 +278,27 @@ def _transposed_backward_core(f1, f2k, f2v, locs, prior, dout, H, W, params):
 
     prior_q = None if prior is None else prior.float().permute(0, 2, 1)  # (B, HW, K)
     g = corner_dot(f2v, dout)
+    dprior = None
     if params.similarity == "prior":
-        w, ds = prior_q, torch.zeros_like(g)
+        w, ds, dprior = prior_q, torch.zeros_like(g), g
     else:
         sim = corner_dot(f2k, f1)
-        masked = torch.where(sim == 0.0, torch.full_like(sim, NEG_INF), sim)
-        if prior_q is not None and not params.priormul:
-            masked = masked + prior_q
+        w = _weights(sim, prior_q, params)
+        mul = prior_q is not None and params.priormul
         if params.softmax_enabled:
-            p = torch.softmax(masked * params.softmax_scale, dim=-1)
-            mul = prior_q is not None and params.priormul
-            w = p * prior_q if mul else p
+            # the softmax before the prior multiply (1/K on a row with no
+            # valid slot, whose weights are a constant)
+            p = _weights(sim, None, params) if mul else w
             gp = g * prior_q if mul else g
             ds = params.softmax_scale * p * (gp - (p * gp).sum(-1, keepdim=True))
+            ds = torch.where(sim == 0.0, torch.zeros_like(ds), ds)
+            if prior_q is not None:
+                dprior = g * p if mul else ds
         else:
-            w, ds = masked / K, g / K
-        ds = torch.where(sim == 0.0, torch.zeros_like(ds), ds)
+            ds = torch.where(sim == 0.0, torch.zeros_like(g), g / K)
+            if prior_q is not None:
+                # (masked + p) / K is linear in p on every slot, dead ones too
+                dprior = torch.zeros_like(g) if mul else g / K
     dfeat1 = ((ds[..., None] * wc)[..., None] * corners(f2k)).sum((2, 3))
 
     b, q, k, c = torch.nonzero(wc, as_tuple=True)  # (q, k, c) order per item
@@ -315,22 +312,25 @@ def _transposed_backward_core(f1, f2k, f2v, locs, prior, dout, H, W, params):
         out.index_add_(0, key_row, (coef[b, q, k] * weight)[:, None] * feat[b, q])
         return out.reshape(B, HW, -1)
 
-    return dfeat1, row_sums(ds, f1), row_sums(w, dout)
+    dprior = None if dprior is None else dprior.permute(0, 2, 1).contiguous()
+    return dfeat1, row_sums(ds, f1), row_sums(w, dout), dprior
 
 
 def epipolar_attention_backward_plain(feat1, other1, other2, sample_locs,
                                       params: AttentionParams, dout, prior=None):
     """The gradients of sum(out * dout) with respect to feat1, other1 and
-    other2 (each (B, H, W, C) f32), computed as the CUDA backward computes
-    them: the key/value gradients as per-row sums of transposed entries
-    rather than a scatter.  The tests hold it to autograd of the plain
-    version and to jax.grad of the JAX matmul path."""
+    other2 (each (B, H, W, C) f32) and the prior ((B, K, H, W) f32, None
+    without one), computed as the CUDA backward computes them: the
+    key/value gradients as per-row sums of transposed entries rather than
+    a scatter.  The tests hold it to autograd of the plain version and to
+    jax.grad of the JAX matmul path."""
     _check_params(params)
     B, H, W, _ = feat1.shape
     f1, f2k, f2v, locs, prior_flat = _flat(feat1, other1, other2, sample_locs.detach(), prior)
-    grads = _transposed_backward_core(f1, f2k, f2v, locs, prior_flat,
-                                      dout.reshape(B, H * W, -1), H, W, params)
-    return tuple(t.reshape(B, H, W, -1) for t in grads)
+    *grads, dprior = _transposed_backward_core(f1, f2k, f2v, locs, prior_flat,
+                                               dout.reshape(B, H * W, -1), H, W, params)
+    grads = [t.reshape(B, H, W, -1) for t in grads]
+    return (*grads, None if dprior is None else dprior.reshape(B, -1, H, W))
 
 
 def tile_counts() -> tuple[int, int]:
@@ -368,6 +368,8 @@ def _kernel_args(f1, f2k, f2v, locs, prior, params):
 
     B, K, HW, _ = locs.shape
     C = f1.shape[-1]
+    if f1.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel takes f32 or bf16 features, got {f1.dtype}")
     if f2k.shape[-1] != C or f2v.shape[-1] != C or C not in KERNEL_CHANNELS:
         raise ValueError(
             f"the CUDA kernel takes equal query, key and value widths in "
@@ -421,12 +423,14 @@ def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
 
 
 def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
-                     need_keys: bool, need_values: bool, same_kv: bool):
+                     need_keys: bool, need_values: bool, same_kv: bool,
+                     need_prior: bool = False):
     """Launch the backward kernels of csrc/epipolar_attention.cu on the
-    current stream.  Returns f32 (dfeat1, dother1 or None, dother2 or None);
-    when the keys and values are one tensor (same_kv) and both gradients are
-    wanted, dother1 is their sum and dother2 None.  Every row of each
-    gradient is written by the kernels; their scratch comes from here."""
+    current stream.  Returns f32 (dfeat1, dother1 or None, dother2 or None,
+    dprior or None); when the keys and values are one tensor (same_kv) and
+    both gradients are wanted, dother1 is their sum and dother2 None; dprior
+    (B, K, HW) when need_prior.  Every row of each gradient is written by
+    the kernels; their scratch comes from here."""
     global BACKWARD_LAUNCHES
     lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
     B, K, HW, _ = locs.shape
@@ -444,6 +448,7 @@ def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
     fused = same_kv and need_keys and need_values
     dother1 = torch.empty_like(dfeat1) if need_keys else None
     dother2 = None if fused else torch.empty_like(dfeat1) if need_values else None
+    dprior = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device) if need_prior else None
     partials = 0 if dother1 is None and dother2 is None else \
         2 if dother1 is not None and dother2 is not None else 1
     size = lib.epipolar_attention_backward_scratch_bytes
@@ -452,10 +457,10 @@ def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
     nbytes = size(B, H, W, K, C, partials)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
     fn = lib.epipolar_attention_backward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, scratch)]
+    ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, dprior, scratch)]
     if fused:
         ptr[1] = ptr[0]
     err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
@@ -464,7 +469,7 @@ def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
     if err != 0:
         raise RuntimeError(f"epipolar_attention_backward failed: CUDA error {err}")
     BACKWARD_LAUNCHES += 1
-    return dfeat1, dother1, dother2
+    return dfeat1, dother1, dother2, dprior
 
 
 class EpipolarAttentionFn(torch.autograd.Function):
@@ -477,16 +482,13 @@ class EpipolarAttentionFn(torch.autograd.Function):
     flow to the three features; the key and value gradients are computed
     only when autograd asks for them.  Under OTHER_GRAD the keys and the
     values are one tensor: the kernels then return the sum of both
-    gradients once, as the keys' gradient.  `depth` and the locations carry
-    none.
+    gradients once, as the keys' gradient.  A prior that needs a gradient
+    (the learned EPIPOLAR.PRIOR table) gets it, (B, K, HW) f32.  `depth`
+    and the locations carry none.
     """
 
     @staticmethod
     def forward(ctx, f1, f2k, f2v, locs, prior, H, W, params):
-        if prior is not None and prior.requires_grad:
-            raise NotImplementedError(
-                "a prior that needs a gradient (the learned EPIPOLAR.PRIOR table) is "
-                "ROADMAP A10; the kernel backward treats the prior as a constant")
         out, depth = _kernel_core(f1, f2k, f2v, locs, prior, H, W, params)
         ctx.save_for_backward(f1, f2k, f2v, locs, prior)
         ctx.geometry = (H, W, params)
@@ -498,16 +500,16 @@ class EpipolarAttentionFn(torch.autograd.Function):
     def backward(ctx, dout, _ddepth):
         f1, f2k, f2v, locs, prior = ctx.saved_tensors
         H, W, params = ctx.geometry
-        dfeat1, dother1, dother2 = _kernel_backward(
+        dfeat1, dother1, dother2, dprior = _kernel_backward(
             f1, f2k, f2v, locs, prior, dout, H, W, params,
             need_keys=ctx.needs_input_grad[1], need_values=ctx.needs_input_grad[2],
-            same_kv=ctx.same_kv)
+            same_kv=ctx.same_kv, need_prior=ctx.needs_input_grad[4])
 
         def cast(g, like):
             return None if g is None else g.to(like.dtype)
 
         return (cast(dfeat1, f1), cast(dother1, f2k), cast(dother2, f2v),
-                None, None, None, None, None)
+                None, cast(dprior, prior), None, None, None)
 
 
 def _run(core, feat1, other1, other2, sample_locs, params, prior):

@@ -7,7 +7,7 @@ clip the line to the image rectangle with the reference's stability rules,
 and emit K evenly spaced samples between the first two valid
 intersections, normalized to (-1, 1).  Lines that miss the rectangle get
 far-out-of-range locations, which sample to exact zeros and are masked by
-the attention.  Always computed in float32.
+the attention.  Computed in float32 (in float64 for a float64 `grid`).
 """
 
 from __future__ import annotations
@@ -62,22 +62,29 @@ def _stable_div(num, den):
     return num / (sign * torch.clamp(den.abs(), min=EPSILON))
 
 
-def epipolar_sample_locs(P1: torch.Tensor, P2: torch.Tensor,
-                         geom: EpipolarGeometry) -> torch.Tensor:
+def epipolar_sample_locs(P1: torch.Tensor, P2: torch.Tensor, geom: EpipolarGeometry,
+                         grid: torch.Tensor | None = None) -> torch.Tensor:
     """Sample locations along each pixel's epipolar line in the other view.
 
     Args:
         P1: (N, 3, 4) reference-view projections (full-res image coords).
         P2: (N, 3, 4) source-view projections.
         geom: static geometry.
+        grid: optional (N, 3, H*W) homogeneous full-res points to take the
+            lines of, in place of the feature pixels (`geom.grid()`); the
+            locations are differentiable in it (the reprojection loss).
     Returns:
-        (N, K, H, W, 2) float32 normalized (x, y) in (-1, 1).
+        (N, K, H, W, 2) float32 normalized (x, y) in (-1, 1); float64 for
+        a float64 grid.
     """
     H, W, K = geom.feat_h, geom.feat_w, geom.sample_size
-    P1 = P1.to(torch.float32)
-    P2 = P2.to(torch.float32)
+    if grid is None:
+        grid = torch.as_tensor(geom.grid(), device=P1.device)  # (3, HW)
+    dtype = torch.promote_types(grid.dtype, torch.float32)
+    P1 = P1.to(dtype)
+    P2 = P2.to(dtype)
+    grid = grid.to(dtype)
     N = P1.shape[0]
-    grid = torch.as_tensor(geom.grid(), device=P1.device)  # (3, HW)
 
     # epipolar line l2 = e2 x (P2 P1^+ x1)   (reference epipolar.py:334-352)
     X = pinv34(P1) @ grid  # (N, 4, HW)

@@ -30,3 +30,19 @@ def axis_slot_weights(coord: torch.Tensor, size: int):
                      torch.where(valid0, 1.0 - frac, zero))
     w1 = torch.where(shifted, zero, torch.where(valid1, frac, zero))
     return base, w0, w1
+
+
+def corner_data(locs: torch.Tensor, H: int, W: int):
+    """Bilinear corners of normalized (-1, 1) locations (..., 2), with the
+    align_corners=True unnormalize of the attention paths: key rows
+    (..., 4) and weights (..., 4) in the slot order (00, 01, 10, 11).  A
+    zero-weight corner may fall off the image; its row is clamped to a
+    harmless in-range index."""
+    x = (locs[..., 0] + 1.0) / 2.0 * (W - 1)
+    y = (locs[..., 1] + 1.0) / 2.0 * (H - 1)
+    xb, wx0, wx1 = axis_slot_weights(x, W)
+    yb, wy0, wy1 = axis_slot_weights(y, H)
+    base = yb * W + xb
+    rows = torch.stack([base, base + 1, base + W, base + W + 1], dim=-1).clamp(0, H * W - 1)
+    wc = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
+    return rows, wc

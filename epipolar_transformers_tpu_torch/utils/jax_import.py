@@ -11,11 +11,14 @@ leaf conversion is undone:
   * conv kernel HWIO -> OIHW;
   * deconv kernel (kh, kw, I, O) -> (I, O, kh, kw) with the spatial flip;
   * dense kernel (I, O) -> (O, I) (the hourglass's Meta `fc0`/`fc1`);
-  * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+  * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
+  * the learned prior table (`epipolar_sampler/prior`, (pairs, K', H, W))
+    as it is.
 
 Trap: flax's ZeroInitBatchNorm nests its BatchNorm one level deeper
-(`epipolar_sampler/bn/norm/...`, models/layers.py of the JAX package) and
-the name map does not insert `norm`; `_flax_path` does.
+(`epipolar_sampler/bn/norm/...` and `epipolar_sampler1/bn/norm/...`,
+models/layers.py of the JAX package) and the name map does not insert
+`norm`; `_flax_path` does.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ _BN_LEAF = {"weight": "scale", "bias": "bias",
 def _flax_path(key: str, ndim: int) -> Tuple[str, Tuple[str, ...], bool]:
     """Port state-dict key -> (collection, flax path, is_deconv)."""
     path, leaf, kind = torch_key_to_flax_path(key)
-    if len(path) >= 2 and path[-2:] == ("epipolar_sampler", "bn"):
+    if len(path) >= 2 and path[-2] in ("epipolar_sampler", "epipolar_sampler1") \
+            and path[-1] == "bn":
         path = path + ("norm",)
     if kind in ("bn_param", "bn_stat"):
         coll = "batch_stats" if kind == "bn_stat" else "params"

@@ -70,7 +70,7 @@ def _gather_grads(feat1, feat2, locs, dout, kw, prior):
     """dfeat1 and the keys' + values' gradient of the transposed backward."""
     t = torch.from_numpy
     f2 = t(feat2)
-    d1, dk, dv = attn.epipolar_attention_backward_plain(
+    d1, dk, dv, _ = attn.epipolar_attention_backward_plain(
         t(feat1), f2, f2, t(locs), AttentionParams(**kw), t(dout),
         None if prior is None else t(prior))
     return d1.numpy(), (dk + dv).numpy()

@@ -11,7 +11,8 @@ wrapper's checks.  The forward: f32 rtol 1e-4 / atol 1e-5 (summation order
 only, TF32 off); bf16 rtol = atol = 5e-2 (the plain version rounds the Gram
 and weight matrices to bf16).  The backward kernel against autograd of the
 plain version: f32 rtol 1e-4 / atol 1e-5 x the gradient's max (summation
-order); bf16 rtol 5e-2 / atol 5e-2 x max.  Both kernels sum in a fixed
+order); bf16 rtol 5e-2 / atol 5e-2 x max; the learned prior's gradient in
+each of its five modes the same way.  Both kernels sum in a fixed
 order, so two runs on the same inputs are bit-equal.  Most locations are
 random in (-1.3, 1.3), so lines cross the image edges and the forward runs
 its per-query kernel; the synthetic rig's epipolar lines (64x64) drive the
@@ -268,11 +269,50 @@ def test_backward_all_out_of_range_is_exactly_zero(device):
         assert g.abs().max().item() == 0.0
 
 
-def test_backward_rejects_a_prior_that_needs_grad(device):
-    feats, locs, prior = _inputs(device, 1, 8, 8, 4, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="A10"):
-        attn.epipolar_attention_batch(*feats, locs, AttentionParams(softmax_scale=0.5),
-                                      prior.requires_grad_())
+PRIOR_MODES = [
+    ("additive", dict()),
+    ("additive_softmax_off", dict(softmax_enabled=False)),
+    ("priormul", dict(priormul=True)),
+    ("priormul_softmax_off", dict(priormul=True, softmax_enabled=False)),
+    ("prior_similarity", dict(similarity="prior")),
+]
+PRIOR_CASES = [(dt, *m) for dt in ("f32", "bf16") for m in PRIOR_MODES
+               if not (dt == "bf16" and "softmax_off" in m[0])]
+
+
+@pytest.mark.parametrize("dt,name,kw", PRIOR_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRIOR_CASES])
+def test_backward_prior_gradient(device, dt, name, kw):
+    """The learned prior's gradient from the kernel backward == autograd of
+    the plain version in each mode; a query with every sample out of range
+    gets exactly 0 (the masked softmax's constant row; g = 0 elsewhere);
+    two runs are bit-equal."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, locs, prior = _inputs(device, 2, 12, 10, 33, 64, dtype)
+    locs[0, :, 0, 3] = -9.0
+    params = AttentionParams(softmax_scale=33 ** -0.5, **kw)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (*feats, prior)]
+        out = fn(*leaves[:3], locs, params, leaves[3])[0]
+        r = torch.randn(out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(1))
+        (out.float() * r).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = attn.BACKWARD_LAUNCHES
+    got = grads(attn.epipolar_attention_batch)
+    assert attn.BACKWARD_LAUNCHES == before + 1
+    want = grads(attn.epipolar_attention_plain_batch)
+    _assert_grads_close(got[:3], want[:3], dtype)
+    # priormul without the softmax never reads the prior: autograd gives
+    # None where the kernel gives zeros
+    want_prior = torch.zeros_like(got[3]) if want[3] is None else want[3]
+    scale, rtol = (1e-5, 1e-4) if dtype == torch.float32 else (5e-2, 5e-2)
+    atol = scale * max(float(want_prior.abs().max()), 1e-30)
+    torch.testing.assert_close(got[3], want_prior, rtol=rtol, atol=atol, msg="dprior")
+    assert got[3][0, :, 0, 3].abs().max().item() == 0.0
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(attn.epipolar_attention_batch))
+               if a is not None)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -72,7 +72,8 @@ def test_device_render_matches_jax_and_host():
 def test_model_inputs_upload_only_the_render_keys():
     batch = _items(True)
     inputs = model_inputs(batch, CPU, make_batch_renderer(_cfg(True)))
-    assert set(inputs) == {"img", "other_img", "heatmap", "KRT", "other_KRT", "visibility"}
+    assert set(inputs) == {"img", "other_img", "heatmap", "KRT", "other_KRT", "visibility",
+                           "camera", "other_camera"}
     assert inputs["img"].shape == (BATCH, 3, 64, 64)
     assert inputs["heatmap"].shape == (BATCH, 5, 16, 16)
 

@@ -7,8 +7,10 @@ CPU through `engine.tester.predict`, one tiny train step through
 `engine.trainer.train`, the eval engine `engine.test` (pymvg, two groups),
 the port's command line (one train step, then one eval group), a train
 step of the epipolarHG1 recipe (cut to NFEATS 32, batch 2), a tiny train
-step from DATALOADER.DEVICE_RENDER batches and the import of a
-reference-format `.pth`; no module of the three is loaded at the end.
+step from DATALOADER.DEVICE_RENDER batches, a tiny train step with the
+learned EPIPOLAR.PRIOR table, a train step of the param recipe (pooled,
+cut to 64 px, K=8, batch 2) and the import of a reference-format `.pth`;
+no module of the three is loaded at the end.
 """
 
 import os
@@ -72,6 +74,17 @@ with tempfile.TemporaryDirectory() as out_dir:
     imported = build_model(cfg.replace(SEED=1, WEIGHTS=path), torch.device("cpu"))
     load_weights(cfg.replace(WEIGHTS=path), imported)
 assert torch.equal(imported.reference.conv1.weight, model.reference.conv1.weight)
+prior = update_from_dict(cfg, {"EPIPOLAR": {"PRIOR": True}, "DATASETS": {"CAMERAS": (0, 1, 2, 3)}})
+param = update_from_dict(load_config("configs/epipolar/keypoint_h36m_param.yaml"), {
+    "DATASETS": {"TRAIN": ("synthetic_multiview_train",), "TEST": ("synthetic_multiview_val",),
+                 "IMAGE_SIZE": (64, 64)},
+    "BACKBONE": {"PRETRAINED": False}, "KEYPOINT": {"NUM_PTS": 17, "HEATMAP_SIZE": (16, 16)},
+    "EPIPOLAR": {"SAMPLESIZE": 8}, "SOLVER": {"IMS_PER_BATCH": 2}})
+for c, route in ((prior, "kernel"), (param, "streaming")):
+    with tempfile.TemporaryDirectory() as out_dir:
+        model, optimizer = train(c.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
+    assert optimizer.count == 1 and all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    assert model.reference.epipolar_sampler.route == route
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded

@@ -165,6 +165,28 @@ def test_cfg_weights_pth_matches_jax(tmp_path, init_variables, keys, weights):
     assert not any(k.startswith("reference.epipolar_sampler.bn.") for k in changed)
 
 
+def test_fusion_layers_import_as_jax(tmp_path):
+    """A reference-format file of the whole R-50 model with MERGE 'both' and
+    the param recipe's layer (theta/phi/g, BOTTLENECK 2, POOLING): the same
+    leaves loaded as the JAX import loads (both samplers' theta, phi, g and
+    z), the same left at their initial values (their zero-init BNs, under
+    flax's extra `norm` level)."""
+    fusion = {"BACKBONE": {"BODY": "epipolarposeR-50", "DOWNSAMPLE": 4},
+              "EPIPOLAR": {"MERGE": "both", "PARAMETERIZED": ("z", "theta", "phi", "g"),
+                           "BOTTLENECK": 2, "POOLING": True, "ZRESIDUAL": False}}
+    cfg, jcfg = _cfgs(**fusion)
+    sd = _full_model_sd(cfg, 9, "module.")
+    path = str(tmp_path / "w.pth")
+    torch.save({"model": sd}, path)
+    cfg, jcfg = _cfgs(WEIGHTS=path, WEIGHTS_PREFIX="module.", **fusion)
+    got, want, changed = _import_both(cfg, jcfg, _jax_init(jcfg))
+    _assert_bit_equal(got, want)
+    for sampler in ("epipolar_sampler", "epipolar_sampler1"):
+        for name in ("theta", "phi", "g", "z"):
+            assert f"reference.{sampler}.{name}.weight" in changed, (sampler, name)
+        assert not any(k.startswith(f"reference.{sampler}.bn.") for k in changed), sampler
+
+
 @pytest.mark.parametrize("wrap", [True, False], ids=["module-prefix", "bare-state-dict"])
 def test_reference_checkpoint_loads_through_train(tmp_path, wrap):
     """C6: a reference checkpoint ({'model': ...}, keys under `module.`) and

@@ -116,17 +116,22 @@ def test_flagship_cfg_is_the_graft_entry_config():
         assert dataclasses.asdict(flagship_cfg(tiny)) == dataclasses.asdict(_flagship_cfg(tiny))
 
 
-@pytest.mark.parametrize("override,match", [
-    ({"EPIPOLAR": {"ATTENTION_IMPL": "matmul"}}, "A10"),
-    ({"EPIPOLAR": {"SIMILARITY": "cos"}}, "A10"),
-    ({"EPIPOLAR": {"MERGE": "early"}}, "A10"),
-    ({"EPIPOLAR": {"PRIOR": True}}, "A10"),
-    ({"DATASETS": {"TASK": "keypoint"}}, "A11"),
+@pytest.mark.parametrize("override,error,match", [
+    ({"EPIPOLAR": {"ATTENTION_IMPL": "matmul", "POOLING": True}}, ValueError, "does not support"),
+    ({"EPIPOLAR": {"ATTENTION_IMPL": "pallas", "SIMILARITY": "cos"}}, ValueError,
+     "does not support"),
+    ({"EPIPOLAR": {"MERGE": "early", "BOTTLENECK": 2}}, ValueError, "BOTTLENECK"),
+    ({"EPIPOLAR": {"PRIOR": True}}, ValueError, "CAMERAS"),
+    ({"DATASETS": {"TASK": "keypoint"}}, NotImplementedError, "A11"),
 ], ids=["impl", "cos", "merge", "prior", "task"])
-def test_unported_configs_raise(override, match):
+def test_unported_configs_raise(override, error, match):
+    """What the port refuses when the model is built: a forced attention
+    impl that cannot express the config (where the JAX layer raises), a
+    bottleneck without theta/phi/g, a prior table without cameras, and the
+    tasks not ported yet."""
     from epipolar_transformers_tpu_torch.config import update_from_dict
 
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ModelBuilder(update_from_dict(flagship_cfg(tiny=True), override))
 
 
