@@ -98,10 +98,28 @@ run, each printed on its own lines:
      step against the plain path; (c) `train` with MERGE 'both' (two
      launches each way a step), then a step each with MERGE 'early', the
      reprojection loss, and epipolarHG1 with WARPEDHEATMAP and FIND_CORR
-     'rgb'.
+     'rgb';
+ 12. the lifting and single-view tasks: (a) configs/lifting/lifting_rot.yaml,
+     lifting_direct.yaml and img_lifting_rot.yaml as written (batch 8,
+     224 px heatmaps, 256 px crops, R-50 for img_lifting_rot) through the
+     command line on a fake RHD tree of 320 px PNGs that the script writes
+     with the port's zlib PNG writer: 3 train steps and `_test_lifting` on 2
+     batches each, finite EPEmean_can / EPEmean, the host loader's ms per
+     batch, ms per train step and peak memory; (b) multiview_img_lifting_rot
+     at the flagship's widths (epipolarposeR-50, 256 px, bf16 convolutions,
+     64x64, K=64, 17 joints, batch 8) on the rig's images and cameras with
+     lifting targets from a seed: 3 train steps (one forward and one backward
+     kernel launch each), one step kernel path against plain path ([6]'s
+     limits), a nonzero gradient to the fusion BN's scale, no gradient to
+     `other_img`, ms per step and peak memory; (c) the keypoint task
+     (poseR-50, 256 px, batch 8) on the flagship recipe's rig through the
+     command line, 3 steps and `test` under pymvg, finite MPJPE and JDR;
+     (d) LiftingNet of each task on the card against the CPU (f32), and a
+     hand3d TF pickle written from a seed imported through cfg.WEIGHTS with
+     the same outputs on both devices.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8, 9 and 11), errors and times,
+launches on the main path (phases 3, 6, 7(a), 8, 9, 11 and 12(b)), errors and times,
 each entry's `hourglass_shape` times at [8]'s shape, and each kernel's
 bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
@@ -109,9 +127,10 @@ input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9 and 11; the
+each path over the forwards of phases 3, 6, 7(a), 8, 9, 11 and 12(b); the
 backward's, `prior_gradient`, its time with and without the prior's
-gradient at the flagship shape; `param_recipe` holds [11](a)'s times.  No
+gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
+`lifting_tasks` [12]'s.  No
 single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
@@ -123,6 +142,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import re
 import statistics
 import subprocess
@@ -202,6 +222,23 @@ PRIOR_MODES = [("additive", dict()), ("additive, softmax off", dict(softmax_enab
 DEAD_QUERIES = 8  # queries of each item's first row whose samples all lie out of range
 RIG_CAMERAS = (0, 1, 2, 3)
 FUSION_TRAIN_STEPS = 3
+# [12]: the lifting and single-view tasks.  (a) the three RHD recipes as
+# written (batch 8, 224 px heatmaps, 256 px crops of 320 px images, R-50 for
+# img_lifting_rot) on a fake RHD tree; (b) multiview_img_lifting_rot at the
+# flagship's widths; (c) the keypoint task, poseR-50 on the flagship recipe;
+# (d) LiftingNet on the card against the CPU: f32 with TF32 off, so the two
+# differ in summation order only
+LIFTING_RECIPES = ("configs/lifting/lifting_rot.yaml", "configs/lifting/lifting_direct.yaml",
+                   "configs/lifting/img_lifting_rot.yaml")
+RHD_ITEMS = 24  # a set: 3 train batches of 8, 2 eval batches
+LIFTING_TRAIN_STEPS = 3
+LIFTING_EVAL_BATCHES = 2
+LOADER_BATCHES = 3
+KEYPOINT_OVERRIDES = ["DATASETS.TASK", "keypoint", "BACKBONE.BODY", "poseR-50",
+                      "SOLVER.IMS_PER_BATCH", "8"]
+KEYPOINT_STEPS = 3
+KEYPOINT_EVAL_GROUPS = 4
+LIFTING_NET_TOL = dict(rtol=1e-4, atol=1e-5)
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
@@ -287,6 +324,80 @@ def rig_sample_locs(cfg, batch, device):
     P2 = torch.as_tensor(ds.rig["KRT"][[ds.nearest[v] for v in views]],
                          dtype=torch.float32, device=device)
     return epipolar_sample_locs(P1, P2, Epipolar(cfg).geometry)
+
+
+def write_fake_rhd(data_dir: str, n_items: int, seed: int = SEED, size: int = 320) -> None:
+    """A fake RHD tree under `data_dir` (RHD_published_v2/{training,
+    evaluation}: color/ and mask/ PNGs of `size` px written by the port's
+    zlib PNG writer with all five row filters, and anno_<set>.pickle with
+    42 uv_vis and xyz points a sample), n_items a set, from `seed`.  Even
+    items are left hands, odd ones right (by the mask's labels)."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from epipolar_transformers_tpu_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for subset in ("training", "evaluation"):
+        root = os.path.join(data_dir, "RHD_published_v2", subset)
+        for kind in ("color", "mask"):
+            os.makedirs(os.path.join(root, kind), exist_ok=True)
+        anno = {}
+        for i in range(n_items):
+            centre = rng.uniform(0.3 * size, 0.7 * size, 2)
+            uv = centre + rng.randn(42, 2) * 0.08 * size
+            shade = (np.sin(xx / 17.0 + i)[..., None] * 60 + 128
+                     + rng.randint(0, 40, (size, size, 3)))
+            write_png(os.path.join(root, "color", f"{i:05d}.png"),
+                      np.clip(shade, 0, 255).astype(np.uint8), filters=(0, 1, 2, 3, 4))
+            mask = np.zeros((size, size), np.uint8)
+            hand = (yy - centre[1]) ** 2 + (xx - centre[0]) ** 2 < (0.12 * size) ** 2
+            mask[hand] = 5 if i % 2 == 0 else 20
+            write_png(os.path.join(root, "mask", f"{i:05d}.png"), mask, filters=(1, 2, 4))
+            anno[i] = {"uv_vis": np.concatenate([uv, (rng.rand(42, 1) > 0.1)], axis=1),
+                       "xyz": rng.randn(42, 3) * 0.04 + np.array([0.0, 0.0, 0.6]),
+                       "K": np.array([[300.0, 0, size / 2], [0, 300.0, size / 2], [0, 0, 1]])}
+        with open(os.path.join(root, f"anno_{subset}.pickle"), "wb") as f:
+            pickle.dump(anno, f)
+
+
+def write_hand3d_pickle(path: str, rng, hw: int, side: int) -> None:
+    """A TF pickle in the hand3d layout for LiftingNet, `hw` cells after the
+    conv stacks and `side` hand-side inputs: PosePrior (conv_pose_{s}_{i},
+    fc_rel{0,1}, fc_xyz) and ViewpointNet (conv_vp_{s}_{i}, fc_vp{0,1},
+    fc_vp_u{x,y,z}), HWCN conv kernels, random O(1) weights from `rng`."""
+    import pickle
+
+    import numpy as np
+
+    w = {}
+
+    def conv(prefix, widths):
+        c_in = 21
+        for s, width in enumerate(widths):
+            for i in (1, 2):
+                w[f"{prefix}_{s}_{i}/weights"] = rng.randn(3, 3, c_in, width) * (9 * c_in) ** -0.5
+                w[f"{prefix}_{s}_{i}/biases"] = 0.1 * rng.randn(width)
+                c_in = width
+
+    def dense(name, n_in, n_out):
+        w[f"{name}/weights"] = rng.randn(n_in, n_out) * n_in ** -0.5
+        w[f"{name}/biases"] = 0.1 * rng.randn(n_out)
+
+    conv("PosePrior/conv_pose", (32, 64, 128))
+    dense("PosePrior/fc_rel0", 128 * hw + side, 512)
+    dense("PosePrior/fc_rel1", 512, 512)
+    dense("PosePrior/fc_xyz", 512, 63)
+    conv("ViewpointNet/conv_vp", (64, 128, 256))
+    dense("ViewpointNet/fc_vp0", 256 * hw + side, 256)
+    dense("ViewpointNet/fc_vp1", 256, 128)
+    for axis in "xyz":
+        dense(f"ViewpointNet/fc_vp_u{axis}", 128, 1)
+    with open(path, "wb") as f:
+        pickle.dump({k: v.astype(np.float32) for k, v in w.items()}, f)
 
 
 def attention_phase(cfg, device):
@@ -734,10 +845,25 @@ def step_parity(cfg, device, per_param: bool, hourglass: bool = False):
         randomize_fusion(model, torch.Generator().manual_seed(SEED))
     else:
         randomize(model, torch.cat([batch["img"], batch["other_img"]]), SEED)
+    dtype = "bf16" if cfg.DTYPE == "bfloat16" else "f32"
+    compare_step_paths(f"{dtype} {'epipolarHG1' if hourglass else 'flagship'}", model, batch,
+                       per_param)
+    return model, batch
+
+
+def compare_step_paths(name, model, batch, per_param: bool):
+    """One train step's loss and gradients of `model` on `batch`, kernel
+    path (twice) against plain path, held as `step_parity` says; the
+    dropout masks (the lifting net's) restart from SEED for each run.
+    Returns the kernel path's gradients."""
+    import numpy as np
+    import torch
+
     model.train()
 
     def loss_and_grads(plain: bool):
         model.zero_grad(set_to_none=True)
+        model.seed_dropout(SEED)
         with attention_path(model, plain):
             loss = model(batch)[0]["loss"]
             loss.backward()
@@ -750,8 +876,7 @@ def step_parity(cfg, device, per_param: bool, hourglass: bool = False):
     loss_k, grads_k = loss_and_grads(False)
     _, grads_k2 = loss_and_grads(False)
     loss_p, grads_p = loss_and_grads(True)
-    dtype = "bf16" if cfg.DTYPE == "bfloat16" else "f32"
-    name = f"{dtype} {'epipolarHG1' if hourglass else 'flagship'}"
+    kept = dict(grads_k)
     if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or not np.isfinite(loss_k):
         raise AssertionError(f"{name} train step loss: kernel path {loss_k}, plain {loss_p}")
     if set(grads_k) != set(grads_p):
@@ -775,12 +900,13 @@ def step_parity(cfg, device, per_param: bool, hourglass: bool = False):
     worst = max(errs, key=errs.get)
     if per_param and not errs[worst] <= STEP_GRAD_REL_L2:
         raise AssertionError(f"{name} {worst}: gradient relative L2 error {errs[worst]:.3g}")
+    n = next(iter(batch.values())).shape[0]
     log(f"  one {name} step (batch {n}), kernel vs plain path: loss {loss_k:.6g} vs "
         f"{loss_p:.6g}; gradient relative L2 error {whole:.3g} over the model (kernel path "
         f"against itself {whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel "
         f"path against itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} "
         f"parameters ({len(noise)} with a true gradient of 0 left out)")
-    return model, batch
+    return kept
 
 
 def finite_metrics(name, results) -> None:
@@ -1595,6 +1721,317 @@ def fusion_phase(cfg, device):
     return totals
 
 
+def cli_run(name, argv):
+    """The port's command line in this process, with the trainer's step
+    log lines collected.  Returns the RESULTS dict, the logged losses, the
+    loop's wall ms per step after the first (between two step log lines:
+    loader, upload and step), the peak device memory (GiB) and the wall
+    seconds."""
+    import torch
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.engine import trainer
+
+    messages = _Messages()
+    train_log = logging.getLogger(trainer.__name__)
+    train_log.addHandler(messages)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = cli.main(argv)
+    finally:
+        train_log.removeHandler(messages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logged = [(t, float(m)) for t, msg in zip(messages.times, messages.messages)
+              for m in re.findall(r"\bloss (\S+)", msg)]
+    losses = [loss for _, loss in logged]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: train losses {losses}")
+    return results, losses, [(b[0] - a[0]) * 1e3 for a, b in zip(logged, logged[1:])], peak, wall
+
+
+def device_step_ms(cfg, inputs, device, steps: int = 3) -> float:
+    """CUDA-event ms per train step (forward, backward, optimizer) of a
+    fresh model of `cfg` on `inputs`, after one warm-up step."""
+    from epipolar_transformers_tpu_torch.engine import trainer
+
+    model = trainer.build_model(cfg, device)
+    step = trainer.make_train_step(cfg, model, trainer.make_optimizer(cfg, model))
+    return cuda_ms(lambda: step(inputs), iters=steps, warmup=1)
+
+
+def rhd_recipes_phase(device):
+    """[12](a): the three RHD recipes as written through the command line
+    on a fake RHD tree (DatasetCatalog.DATA_DIR pointed at it): train
+    LIFTING_TRAIN_STEPS steps, then `_test_lifting` on LIFTING_EVAL_BATCHES
+    batches; the host loader's ms per batch; ms per train step and peak
+    memory."""
+    import os
+
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import DatasetCatalog, load_config
+    from epipolar_transformers_tpu_torch.data.pipeline import make_train_loader
+    from epipolar_transformers_tpu_torch.engine import trainer
+
+    out = {}
+    saved = DatasetCatalog.DATA_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_fake_rhd(tmp, RHD_ITEMS)
+        log(f"  (a) fake RHD tree: {RHD_ITEMS} training and {RHD_ITEMS} evaluation samples of "
+            f"320 px PNGs (all five row filters) written in {time.perf_counter() - t0:.1f} s")
+        DatasetCatalog.DATA_DIR = tmp
+        try:
+            cfg = load_config(LIFTING_RECIPES[0])
+            batches, loader_ms = iter(make_train_loader(cfg)), []
+            for _ in range(LOADER_BATCHES):
+                t0 = time.perf_counter()
+                batch = next(batches)
+                loader_ms.append((time.perf_counter() - t0) * 1e3)
+            B = cfg.SOLVER.IMS_PER_BATCH
+            log(f"  (a) host loader, batch {B}: {statistics.mean(loader_ms):.1f} ms a batch "
+                f"(batches {', '.join(f'{t:.1f}' for t in loader_ms)}; two PNG decodes, the "
+                f"crop resized to {cfg.LIFTING.CROP_SIZE} px and 21 scoremaps of "
+                f"{cfg.KEYPOINT.HEATMAP_SIZE} an item)")
+            out["loader_ms_per_batch"] = statistics.mean(loader_ms)
+            for recipe in LIFTING_RECIPES:
+                name = os.path.splitext(os.path.basename(recipe))[0]
+                argv = ["--cfg", recipe, "--max-steps", str(LIFTING_TRAIN_STEPS),
+                        "--max-eval-batches", str(LIFTING_EVAL_BATCHES), "LOG_FREQ", "1",
+                        "TENSORBOARD.USE", "False", "OUTPUT_DIR", os.path.join(tmp, name)]
+                results, losses, loop_ms, peak, wall = cli_run(f"[12](a) {name}", argv)
+                keys = {"EPEmean_can"} | ({"EPEmean"} if "rot" in name else set())
+                if not keys <= set(results) or not all(math.isfinite(v)
+                                                       for v in results.values()):
+                    raise AssertionError(f"[12](a) {name}: RESULTS {results}")
+                rcfg = load_config(recipe)
+                inputs = trainer.model_inputs(batch, device, None)
+                ms = device_step_ms(rcfg, inputs, device)
+                out[name] = {"ms_per_step": ms, "loop_ms_per_step": statistics.mean(loop_ms),
+                             "peak_gib": peak, **{k: results[k] for k in sorted(keys)}}
+                log(f"  (a) {recipe} ({rcfg.DATASETS.TASK}"
+                    + (f", {rcfg.BACKBONE.BODY}" if rcfg.DATASETS.TASK == "img_lifting_rot"
+                       else "") + f", batch {B}) through the command line in {wall:.1f} s: "
+                    f"losses {', '.join(f'{v:.5g}' for v in losses)}; RESULTS "
+                    + ", ".join(f"{k} {results[k]:.4f}" for k in sorted(keys))
+                    + f" (finite); train step {ms:.3f} ms (CUDA events), loop wall "
+                    f"{statistics.mean(loop_ms):.1f} ms a step after the first; peak memory "
+                    f"{peak:.3f} GiB")
+                del inputs
+                torch.cuda.empty_cache()
+        finally:
+            DatasetCatalog.DATA_DIR = saved
+    return out
+
+
+def multiview_lifting_phase(cfg, device):
+    """[12](b): multiview_img_lifting_rot at the flagship's widths
+    (epipolarposeR-50, 256 px, bf16 convolutions, 64x64, K=64, 17 joints,
+    batch 8) on the synthetic rig's images and cameras, lifting targets
+    from SEED: three train steps through `make_train_step` (the main path,
+    one forward and one backward kernel launch a step); one step kernel
+    path against plain path ([6]'s limits); the fusion BN's scale gets a
+    gradient; no gradient reaches `other_img`; ms per step and peak memory."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import update_from_dict
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import collate
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    mcfg = update_from_dict(cfg, {"DATASETS": {"TASK": "multiview_img_lifting_rot"},
+                                  "LIFTING": {"ENABLED": True},
+                                  "SOLVER": {"IMS_PER_BATCH": BENCH_BATCH}})
+    B, J = BENCH_BATCH, mcfg.KEYPOINT.NUM_PTS
+    np.random.seed(SEED)
+    ds = SyntheticMultiview(mcfg, is_train=True, n_samples=B, seed=SEED)
+    host = collate([ds[i] for i in range(B)])
+    rng = np.random.RandomState(SEED)
+    rotations = [np.linalg.qr(rng.randn(3, 3))[0] for _ in range(B)]
+    host.update({"can-points-3d": rng.randn(B, J, 3).astype(np.float32),
+                 "normed-points-3d": rng.randn(B, J, 3).astype(np.float32),
+                 "rotation": np.stack([q * np.sign(np.linalg.det(q)) for q in rotations]
+                                      ).astype(np.float32)})
+    inputs = trainer.model_inputs(host, device, None)
+    model = trainer.build_model(mcfg, device)
+    randomize(model, torch.cat([inputs["img"], inputs["other_img"]]), SEED)
+    step = trainer.make_train_step(mcfg, model, trainer.make_optimizer(mcfg, model))
+
+    attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+    attn.TILE_COUNTS.clear()
+    losses = [step(inputs) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
+    tiles = attn.tile_counts()
+    if not launches == backward_launches == 3:
+        raise AssertionError(f"[12](b) 3 steps launched the forward kernel {launches} and the "
+                             f"backward kernel {backward_launches} times")
+    if not all(bool(torch.isfinite(v).all()) for m in losses for v in m.values()):
+        raise AssertionError(f"[12](b) losses {losses}")
+    h, w = mcfg.KEYPOINT.HEATMAP_SIZE
+    check_main_path_tiles("[12](b) train", tiles, launches * B * -(-h * w // attn.TILE_QUERIES))
+    log(f"  (b) multiview_img_lifting_rot (epipolarposeR-50, 256 px, bf16 convolutions, "
+        f"{h}x{w}, K={mcfg.EPIPOLAR.SAMPLESIZE}, {J} joints, batch {B}): 3 train steps, losses "
+        + ", ".join(f"{float(m['loss']):.5g} (xyz {float(m['xyz_loss']):.4g}, rot "
+                    f"{float(m['rot_loss']):.4g})" for m in losses)
+        + f"; forward kernel launches {launches}, backward kernel launches {backward_launches} "
+        f"(one each a step); tiles {tiles[0]} / {tiles[1]}")
+
+    grads = compare_step_paths("[12](b) bf16 multiview_img_lifting_rot", model, inputs,
+                               per_param=False)
+    bn_grad = grads.get("reference.epipolar_sampler.bn.weight")
+    if bn_grad is None or not bool(torch.isfinite(bn_grad).all()) or \
+            float(bn_grad.abs().max()) == 0.0:
+        raise AssertionError("[12](b) the epipolar sampler's BN scale got no gradient")
+    other = inputs["other_img"].clone().requires_grad_()
+    model.zero_grad(set_to_none=True)
+    model({**inputs, "other_img": other})[0]["loss"].backward()
+    if other.grad is not None:
+        raise AssertionError("[12](b) a gradient reached other_img through the sibling")
+    log(f"  (b) the epipolar sampler's BN scale gradient max |g| "
+        f"{float(bn_grad.abs().max()):.4g}; no gradient reaches other_img (the sibling runs "
+        f"under no-grad)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(inputs), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  (b) train step at batch {B} (forward, backward, adam): {ms:.3f} ms (CUDA events, "
+        f"mean of 5 after 1), peak memory {peak:.3f} GiB")
+    return dict(launches=launches, backward_launches=backward_launches, tiles=tiles,
+                entry={"ms_per_step": ms, "peak_gib": peak})
+
+
+def keypoint_phase(device):
+    """[12](c): the single-view keypoint task (poseR-50, 256 px, batch 8) on
+    the flagship recipe's synthetic rig through the command line: train
+    KEYPOINT_STEPS steps, then `test` under pymvg on KEYPOINT_EVAL_GROUPS
+    groups; no attention kernel runs."""
+    import numpy as np
+
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import collate
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.ops.synthetic_render import make_batch_renderer
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["--cfg", FLAGSHIP_RECIPE, "--max-steps", str(KEYPOINT_STEPS),
+                "--max-eval-batches", str(KEYPOINT_EVAL_GROUPS), *KEYPOINT_OVERRIDES,
+                "LOG_FREQ", "1", "TENSORBOARD.USE", "False", "OUTPUT_DIR", out_dir]
+        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        results, losses, loop_ms, peak, wall = cli_run("[12](c) keypoint", argv)
+    if attn.LAUNCHES or attn.BACKWARD_LAUNCHES:
+        raise AssertionError("[12](c) the single-view task launched an attention kernel")
+    finite_metrics("[12](c) keypoint", results)
+    kcfg = load_config(FLAGSHIP_RECIPE, KEYPOINT_OVERRIDES)
+    B = kcfg.SOLVER.IMS_PER_BATCH
+    np.random.seed(SEED)
+    ds = SyntheticMultiview(kcfg, is_train=True, n_samples=B, seed=SEED, device_render=True)
+    inputs = trainer.model_inputs(collate([ds[i] for i in range(B)]), device,
+                                  make_batch_renderer(kcfg))
+    ms = device_step_ms(kcfg, inputs, device)
+    log(f"  (c) {FLAGSHIP_RECIPE} with {' '.join(KEYPOINT_OVERRIDES)} through the command "
+        f"line in {wall:.1f} s: losses {', '.join(f'{v:.5g}' for v in losses)}; "
+        f"EPEmean_global (MPJPE) {results['EPEmean_global']:.4f} mm, JDR "
+        f"{results['JDR']:.4f} over {KEYPOINT_EVAL_GROUPS} groups (pymvg), all finite; train "
+        f"step {ms:.3f} ms (CUDA events, device-rendered inputs), loop wall "
+        f"{statistics.mean(loop_ms):.1f} ms a step after the first; peak memory {peak:.3f} GiB")
+    return {"ms_per_step": ms, "loop_ms_per_step": statistics.mean(loop_ms), "peak_gib": peak,
+            "MPJPE": results["EPEmean_global"], "JDR": results["JDR"]}
+
+
+def lifting_net_phase(device):
+    """[12](d): LiftingNet of each task on the card against the same module
+    on the CPU, eval mode, f32 (TF32 off): the RHD recipes' widths (224 px
+    heatmaps, 21 joints, image features of R-50's 2048) and the flagship's
+    for multiview_img_lifting_rot (64x64, 17 joints); then a hand3d TF
+    pickle written from SEED imported through cfg.WEIGHTS, with the same
+    outputs on both devices."""
+    import copy
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import Config, update_from_dict
+    from epipolar_transformers_tpu_torch.models import ModelBuilder
+    from epipolar_transformers_tpu_torch.models.lifting import LiftingNet
+    from epipolar_transformers_tpu_torch.utils.pretrained import apply_pretrained
+
+    gen = torch.Generator().manual_seed(SEED)
+    B, errs = BENCH_BATCH, {}
+    hand = torch.tensor([0, 1] * (B // 2), dtype=torch.int32)
+    cases = [("lifting_direct", (224, 224), 21), ("lifting_rot", (224, 224), 21),
+             ("keypoint_lifting_rot", (224, 224), 21), ("img_lifting_rot", None, 21),
+             ("multiview_img_lifting_rot", (64, 64), 17)]
+    for task, hm, joints in cases:
+        lcfg = update_from_dict(Config(), {
+            "DATASETS": {"TASK": task}, "LIFTING": {"ENABLED": True, "FLIP_ON": True},
+            "KEYPOINT": {"NUM_PTS": joints, "HEATMAP_SIZE": hm or (224, 224)}})
+        side = task != "multiview_img_lifting_rot"
+        net = LiftingNet(lcfg, in_features=2048, hand_side=side)
+        net.init_weights(gen)
+        net.eval()
+        x = torch.randn(B, 2048, generator=gen) if hm is None else \
+            torch.rand(B, joints, *hm, generator=gen)
+        with torch.no_grad():
+            want = net(x, hand if side else None)
+            got = copy.deepcopy(net).to(device)(x.to(device), hand.to(device) if side else None)
+        errs[task] = max(close(f"[12](d) {task} output {i}", g.cpu(), w, **LIFTING_NET_TOL)
+                         for i, (g, w) in enumerate(zip(got, want)) if w is not None)
+    log(f"  (d) LiftingNet on the card vs the CPU, f32, batch {B}, max abs err (rtol "
+        f"{LIFTING_NET_TOL['rtol']}, atol {LIFTING_NET_TOL['atol']}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hand3d.pickle")
+        write_hand3d_pickle(path, np.random.RandomState(SEED), hw=4 * 4, side=2)
+        pcfg = update_from_dict(Config(), {
+            "DATASETS": {"TASK": "lifting_rot"}, "LIFTING": {"ENABLED": True},
+            "KEYPOINT": {"NUM_PTS": 21, "HEATMAP_SIZE": (224, 224)},
+            "DATASET_FAMILY": "rhd", "WEIGHTS": path})
+        model = ModelBuilder(pcfg)
+        model.init_weights(gen)
+        if not apply_pretrained(pcfg, model):
+            raise AssertionError("[12](d) the TF pickle was not imported")
+        with open(path, "rb") as f:
+            first = torch.from_numpy(pickle.load(f)["PosePrior/conv_pose_0_1/weights"])
+        first = first.permute(3, 2, 0, 1)  # HWCN -> OIHW
+        if not torch.equal(model.liftingnet.conv1[0].weight, first):
+            raise AssertionError("[12](d) conv_pose_0_1 did not land in liftingnet.conv1.0")
+    model.eval()
+    x = torch.rand(B, 21, 224, 224, generator=gen)
+    inputs = {"heatmap": x, "hand-side": hand, "visibility": torch.ones(B, 21),
+              "can-points-3d": torch.zeros(B, 21, 3), "normed-points-3d": torch.zeros(B, 21, 3),
+              "rotation": torch.eye(3).repeat(B, 1, 1)}
+    with torch.no_grad():
+        want = model(inputs)[2]
+        got = copy.deepcopy(model).to(device)({k: v.to(device) for k, v in inputs.items()})[2]
+    errs["tf_pickle"] = max(close(f"[12](d) TF pickle {k}", got[k].cpu(), v, **LIFTING_NET_TOL)
+                            for k, v in want.items())
+    log(f"  (d) a hand3d TF pickle written from seed {SEED} through cfg.WEIGHTS "
+        f"(lifting_rot): imported (conv_pose_0_1 bit-equal in liftingnet.conv1.0), card vs CPU "
+        f"max abs err {errs['tf_pickle']:.3g}")
+    return errs
+
+
+def lifting_phase(cfg, device):
+    """[12]: the lifting and single-view tasks on the card."""
+    return {"rhd_recipes": rhd_recipes_phase(device),
+            "multiview_img_lifting_rot": multiview_lifting_phase(cfg, device),
+            "keypoint": keypoint_phase(device),
+            "lifting_net_max_abs_err": lifting_net_phase(device)}
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -1767,7 +2204,10 @@ def main() -> int:
     param = param_recipe_phase(device)
     prior = prior_phase(cfg, device)
     fusion = fusion_phase(cfg, device)
-    extra = [prior, fusion]
+    log(f"[12] the lifting and single-view tasks: the RHD recipes, multiview_img_lifting_rot, "
+        f"keypoint, LiftingNet on the card, {card}")
+    lifting = lifting_phase(cfg, device)
+    extra = [prior, fusion, lifting["multiview_img_lifting_rot"]]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -1794,7 +2234,9 @@ def main() -> int:
         "hourglass_shape": hg["backward_entry"],
         "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],
                            "bound_by": prior_bound[1]},
-    }], "param_recipe": param}))
+    }], "param_recipe": param, "lifting_tasks": {
+        k: {kk: vv for kk, vv in v.items() if kk not in ("launches", "backward_launches", "tiles")}
+        if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()}}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:

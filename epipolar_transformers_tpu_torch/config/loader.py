@@ -9,6 +9,7 @@ global singleton.
 from __future__ import annotations
 
 import ast
+import re
 from typing import Any, Iterable, Mapping
 
 from .schema import Config, update_from_dict
@@ -20,6 +21,9 @@ def _parse_literal(text: str) -> Any:
         return ast.literal_eval(text)
     except (ValueError, SyntaxError):
         return text
+
+
+_EXPONENT_FLOAT = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)[eE][-+]?\d+")
 
 
 def _coerce(value: Any) -> Any:
@@ -36,6 +40,12 @@ def _coerce(value: Any) -> Any:
         stripped = value.strip()
         if stripped[:1] in "([" or stripped in {"None", "True", "False"}:
             return _parse_literal(stripped)
+        if _EXPONENT_FLOAT.fullmatch(stripped):
+            # YAML 1.1 reads `1e-5` (no dot in the mantissa) as a string;
+            # yacs, and so the reference, parsed it as a float.  The JAX
+            # loader keeps the string (its lifting recipes then fail in the
+            # LR schedule); the port parses it (ROADMAP C12)
+            return float(stripped)
     return value
 
 

@@ -79,18 +79,25 @@ class TrainLoader:
 
 
 def build_dataset(cfg: Config, name: str):
-    """A DatasetCatalog name -> the port's dataset.  The port has the
-    synthetic rig; the real-image datasets are ROADMAP A11."""
+    """A DatasetCatalog name (or alias, 'RHD_train'/'RHD_val') -> the port's
+    dataset: the synthetic rig or RHD.  The H36M and MPII datasets are
+    ROADMAP A11a."""
     entry = DatasetCatalog.get(name)
-    if entry["factory"] != "SyntheticMultiview":
-        raise NotImplementedError(
-            f"dataset {name!r} ({entry['factory']}): the port has SyntheticMultiview; "
-            "the real-image datasets are ROADMAP A11")
-    from .datasets.synthetic import SyntheticMultiview
+    factory = entry["factory"]
+    if factory == "SyntheticMultiview":
+        from .datasets.synthetic import SyntheticMultiview
 
-    return SyntheticMultiview(cfg, is_train=entry["is_train"],
-                              n_samples=entry.get("n_samples", 256),
-                              seed=entry.get("seed", 0))
+        return SyntheticMultiview(cfg, is_train=entry["is_train"],
+                                  n_samples=entry.get("n_samples", 256),
+                                  seed=entry.get("seed", 0))
+    if factory == "RHDDataset":
+        from .datasets.rhd import RHDDataset
+
+        return RHDDataset(cfg, entry["root"], entry["set"], is_train=entry["is_train"],
+                          seed=cfg.SEED)
+    raise NotImplementedError(
+        f"dataset {name!r} ({factory}): the port has SyntheticMultiview and RHDDataset; "
+        "the H36M and MPII datasets are ROADMAP A11a")
 
 
 def make_train_loader(cfg: Config) -> TrainLoader:

@@ -23,8 +23,17 @@ is queued, and only then does the host wait for that event and triangulate
 group n while the device runs group n+1.  A serial drive
 (`double_buffer=False`) gives the same results bit for bit.
 
-Not ported yet, each raising when asked: LIFTING (ROADMAP A11), VIS.VIDEO
-and VIS.VIDEO_GT (ROADMAP A13).
+The lifting tasks (LIFTING.ENABLED) take `_test_lifting` instead: the
+model computes its own metric dict (EPEmean_can, EPEmean, EPEmean_global)
+at eval, which is averaged as it is with the losses (JAX
+engine/tester.py:147-211, reference tester.py:131-137); under VIS.MULTIVIEW
+each (1, V, ...) batch is squeezed so that its views form the batch.  The
+single-view `keypoint` task goes through the multiview eval above, with its
+views as the batch; the epipolar modes need `corr_pos`, which only the
+multiview task gives, and raise.
+
+Not ported yet, each raising when asked: VIS.VIDEO and VIS.VIDEO_GT
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ logger = logging.getLogger(__name__)
 EVAL_KEYS = ("img", "KRT", "other_img", "other_KRT", "camera", "other_camera")
 # what a train step also takes: the target heatmaps and joint visibility
 TRAIN_KEYS = EVAL_KEYS + ("heatmap", "visibility")
+# every key the model takes: those and the lifting tasks' (JAX
+# select_model_inputs, engine/trainer.py:43-50)
+MODEL_KEYS = TRAIN_KEYS + ("hand-side", "can-points-3d", "normed-points-3d", "rotation",
+                           "scale", "unit", "R")
 NHWC_KEYS = ("img", "other_img", "heatmap")
 
 H36M_ACTIONS = (
@@ -280,12 +293,57 @@ def fetch_outputs(out: Dict[str, torch.Tensor], keys):
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.LIFTING.ENABLED:
-        raise NotImplementedError("LIFTING.ENABLED: the lifting tasks' eval is ROADMAP A11 "
-                                  "in the port")
     if cfg.VIS.VIDEO or cfg.VIS.VIDEO_GT:
         raise NotImplementedError("VIS.VIDEO / VIS.VIDEO_GT (the eval frame dumps) are "
                                   "ROADMAP A13 in the port")
+    if (cfg.DATASETS.TASK == "keypoint"
+            and cfg.KEYPOINT.TRIANGULATION in ("epipolar", "epipolar_dlt")):
+        # the JAX tester fails on the missing out['corr_pos'] there
+        raise ValueError(f"KEYPOINT.TRIANGULATION={cfg.KEYPOINT.TRIANGULATION!r} reads the "
+                         "fusion's corr_pos, which the single-view keypoint task has not")
+
+
+def _test_lifting(cfg: Config, model: torch.nn.Module,
+                  max_batches: Optional[int] = None) -> Dict[str, float]:
+    """The lifting tasks' eval (JAX engine/tester.py:147-211): the model's
+    losses and metric dict per batch, averaged; under VIS.MULTIVIEW the
+    (1, V, ...) batches are squeezed so that the views form the batch, and
+    `points-3d` goes in; VIS.SAVE_PRED writes per-sample (inputs, outputs)
+    pairs, the outputs in the port's layout."""
+    device = _device_of(model)
+    keys = MODEL_KEYS + (("points-3d",) if cfg.VIS.MULTIVIEW else ())
+    meters = MetricLogger()
+    predictions = []
+    model.eval()
+    for loader in make_eval_loaders(cfg):
+        for ib, batch in enumerate(loader):
+            if max_batches is not None and ib >= max_batches:
+                break
+            if cfg.VIS.MULTIVIEW:
+                batch = {k: v[0] if np.ndim(v) > 0 and np.shape(v)[0] == 1 else v
+                         for k, v in batch.items()}
+            with torch.inference_mode():
+                loss_dict, metric_dict, out = model(to_model_inputs(batch, device, keys))
+            meters.update(**{k: float(v) for k, v in {**loss_dict, **metric_dict}.items()})
+            if cfg.VIS.SAVE_PRED and ib % cfg.VIS.SAVE_PRED_FREQ == 0:
+                host_batch = {k: np.asarray(v) for k, v in batch.items() if np.ndim(v) > 0}
+                host_out = {k: v.float().cpu().numpy() if v.is_floating_point() else
+                            v.cpu().numpy() for k, v in out.items()}
+                for i in range(host_batch["visibility"].shape[0]):
+                    if 0 <= cfg.VIS.SAVE_PRED_LIMIT <= len(predictions):
+                        break
+                    predictions.append(({k: v[i] for k, v in host_batch.items()},
+                                        {k: v[i] for k, v in host_out.items()}))
+
+    if cfg.VIS.SAVE_PRED and predictions and cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        path = pred_pickle_path(cfg, cfg.OUTPUT_DIR)
+        with open(path, "wb") as f:
+            pickle.dump(predictions, f)
+        logger.info("saved %d lifting predictions to %s", len(predictions), path)
+    results = meters.get_all_avg()
+    logger.info("eval: %s", results)
+    return results
 
 
 def test(cfg: Config, model: torch.nn.Module, max_batches: Optional[int] = None,
@@ -301,8 +359,11 @@ def test(cfg: Config, model: torch.nn.Module, max_batches: Optional[int] = None,
     """
     _check_supported(cfg)
     was_training = model.training
-    saved = [b.clone() for b in model.buffers()] if cfg.TEST.RECOMPUTE_BN else None
+    saved = ([b.clone() for b in model.buffers()]
+             if cfg.TEST.RECOMPUTE_BN and not cfg.LIFTING.ENABLED else None)
     try:
+        if cfg.LIFTING.ENABLED:
+            return _test_lifting(cfg, model, max_batches)
         if saved is not None:
             recompute_bn(cfg, model, max_batches)
         return _evaluate(cfg, model, max_batches, double_buffer)

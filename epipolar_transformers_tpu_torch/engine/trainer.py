@@ -12,9 +12,11 @@ another device, and raises where torch sees no GPU; the CPU runs only when
 the caller passes `device="cpu"`.  On the GPU the model runs
 channels_last, so the (N, H, W, C) views the attention kernels read need no
 copy.  Initial weights come from a `torch.Generator` seeded with cfg.SEED,
-drawn with the JAX package's initializers; then `load_weights` imports the
-pretrained and foreign weights (utils/pretrained.py) and restores a native
-checkpoint, as the JAX `create_train_state` and its Checkpointer do.  A
+drawn with the JAX package's initializers, and so do the lifting net's
+dropout masks (a generator on the model's device, never the global RNG);
+then `load_weights` imports the pretrained and foreign weights
+(utils/pretrained.py) and restores a native checkpoint, as the JAX
+`create_train_state` and its Checkpointer do.  A
 batch without `img` is a DATALOADER.DEVICE_RENDER batch: only its
 coordinates, cameras and visibility go to the device, where
 ops/synthetic_render.py renders the images and heatmaps.  Not ported here,
@@ -37,7 +39,7 @@ from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
 from ..utils.pretrained import apply_pretrained
 from .solver import Optimizer, make_optimizer
-from .tester import TRAIN_KEYS, to_model_inputs
+from .tester import MODEL_KEYS, to_model_inputs
 
 logger = logging.getLogger(__name__)
 
@@ -55,9 +57,10 @@ def resolve_device(device=None) -> torch.device:
 def build_model(cfg: Config, device: torch.device) -> ModelBuilder:
     """The model of `cfg` on `device` (channels_last on a GPU), in train
     mode, with its initial weights drawn from a generator seeded with
-    cfg.SEED."""
+    cfg.SEED, and its dropout generator seeded with cfg.SEED."""
     model = ModelBuilder(cfg)
     model.init_weights(torch.Generator().manual_seed(cfg.SEED))
+    model.seed_dropout(cfg.SEED)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -88,8 +91,8 @@ def model_inputs(batch, device: torch.device, render: Callable) -> Dict[str, tor
     and `render` (`make_batch_renderer`) splats the images and the target
     heatmaps there."""
     if "img" in batch:
-        return to_model_inputs(batch, device, TRAIN_KEYS)
-    keys = [k for k in TRAIN_KEYS if k in batch] + list(RENDER_PARAM_KEYS)
+        return to_model_inputs(batch, device, MODEL_KEYS)
+    keys = [k for k in MODEL_KEYS if k in batch] + list(RENDER_PARAM_KEYS)
     return render(to_model_inputs(batch, device, keys))
 
 

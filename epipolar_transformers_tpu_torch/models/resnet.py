@@ -1,4 +1,5 @@
-"""PoseResNet backbone (PyTorch, NCHW) with the epipolar merge.
+"""PoseResNet backbone (PyTorch, NCHW) with the epipolar merge, and the
+classifier ResNet of the lifting tasks.
 
 Port of epipolar_transformers_tpu/models/resnet.py (reference
 modeling/backbones/resnet.py): ResNet-18..152 trunk (stride on the 3x3
@@ -128,6 +129,63 @@ class Bottleneck(nn.Module):
         return self.relu(out + identity)
 
 
+def _build_trunk(module: nn.Module, cfg: Config) -> int:
+    """conv1 .. layer4 of cfg.BACKBONE.BODY's depth onto `module`, shared
+    by PoseResNet and the classifier ResNet; returns the output channels."""
+    d = compute_dtype(cfg)
+    block_type, layers = RESNET_SPEC[cfg.BACKBONE.BODY.split("-")[-1]]
+    Block = Bottleneck if block_type == "bottleneck" else BasicBlock
+    module.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=d)
+    module.bn1 = _bn(cfg, 64)
+    module.relu = nn.ReLU()
+    module.maxpool = nn.MaxPool2d(3, 2, 1)
+    inplanes = 64
+    for i, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
+        stride = 1 if i == 0 else 2
+        blocks = []
+        for j in range(n):
+            s = stride if j == 0 else 1
+            needs_ds = j == 0 and (s != 1 or inplanes != planes * Block.expansion)
+            blocks.append(Block(cfg, inplanes, planes, s, needs_ds))
+            inplanes = planes * Block.expansion
+        setattr(module, f"layer{i + 1}", nn.Sequential(*blocks))
+    return inplanes
+
+
+def _run_trunk(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    h = module.maxpool(module.relu(module.bn1(module.conv1(x))))
+    return module.layer4(module.layer3(module.layer2(module.layer1(h))))
+
+
+class ResNet(nn.Module):
+    """The classifier ResNet (`R-18` .. `R-152`): the PoseResNet trunk, then
+    a global average pool to (N, 512 x expansion) (JAX models/resnet.py:
+    213-229, reference resnet.py:117-187).  The feature extractor of
+    `img_lifting_rot`.  Its children carry the reference's names at the top
+    level; the JAX module nests them under `trunk`, which
+    utils/jax_import.py inserts."""
+
+    def __init__(self, cfg: Config, single_view: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.out_channels = _build_trunk(self, cfg)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """He (fan-out) truncated normal convs and unit BN, as in JAX."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.reset_running_stats()
+            elif isinstance(m, Conv2d):
+                _truncated_normal_(m.weight, 2.0, m.weight.shape[0] * m.weight[0, 0].numel(),
+                                   generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _run_trunk(self, x).mean(dim=(2, 3))
+
+
 class PoseResNet(nn.Module):
     """`single_view` builds a trunk that never fuses: no `epipolar_sampler`,
     as for a `poseR-*` body."""
@@ -137,22 +195,7 @@ class PoseResNet(nn.Module):
         self.cfg = cfg
         c = cfg
         d = compute_dtype(c)
-        block_type, layers = RESNET_SPEC[c.BACKBONE.BODY.split("-")[-1]]
-        Block = Bottleneck if block_type == "bottleneck" else BasicBlock
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=d)
-        self.bn1 = _bn(c, 64)
-        self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
-        inplanes = 64
-        for i, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
-            stride = 1 if i == 0 else 2
-            blocks = []
-            for j in range(n):
-                s = stride if j == 0 else 1
-                needs_ds = j == 0 and (s != 1 or inplanes != planes * Block.expansion)
-                blocks.append(Block(c, inplanes, planes, s, needs_ds))
-                inplanes = planes * Block.expansion
-            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        inplanes = _build_trunk(self, c)
         deconv = []
         for _ in range(3):
             deconv += [ConvTranspose2d(inplanes, 256, 4, 2, 1, bias=False, dtype=d),
@@ -196,9 +239,7 @@ class PoseResNet(nn.Module):
     def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
         """Trunk + deconv, with no epipolar merge: the shared prefix of the
         reference and other passes under MERGE='late'."""
-        h = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        h = self.layer4(self.layer3(self.layer2(self.layer1(h))))
-        return self.deconv_layers(h)
+        return self.deconv_layers(_run_trunk(self, x))
 
     def _late_sampler(self) -> Optional[Epipolar]:
         """The fusion layer of the deconv output, if MERGE has one."""

@@ -9,13 +9,15 @@ modeling/model.py:37-54, utils/checkpoint.py:49-70), in the same order
     single-view torch checkpoint under `backbone.module.` into `reference`,
     and into the sibling `backbone` when weights are not shared;
   * a foreign `.pth` in cfg.WEIGHTS, under WEIGHTS_PREFIX,
-    WEIGHTS_PREFIX_REPLACE and WEIGHTS_ALLOW_DIFF_PREFIX.
+    WEIGHTS_PREFIX_REPLACE and WEIGHTS_ALLOW_DIFF_PREFIX;
+  * the TF `.pickle`/`.pkl` weights of the lifting net in cfg.WEIGHTS
+    (utils/ext_model_loading.py), under `liftingnet` for the lifting tasks
+    (JAX utils/pretrained.py:190-200), aligned by suffix in flax-path space.
 
 The port's own checkpoints also end in `.pth`; `Checkpointer.is_native`
 tells them apart by content, and they go through the Checkpointer, whose
-`last_checkpoint` tag wins over all of this.  Not ported, each raising: a
-JAX `.ckpt` (flax msgpack; ROADMAP A7b) and the TF `.pickle` weights of the
-lifting nets (ROADMAP A11c).
+`last_checkpoint` tag wins over all of this.  Not ported, raising: a JAX
+`.ckpt` (flax msgpack; ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -28,20 +30,18 @@ import torch
 
 from ..config import BackboneCatalog, Config
 from .checkpoint import Checkpointer
-from .torch_import import load_into_model, load_torch_state_dict, read_torch_file
+from .ext_model_loading import load_external_weights
+from .torch_import import (import_flax_leaves, load_into_model, load_torch_state_dict,
+                           read_torch_file)
 
 logger = logging.getLogger(__name__)
 
 
 def _refuse(path: str) -> None:
-    """Raise on the weight formats the port does not read."""
-    ext = os.path.splitext(path)[1]
-    if ext == ".ckpt":
+    """Raise on the weight format the port does not read."""
+    if os.path.splitext(path)[1] == ".ckpt":
         raise NotImplementedError(f"{path!r}: a JAX checkpoint (flax msgpack .ckpt) is "
                                   "ROADMAP A7b in the port")
-    if ext in (".pickle", ".pkl"):
-        raise NotImplementedError(f"{path!r}: the TF lifting weights (.pickle) are "
-                                  "ROADMAP A11c in the port")
 
 
 def resolve_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -111,9 +111,20 @@ def load_backbone_pretrained(cfg: Config, model: torch.nn.Module) -> None:
                         sub, len(missing))
 
 
+def load_external(cfg: Config, model: torch.nn.Module, path: str) -> None:
+    """The TF-pickle lifting weights into `model` (JAX utils/pretrained.py:
+    190-200): under `liftingnet` for a lifting task, aligned by suffix."""
+    src = load_external_weights(cfg.DATASETS.TASK, path)
+    if "lifting" in cfg.DATASETS.TASK:
+        src = {f"liftingnet/{k}": v for k, v in src.items()}
+    missing = import_flax_leaves(model, src, {})
+    logger.info("Imported external weights from %s (%d leaves kept init)", path, len(missing))
+
+
 def load_cfg_weights(cfg: Config, model: torch.nn.Module) -> bool:
-    """Import cfg.WEIGHTS when it is a foreign torch file; returns whether
-    it did.  The port's own checkpoints are left to the Checkpointer."""
+    """Import cfg.WEIGHTS when it is a foreign torch file or TF pickle;
+    returns whether it did.  The port's own checkpoints are left to the
+    Checkpointer."""
     path = cfg.WEIGHTS
     if not path:
         return False
@@ -122,9 +133,13 @@ def load_cfg_weights(cfg: Config, model: torch.nn.Module) -> bool:
         logger.warning("cfg.WEIGHTS=%r does not exist: proceeding from the initial weights",
                        path)
         return False
-    if os.path.splitext(path)[1] != ".pth":
-        logger.warning("cfg.WEIGHTS=%r has an unrecognized extension (expect .pth): "
-                       "nothing loaded", path)
+    ext = os.path.splitext(path)[1]
+    if ext in (".pickle", ".pkl"):
+        load_external(cfg, model, path)
+        return True
+    if ext != ".pth":
+        logger.warning("cfg.WEIGHTS=%r has an unrecognized extension (expect .pth or "
+                       ".pickle): nothing loaded", path)
         return False
     payload = read_torch_file(path)
     if Checkpointer.is_native(payload):

@@ -8,8 +8,9 @@ holds the import equal to the JAX package's, leaf for leaf).
 The JAX import aligns in flax-path space, and so does `load_into_model`:
 the file's torch keys go through `torch_key_to_flax_path` and the flax
 leaf conversion (`convert_state_dict`); the model's own keys go through
-`utils/jax_import.py:_flax_path`, which inserts the `norm` level of the
-zero-init BN under `epipolar_sampler/bn`.  Matching torch keys against torch
+`utils/jax_import.py:flax_paths`, which inserts the `norm` level of the
+zero-init BN under `epipolar_sampler/bn`, the classifier's `trunk` and the
+lifting net's flax names.  Matching torch keys against torch
 keys directly would differ: the nested `norm` breaks the JAX suffix match,
 so a file's `epipolar_sampler.bn.*` leaves the JAX model at its initial
 values, and must leave the port there too.
@@ -25,7 +26,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .jax_import import _flax_path, _to_torch_layout
+from .jax_import import flax_paths, to_port_value
 from .torch_keys import torch_key_to_flax_path
 
 logger = logging.getLogger(__name__)
@@ -142,6 +143,34 @@ def align_by_suffix(flax_flat: Dict[tuple, np.ndarray], source: Dict[str, np.nda
     return matched, missing
 
 
+def import_flax_leaves(model: torch.nn.Module, params_src: Dict[str, np.ndarray],
+                       stats_src: Dict[str, np.ndarray]) -> List[str]:
+    """Align '/'-joined flax-path leaves (flax layout) into `model` in place,
+    by suffix in flax-path space as the JAX package does, each matched leaf
+    converted to the port's layout; returns the parameter leaves that kept
+    their value."""
+    state = model.state_dict()
+    where = {}  # collection -> {flax path: (port key, is_deconv, fc0 channels)}
+    flat = {"params": {}, "batch_stats": {}}
+    for key, (coll, path, is_deconv, fc0) in flax_paths(model).items():
+        _, leaf = key.rsplit(".", 1)
+        flat[coll][path] = _to_flax_layout(state[key].detach().cpu().numpy(), leaf, is_deconv)[1]
+        where.setdefault(coll, {})[path] = (key, is_deconv, fc0)
+    new_params, missing = align_by_suffix(flat["params"], params_src)
+    new_stats = align_by_suffix(flat["batch_stats"], stats_src)[0] if stats_src else {}
+    new_state = dict(state)
+    kept = set(missing)
+    for coll, new in (("params", new_params), ("batch_stats", new_stats)):
+        for path, arr in new.items():
+            key, is_deconv, fc0 = where[coll][path]
+            if coll == "params" and "/".join(path) in kept:
+                continue
+            value = to_port_value(np.asarray(arr), path, is_deconv, fc0)
+            new_state[key] = torch.from_numpy(np.array(value)).to(state[key].dtype)
+    model.load_state_dict(new_state, strict=True)
+    return missing
+
+
 def load_into_model(model: torch.nn.Module, torch_sd: Dict[str, np.ndarray], prefix: str = "",
                     prefix_replace: str = "", submodule: str = "",
                     allow_diff_prefix: bool = False) -> List[str]:
@@ -154,24 +183,4 @@ def load_into_model(model: torch.nn.Module, torch_sd: Dict[str, np.ndarray], pre
     if submodule:
         params_src = {f"{submodule}/{k}": v for k, v in params_src.items()}
         stats_src = {f"{submodule}/{k}": v for k, v in stats_src.items()}
-
-    state = model.state_dict()
-    where = {}  # collection -> {flax path: (port key, is_deconv)}
-    flat = {"params": {}, "batch_stats": {}}
-    for key, value in state.items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        coll, path, is_deconv = _flax_path(key, value.ndim)
-        _, leaf = key.rsplit(".", 1)
-        flat[coll][path] = _to_flax_layout(value.detach().cpu().numpy(), leaf, is_deconv)[1]
-        where.setdefault(coll, {})[path] = (key, is_deconv)
-    new_params, missing = align_by_suffix(flat["params"], params_src)
-    new_stats = align_by_suffix(flat["batch_stats"], stats_src)[0] if flat["batch_stats"] else {}
-    new_state = dict(state)
-    for coll, new in (("params", new_params), ("batch_stats", new_stats)):
-        for path, arr in new.items():
-            key, is_deconv = where[coll][path]
-            value = _to_torch_layout(np.asarray(arr), path[-1], is_deconv)
-            new_state[key] = torch.from_numpy(np.array(value)).to(state[key].dtype)
-    model.load_state_dict(new_state, strict=True)
-    return missing
+    return import_flax_leaves(model, params_src, stats_src)

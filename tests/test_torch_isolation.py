@@ -1,7 +1,9 @@
-"""The port imports neither JAX, flax nor anything of the JAX package.
+"""The port imports neither JAX, flax nor anything of the JAX package, and
+its RHD path neither cv2 nor PIL.
 
-A fresh interpreter with `sys.modules[name] = None` for `jax`, `flax` and
-`epipolar_transformers_tpu` (so any import of one raises) imports every
+A fresh interpreter with `sys.modules[name] = None` for `jax`, `flax`,
+`epipolar_transformers_tpu`, `cv2` and `PIL` (so any import of one raises)
+imports every
 module of the port and `chip_smoke.py`, runs the tiny flagship slice on the
 CPU through `engine.tester.predict`, one tiny train step through
 `engine.trainer.train`, the eval engine `engine.test` (pymvg, two groups),
@@ -9,8 +11,11 @@ the port's command line (one train step, then one eval group), a train
 step of the epipolarHG1 recipe (cut to NFEATS 32, batch 2), a tiny train
 step from DATALOADER.DEVICE_RENDER batches, a tiny train step with the
 learned EPIPOLAR.PRIOR table, a train step of the param recipe (pooled,
-cut to 64 px, K=8, batch 2) and the import of a reference-format `.pth`;
-no module of the three is loaded at the end.
+cut to 64 px, K=8, batch 2), the import of a reference-format `.pth`,
+configs/lifting/lifting_rot.yaml through the command line on a fake RHD
+tree (a lifting train step, then `_test_lifting`) and the single-view
+`keypoint` task (a train step, then `test` under pymvg); no blocked module
+is loaded at the end.
 """
 
 import os
@@ -21,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "epipolar_transformers_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "epipolar_transformers_tpu", "cv2", "PIL")
 for name in BLOCKED:
     sys.modules[name] = None
 import torch
@@ -85,6 +90,24 @@ for c, route in ((prior, "kernel"), (param, "streaming")):
         model, optimizer = train(c.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
     assert optimizer.count == 1 and all(bool(torch.isfinite(p).all()) for p in model.parameters())
     assert model.reference.epipolar_sampler.route == route
+from chip_smoke import write_fake_rhd
+from epipolar_transformers_tpu_torch.config import DatasetCatalog
+with tempfile.TemporaryDirectory() as data_dir:
+    write_fake_rhd(data_dir, n_items=2)
+    DatasetCatalog.DATA_DIR = data_dir
+    results = main(["--cfg", "configs/lifting/lifting_rot.yaml", "--device", "cpu",
+                    "--max-steps", "1", "--max-eval-batches", "1", "SOLVER.IMS_PER_BATCH", "2",
+                    "TEST.IMS_PER_BATCH", "2", "OUTPUT_DIR", data_dir + "/out"])
+assert math.isfinite(results["EPEmean"]) and math.isfinite(results["EPEmean_can"]), results
+keypoint = update_from_dict(cfg, {"DATASETS": {"TASK": "keypoint"},
+                                  "BACKBONE": {"BODY": "poseR-18"},
+                                  "KEYPOINT": {"TRIANGULATION": "pymvg"},
+                                  "TEST": {"IMS_PER_BATCH": 1}})
+with tempfile.TemporaryDirectory() as out_dir:
+    model, optimizer = train(keypoint.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
+assert optimizer.count == 1
+results = test(keypoint, model, max_batches=1)
+assert math.isfinite(results["EPEmean_global"]), results
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded

@@ -256,8 +256,7 @@ def test_read_torch_file_needs_the_full_unpickler_only_for_objects(tmp_path, mon
         assert payload["args"] == extra
 
 
-@pytest.mark.parametrize("name,match", [("w.ckpt", "A7b"), ("w.pickle", "A11c"),
-                                        ("w.pkl", "A11c")])
+@pytest.mark.parametrize("name,match", [("w.ckpt", "A7b")])
 def test_unported_formats_raise(tmp_path, name, match):
     """Refused before anything is read or imported."""
     cfg = flagship_cfg(tiny=True).replace(WEIGHTS=str(tmp_path / name))

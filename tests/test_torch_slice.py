@@ -122,13 +122,13 @@ def test_flagship_cfg_is_the_graft_entry_config():
      "does not support"),
     ({"EPIPOLAR": {"MERGE": "early", "BOTTLENECK": 2}}, ValueError, "BOTTLENECK"),
     ({"EPIPOLAR": {"PRIOR": True}}, ValueError, "CAMERAS"),
-    ({"DATASETS": {"TASK": "keypoint"}}, NotImplementedError, "A11"),
+    ({"DATASETS": {"TASK": "no_such_task"}}, NotImplementedError, "no_such_task"),
 ], ids=["impl", "cos", "merge", "prior", "task"])
 def test_unported_configs_raise(override, error, match):
     """What the port refuses when the model is built: a forced attention
     impl that cannot express the config (where the JAX layer raises), a
-    bottleneck without theta/phi/g, a prior table without cameras, and the
-    tasks not ported yet."""
+    bottleneck without theta/phi/g, a prior table without cameras, and a
+    task that neither package has."""
     from epipolar_transformers_tpu_torch.config import update_from_dict
 
     with pytest.raises(error, match=match):

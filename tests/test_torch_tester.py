@@ -22,7 +22,7 @@ that the random net's errors are not all clamped to one value.
 (v)   Double-buffered and serial drives give bit-equal results.
 (vi)  TEST.IMS_PER_BATCH > 1 evaluates the first group of each batch, as
       the JAX tester does.
-(vii) LIFTING and VIS.VIDEO / VIDEO_GT raise.
+(vii) VIS.VIDEO / VIDEO_GT raise.
 
 The JAX eval forward is compiled once (`make_eval_step`) and reused by
 every JAX `test` of the file; JAX `test` with RECOMPUTE_BN is `test` on the
@@ -239,10 +239,9 @@ def test_ims_per_batch_takes_the_first_group(jax_side, model):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"LIFTING": {"ENABLED": True}}, "A11"),
     ({"VIS": {"VIDEO": True}}, "A13"),
     ({"VIS": {"VIDEO_GT": True}}, "A13"),
-], ids=["lifting", "video", "video_gt"])
+], ids=["video", "video_gt"])
 def test_unported_eval_modes_raise(model, override, match):
     with pytest.raises(NotImplementedError, match=match):
         tester.test(_cfgs(override)[0], model, max_batches=1)
