@@ -116,10 +116,22 @@ run, each printed on its own lines:
      command line, 3 steps and `test` under pymvg, finite MPJPE and JDR;
      (d) LiftingNet of each task on the card against the CPU (f32), and a
      hand3d TF pickle written from a seed imported through cfg.WEIGHTS with
-     the same outputs on both devices.
+     the same outputs on both devices;
+ 13. the flagship recipe on H36M-layout data: (a) a fake H36M tree
+     (`write_fake_h36m`: 8 train and 4 validation groups of 4 views,
+     1002x1000 JPEG frames written by the port's encoder, images.zip and
+     undistoredimages.zip); (b) one item in each DATA_FORMAT (zip bit-equal
+     to jpg, undistoredzip within tests/test_fake_h36m.py's mean of jpg) and
+     the host ms of one frame's read and decode, undistortion, warp and
+     heatmaps; (c) configs/epipolar/fake_h36m_zresidual.yaml as written
+     (R-50 f32, 256 px, K=64, batch 8, NUM_WORKERS 4 loader processes)
+     through the command line: 3 train steps and `test` on 2 groups under
+     pymvg, both attention kernels launched, finite losses, MPJPE and JDR;
+     the loader's wall per batch, the device step, the loop's wall per step
+     and the peak memory; (d) neither cv2 nor PIL imported.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8, 9, 11 and 12(b)), errors and times,
+launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b) and 13(c)), errors and times,
 each entry's `hourglass_shape` times at [8]'s shape, and each kernel's
 bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
@@ -127,10 +139,10 @@ input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9, 11 and 12(b); the
+each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b) and 13(c); the
 backward's, `prior_gradient`, its time with and without the prior's
 gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
-`lifting_tasks` [12]'s.  No
+`lifting_tasks` [12]'s, `h36m_path` [13]'s.  No
 single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
@@ -143,7 +155,9 @@ import contextlib
 import json
 import logging
 import math
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -239,6 +253,19 @@ KEYPOINT_OVERRIDES = ["DATASETS.TASK", "keypoint", "BACKBONE.BODY", "poseR-50",
 KEYPOINT_STEPS = 3
 KEYPOINT_EVAL_GROUPS = 4
 LIFTING_NET_TOL = dict(rtol=1e-4, atol=1e-5)
+# [13]: configs/epipolar/fake_h36m_zresidual.yaml as written (R-50 f32,
+# 256 px, K=64, batch 8, NUM_WORKERS 4) on a fake H36M tree: one batch of 8
+# train groups, so each train step is an epoch; the undistoredzip item may
+# lie this far from the jpg one on average (ImageNet-normalized units, one
+# more JPEG round trip; tests/test_fake_h36m.py)
+H36M_RECIPE = "configs/epipolar/fake_h36m_zresidual.yaml"
+H36M_TRAIN_GROUPS = 8
+H36M_VAL_GROUPS = 4
+H36M_IMAGE_SIZE = 1000
+H36M_STEPS = 3
+H36M_EVAL_GROUPS = 2
+H36M_LOADER_BATCHES = 6
+UNDISTORTED_MEAN_GAP = 0.05
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
@@ -249,6 +276,32 @@ HBM_BYTES_PER_S = 3.35e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def child_pids() -> list:
+    """The pids of this process's children that are still there."""
+    pids = []
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            pids += [int(p) for p in f.read().split()]
+    return pids
+
+
+def stop_children() -> list:
+    """Stop every process this script started and wait for each: the
+    loader's workers, its forkserver and resource tracker (which would
+    outlive the script for a moment), then any other child, killed.
+    Returns the pids that had to be killed."""
+    pipeline = sys.modules.get("epipolar_transformers_tpu_torch.data.pipeline")
+    if pipeline is not None:
+        pipeline.stop_workers()
+    killed = child_pids()
+    for pid in killed:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+    return killed
 
 
 def card_line() -> str:
@@ -332,7 +385,6 @@ def write_fake_rhd(data_dir: str, n_items: int, seed: int = SEED, size: int = 32
     zlib PNG writer with all five row filters, and anno_<set>.pickle with
     42 uv_vis and xyz points a sample), n_items a set, from `seed`.  Even
     items are left hands, odd ones right (by the mask's labels)."""
-    import os
     import pickle
 
     import numpy as np
@@ -398,6 +450,127 @@ def write_hand3d_pickle(path: str, rng, hw: int, side: int) -> None:
         dense(f"ViewpointNet/fc_vp_u{axis}", 128, 1)
     with open(path, "wb") as f:
         pickle.dump({k: v.astype(np.float32) for k, v in w.items()}, f)
+
+
+# the fake H36M tree's lens: H36M-magnitude radial and tangential distortion
+FAKE_H36M_K = (-0.207, 0.244, -0.0021)
+FAKE_H36M_P = (0.0014, -0.0007)
+
+
+def distort_points(pts, K):
+    """OpenCV's distortion model with FAKE_H36M_K/_P: pinhole pixels ->
+    distorted pixels."""
+    import numpy as np
+
+    k, p = FAKE_H36M_K, FAKE_H36M_P
+    x = (pts[:, 0] - K[0, 2]) / K[0, 0]
+    y = (pts[:, 1] - K[1, 2]) / K[1, 1]
+    r2 = x * x + y * y
+    radial = 1 + k[0] * r2 + k[1] * r2 ** 2 + k[2] * r2 ** 3
+    xd = x * radial + 2 * p[0] * x * y + p[1] * (r2 + 2 * x * x)
+    yd = y * radial + p[0] * (r2 + 2 * y * y) + 2 * p[1] * x * y
+    return np.stack([xd * K[0, 0] + K[0, 2], yd * K[1, 1] + K[1, 2]], axis=1)
+
+
+def render_fake_frame(pts2d, colors, size: int, sigma: float):
+    """Coloured Gaussian splats at `pts2d` on a low-frequency gradient,
+    uint8 BGR, (size + 2, size): H36M's frames are 1002 x 1000 and the
+    loader keeps the first 1000 rows."""
+    import numpy as np
+
+    clip = 4.60517019
+    img = np.zeros((size, size, 3), np.float32)
+    img += (np.linspace(0.06, 0.16, size, dtype=np.float32)[:, None]
+            + np.linspace(0.10, 0.04, size, dtype=np.float32)[None, :])[..., None]
+    sig = sigma * np.sqrt(2.0)
+    rad = int(np.ceil(sig * np.sqrt(clip))) + 2
+    for j, (px, py) in enumerate(pts2d):
+        y0, y1 = (min(max(int(py) + d, 0), size) for d in (-rad, rad + 1))
+        x0, x1 = (min(max(int(px) + d, 0), size) for d in (-rad, rad + 1))
+        if y0 >= y1 or x0 >= x1:
+            continue
+        yy = (np.arange(y0, y1, dtype=np.float32) - py) / sig
+        xx = (np.arange(x0, x1, dtype=np.float32) - px) / sig
+        val = np.exp(-np.clip(yy[:, None] ** 2 + xx[None, :] ** 2, 0, clip)) - np.float32(
+            np.exp(-clip))
+        img[y0:y1, x0:x1] += val[..., None] * colors[j]
+    np.clip(img, 0.0, 1.0, out=img)
+    bgr = (img[..., ::-1] * 255).astype(np.uint8)
+    return np.concatenate([bgr, np.tile(bgr[-1:], (2, 1, 1))], axis=0)
+
+
+def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
+                    image_size: int = 1000, seed: int = SEED, quality: int = 92) -> None:
+    """A fake H36M tree under `data_dir` in the reference layout, with the
+    port's own code: h36m/annot/h36m_{train,validation}.pkl, the frames as
+    (image_size + 2) x image_size JPEGs written by the port's baseline
+    encoder at `quality`, h36m/images.zip with the same files and
+    h36m/undistoredimages.zip with each frame's first image_size rows
+    undistorted by the port.  Four cameras a group on a ring, random
+    17-joint skeletons, coloured splats at the distorted projections; the
+    records are those of scripts/make_fake_h36m.py's make_split for the
+    same seeds (train `seed`, validation seed + 7919)."""
+    import pickle
+    import zipfile
+
+    import numpy as np
+
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import make_camera_ring
+    from epipolar_transformers_tpu_torch.data.jpeg import encode_jpeg, read_jpeg
+    from epipolar_transformers_tpu_torch.geometry.undistort import undistort_image
+    from epipolar_transformers_tpu_torch.ops.synthetic_render import joint_colors
+
+    dist = np.array([*FAKE_H36M_K[:2], *FAKE_H36M_P, FAKE_H36M_K[2]])
+    root = os.path.join(data_dir, "h36m")
+    os.makedirs(os.path.join(root, "annot"), exist_ok=True)
+    rig = make_camera_ring(image_size=(image_size, image_size), focal=1.15 * image_size,
+                           radius=3000.0)
+    colors = joint_colors(17)
+    for split, n_groups, split_seed, subject in (("train", train_groups, seed, 1),
+                                                 ("validation", val_groups, seed + 7919, 9)):
+        rng = np.random.RandomState(split_seed)
+        db, frames = [], []
+        for g in range(n_groups):
+            action = 2 + g % 15
+            center = np.array([0.0, 0.0, 1000.0]) + rng.uniform(-150, 150, 3)
+            X = center[None] + rng.uniform(-350.0, 350.0, (17, 3))
+            for cam in range(4):
+                R, K = rig["R"][cam], rig["K"][cam]
+                cam3d = (R @ (X.T - rig["T"][cam].reshape(3, 1))).T
+                proj = (K @ cam3d.T).T
+                dist2d = distort_points(proj[:, :2] / proj[:, 2:], K)
+                seq = f"s_{subject:02d}_act_{action:02d}_subact_01_ca_{cam + 1:02d}"
+                name = os.path.join(seq, f"{seq}_{g + 1:06d}.jpg")
+                data = encode_jpeg(render_fake_frame(dist2d, colors, image_size,
+                                                     0.01 * image_size), quality)
+                path = os.path.join(root, "images", name)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as f:
+                    f.write(data)
+                frames.append((os.path.join("images", name), data, K))
+                extent = (dist2d.max(0) - dist2d.min(0)).max()
+                db.append({
+                    "subject": subject, "action": action, "subaction": 1, "image_id": g,
+                    "camera_id": cam, "source": "h36m", "image": name,
+                    "joints_2d": dist2d.astype(np.float64), "joints_3d": X.astype(np.float64),
+                    "joints_3d_camera": cam3d.astype(np.float64),
+                    "joints_vis": np.ones((17, 3)),
+                    "center": (0.5 * (dist2d.min(0) + dist2d.max(0))).astype(np.float64),
+                    "scale": np.full(2, 1.3 * extent / 200.0),
+                    "camera": {"R": R, "T": rig["T"][cam].reshape(3, 1), "fx": K[0, 0],
+                               "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
+                               "k": np.array(FAKE_H36M_K).reshape(3, 1),
+                               "p": np.array(FAKE_H36M_P).reshape(2, 1)},
+                })
+        anno = "h36m_train.pkl" if split == "train" else "h36m_validation.pkl"
+        with open(os.path.join(root, "annot", anno), "wb") as f:
+            pickle.dump(db, f)
+        with zipfile.ZipFile(os.path.join(root, "images.zip"), "a") as zraw, \
+                zipfile.ZipFile(os.path.join(root, "undistoredimages.zip"), "a") as zund:
+            for member, data, K in frames:
+                zraw.writestr(member, data)
+                und = undistort_image(read_jpeg(data)[:image_size], K, dist)
+                zund.writestr(member, encode_jpeg(und, quality))
 
 
 def attention_phase(cfg, device):
@@ -913,8 +1086,9 @@ def finite_metrics(name, results) -> None:
     """Raise unless the eval metrics are all there and finite."""
     import math
 
-    keys = {"EPEmean_global", "MPJPE@action0", "JDR"}
-    if not keys <= set(results) or not any(k.startswith("PCK@") for k in results):
+    keys = {"EPEmean_global", "JDR"}
+    if not keys <= set(results) or not all(any(k.startswith(p) for k in results)
+                                           for p in ("MPJPE@", "PCK@")):
         raise AssertionError(f"{name}: metrics {sorted(results)}")
     if not all(math.isfinite(v) for v in results.values()):
         raise AssertionError(f"{name}: non-finite metrics {results}")
@@ -980,8 +1154,6 @@ def rpsm_check(name, cfg, item, device, recur_depth):
 def eval_phase(cfg, model, device):
     """The eval engine on `model`: (a)-(f) of the module docstring.
     Returns the forward launches and tiles of (a), and what timing needs."""
-    import os
-
     import numpy as np
     import torch
 
@@ -1374,7 +1546,6 @@ def weight_import_phase(device):
     under `module.`, wrapped in {'model': ...}) through the command line's
     eval-only path; then a port checkpoint tagged in last_checkpoint wins."""
     import importlib.util
-    import os
 
     import numpy as np
     import torch
@@ -1769,8 +1940,6 @@ def rhd_recipes_phase(device):
     LIFTING_TRAIN_STEPS steps, then `_test_lifting` on LIFTING_EVAL_BATCHES
     batches; the host loader's ms per batch; ms per train step and peak
     memory."""
-    import os
-
     import torch
 
     from epipolar_transformers_tpu_torch.config import DatasetCatalog, load_config
@@ -1956,7 +2125,6 @@ def lifting_net_phase(device):
     pickle written from SEED imported through cfg.WEIGHTS, with the same
     outputs on both devices."""
     import copy
-    import os
     import pickle
 
     import numpy as np
@@ -2030,6 +2198,145 @@ def lifting_phase(cfg, device):
             "multiview_img_lifting_rot": multiview_lifting_phase(cfg, device),
             "keypoint": keypoint_phase(device),
             "lifting_net_max_abs_err": lifting_net_phase(device)}
+
+
+def h36m_phase(device):
+    """[13]: the flagship recipe on H36M-layout data.  (a) a fake H36M tree
+    of 1002x1000 JPEG frames written with the port's own encoder; (b) one
+    item in each DATA_FORMAT (zip bit-equal to jpg, undistoredzip within
+    tests/test_fake_h36m.py's mean of jpg) and the host ms of each stage of
+    one frame; (c) H36M_RECIPE as written through the command line:
+    H36M_STEPS train steps, `test` on H36M_EVAL_GROUPS groups under pymvg,
+    both attention kernels launched; the loader's wall per batch, the device
+    step, the loop's wall per step and the peak memory; (d) neither cv2 nor
+    PIL imported."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import DatasetCatalog, load_config
+    from epipolar_transformers_tpu_torch.data import pipeline
+    from epipolar_transformers_tpu_torch.data.datasets.joints_dataset import JointsDataset
+    from epipolar_transformers_tpu_torch.data.jpeg import read_jpeg
+    from epipolar_transformers_tpu_torch.data.transforms.affine import get_affine_transform
+    from epipolar_transformers_tpu_torch.data.transforms.warp import render_heatmaps, warp_affine
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.geometry.undistort import undistort_image
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    out = {}
+    saved = DatasetCatalog.DATA_DIR
+    phase_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_fake_h36m(tmp, H36M_TRAIN_GROUPS, H36M_VAL_GROUPS, H36M_IMAGE_SIZE)
+        log(f"  (a) fake H36M tree: {H36M_TRAIN_GROUPS} train and {H36M_VAL_GROUPS} validation "
+            f"groups of 4 views, {H36M_IMAGE_SIZE + 2}x{H36M_IMAGE_SIZE} JPEG frames (quality "
+            f"92, 4:2:0, the port's encoder), images.zip and undistoredimages.zip, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        DatasetCatalog.DATA_DIR = tmp
+        try:
+            cfg = load_config(H36M_RECIPE)
+
+            # (b) one item per DATA_FORMAT, and one frame's stages
+            items = {}
+            for fmt in ("undistoredzip", "zip", "jpg"):
+                fcfg = cfg.replace(DATASETS=cfg.DATASETS.replace(DATA_FORMAT=fmt))
+                ds = pipeline.build_dataset(fcfg, cfg.DATASETS.TRAIN[0])
+                ds.reseed(SEED)
+                items[fmt] = ds[0]
+            if any(not np.array_equal(items["zip"][k], items["jpg"][k]) for k in items["jpg"]):
+                raise AssertionError("[13](b) the zip item differs from the jpg item")
+            gap = float(np.abs(items["undistoredzip"]["img"] - items["jpg"]["img"]).mean())
+            if gap >= UNDISTORTED_MEAN_GAP:
+                raise AssertionError(f"[13](b) undistoredzip img {gap} from jpg's on average")
+            rec = ds.db[0]
+            cam = rec["camera"]
+            K = np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]], [0, 0, 1.0]])
+            dist = np.array([*np.ravel(cam["k"])[:2], *np.ravel(cam["p"]), np.ravel(cam["k"])[2]])
+            path = os.path.join(tmp, "h36m", "images", rec["image"])
+            trans = get_affine_transform(rec["center"], rec["scale"], 0, cfg.DATASETS.IMAGE_SIZE)
+            stages = {}
+
+            def stage(name, fn, *args):
+                t0 = time.perf_counter()
+                result = fn(*args)
+                stages[name] = (time.perf_counter() - t0) * 1e3
+                return result
+
+            frame = stage("read_decode", lambda p: read_jpeg(p)[:1000], path)
+            frame = stage("undistort", undistort_image, frame, K, dist)
+            stage("warp", warp_affine, frame.astype(np.float32), trans,
+                  tuple(cfg.DATASETS.IMAGE_SIZE))
+            stage("heatmaps", render_heatmaps, rec["joints_2d"], tuple(cfg.KEYPOINT.HEATMAP_SIZE),
+                  cfg.KEYPOINT.SIGMA, cfg.BACKBONE.DOWNSAMPLE)
+            stage("item", JointsDataset.__getitem__, ds, 0)
+            out["frame_host_ms"] = stages
+            log(f"  (b) one train item per DATA_FORMAT: zip bit-equal to jpg, undistoredzip's "
+                f"img {gap:.4f} from jpg's on average (limit {UNDISTORTED_MEAN_GAP}); one "
+                f"{H36M_IMAGE_SIZE + 2}x{H36M_IMAGE_SIZE} frame on the host: read and decode "
+                f"{stages['read_decode']:.1f} ms, undistort {stages['undistort']:.1f} ms, warp to "
+                f"{cfg.DATASETS.IMAGE_SIZE[0]} px {stages['warp']:.1f} ms, heatmaps "
+                f"{stages['heatmaps']:.1f} ms; one view's whole item (jpg: these and the "
+                f"rest) {stages['item']:.1f} ms")
+
+            # (c) the recipe as written through the command line
+            argv = ["--cfg", H36M_RECIPE, "--max-steps", str(H36M_STEPS), "--max-eval-batches",
+                    str(H36M_EVAL_GROUPS), "LOG_FREQ", "1", "TENSORBOARD.USE", "False",
+                    "OUTPUT_DIR", os.path.join(tmp, "out")]
+            attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+            attn.TILE_COUNTS.clear()
+            results, losses, loop_ms, peak, wall = cli_run("[13](c) H36M recipe", argv)
+            torch.cuda.synchronize()
+            launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
+            tiles = attn.tile_counts()
+            if not (launches > 0 and backward_launches > 0):
+                raise AssertionError(f"[13](c) forward kernel launches {launches}, backward "
+                                     f"{backward_launches}")
+            finite_metrics("[13](c) H36M recipe", results)
+            out.update(launches=launches, backward_launches=backward_launches, tiles=tiles,
+                       MPJPE=results["EPEmean_global"], JDR=results["JDR"], peak_gib=peak,
+                       loop_ms_per_step=statistics.mean(loop_ms), cli_seconds=wall)
+
+            # the loader alone: H36M_LOADER_BATCHES batches from one worker pool
+            ds = pipeline.build_dataset(cfg, cfg.DATASETS.TRAIN[0])
+            B = cfg.SOLVER.IMS_PER_BATCH
+            loader = pipeline.TrainLoader(pipeline.ConcatDataset([ds] * H36M_LOADER_BATCHES), B,
+                                          cfg.SEED, pipeline.num_workers_for(cfg, ds),
+                                          cfg.DATALOADER.MP_START_METHOD)
+            batch_ms, t0 = [], time.perf_counter()
+            for batch in loader:
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+            inputs = trainer.model_inputs(batch, device, None)
+            ms = device_step_ms(cfg, inputs, device)
+            out.update(loader_ms_first_batch=batch_ms[0],
+                       loader_ms_per_batch=statistics.mean(batch_ms[1:]), ms_per_step=ms)
+            log(f"  (c) {H36M_RECIPE} as written ({cfg.BACKBONE.BODY}, "
+                f"{cfg.DATASETS.IMAGE_SIZE[0]} px, K={cfg.EPIPOLAR.SAMPLESIZE}, batch {B}, "
+                f"DATA_FORMAT {cfg.DATASETS.DATA_FORMAT}, NUM_WORKERS "
+                f"{cfg.DATALOADER.NUM_WORKERS}) through the command line in {wall:.1f} s: "
+                f"losses {', '.join(f'{v:.5g}' for v in losses)}; EPEmean_global (MPJPE) "
+                f"{results['EPEmean_global']:.4f} mm, JDR {results['JDR']:.4f} over "
+                f"{H36M_EVAL_GROUPS} groups (pymvg), all finite; forward kernel launches "
+                f"{launches}, backward kernel launches {backward_launches}, forward tiles "
+                f"{tiles[0]} / {tiles[1]}; loop wall "
+                f"{statistics.mean(loop_ms):.1f} ms a step after the first; peak memory "
+                f"{peak:.3f} GiB")
+            log(f"  (c) loader, batch {B} ({4 * B} frames), {loader.num_workers} workers: first batch "
+                f"{batch_ms[0]:.1f} ms (the workers' start), then "
+                f"{statistics.mean(batch_ms[1:]):.1f} ms a batch "
+                f"({', '.join(f'{t:.1f}' for t in batch_ms[1:])}); train step {ms:.3f} ms "
+                f"(CUDA events) on a loader batch")
+            del inputs
+            torch.cuda.empty_cache()
+        finally:
+            DatasetCatalog.DATA_DIR = saved
+    seen = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL"))
+    if seen:
+        raise AssertionError(f"[13](d) the H36M path imported {seen}")
+    out["phase_seconds"] = time.perf_counter() - phase_start
+    log(f"  (d) neither cv2 nor PIL was imported; [13] took {out['phase_seconds']:.1f} s")
+    return out
 
 
 def live_pairs(locs, distinct: bool = True) -> int:
@@ -2207,7 +2514,10 @@ def main() -> int:
     log(f"[12] the lifting and single-view tasks: the RHD recipes, multiview_img_lifting_rot, "
         f"keypoint, LiftingNet on the card, {card}")
     lifting = lifting_phase(cfg, device)
-    extra = [prior, fusion, lifting["multiview_img_lifting_rot"]]
+    log(f"[13] the flagship recipe on H36M-layout data: {H36M_RECIPE} as written through the "
+        f"command line on a fake tree of JPEG frames, {card}")
+    h36m = h36m_phase(device)
+    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -2236,11 +2546,17 @@ def main() -> int:
                            "bound_by": prior_bound[1]},
     }], "param_recipe": param, "lifting_tasks": {
         k: {kk: vv for kk, vv in v.items() if kk not in ("launches", "backward_launches", "tiles")}
-        if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()}}))
+        if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()},
+        "h36m_path": {k: v for k, v in h36m.items()
+                      if k not in ("launches", "backward_launches", "tiles")}}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:
         raise AssertionError(f"the port imported {jax_side[:5]}")
+    killed = stop_children()
+    if killed:
+        raise AssertionError(f"child processes {killed} were still running after the loader's "
+                             f"were stopped")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2249,4 +2565,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -1,14 +1,18 @@
-"""Affine crop helpers (numpy, cv2-free) that the synthetic dataset uses.
+"""Affine crop helpers (numpy, cv2-free) of the synthetic and H36M datasets.
 
 The port's own copy of `get_affine_transform` and `affine_transform_pts`
 from epipolar_transformers_tpu/data/transforms/affine.py (reference
 data/transforms/image.py:218-304).  The only cv2 call there
-(cv2.getAffineTransform) is a 3-point linear solve, done with numpy.
+(cv2.getAffineTransform) is a 3-point linear solve, done with numpy.  Also
+its ImageNet normalization constants (RGB).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 def get_dir(src_point, rot_rad):

@@ -1,5 +1,5 @@
 """The port imports neither JAX, flax nor anything of the JAX package, and
-its RHD path neither cv2 nor PIL.
+its RHD and H36M paths neither cv2 nor PIL.
 
 A fresh interpreter with `sys.modules[name] = None` for `jax`, `flax`,
 `epipolar_transformers_tpu`, `cv2` and `PIL` (so any import of one raises)
@@ -14,8 +14,11 @@ learned EPIPOLAR.PRIOR table, a train step of the param recipe (pooled,
 cut to 64 px, K=8, batch 2), the import of a reference-format `.pth`,
 configs/lifting/lifting_rot.yaml through the command line on a fake RHD
 tree (a lifting train step, then `_test_lifting`) and the single-view
-`keypoint` task (a train step, then `test` under pymvg); no blocked module
-is loaded at the end.
+`keypoint` task (a train step, then `test` under pymvg), and the H36M path
+on a fake tree that chip_smoke.write_fake_h36m writes with the port's JPEG
+encoder (an item, a train loader with 2 worker processes, and
+configs/epipolar/fake_h36m_zresidual.yaml through the command line, cut to
+a tiny width); no blocked module is loaded at the end.
 """
 
 import os
@@ -107,6 +110,26 @@ with tempfile.TemporaryDirectory() as out_dir:
     model, optimizer = train(keypoint.replace(OUTPUT_DIR=out_dir), max_steps=1, device="cpu")
 assert optimizer.count == 1
 results = test(keypoint, model, max_batches=1)
+assert math.isfinite(results["EPEmean_global"]), results
+from chip_smoke import write_fake_h36m
+from epipolar_transformers_tpu_torch.data.datasets.multiview_h36m import MultiViewH36M
+from epipolar_transformers_tpu_torch.data.pipeline import TrainLoader
+with tempfile.TemporaryDirectory() as data_dir:
+    write_fake_h36m(data_dir, train_groups=2, val_groups=1, image_size=64)
+    h36m = update_from_dict(cfg, {"DATASETS": {"DATA_FORMAT": "zip", "H36M": {"MAPPING": False,
+                                                                          "TRAIN_SAMPLE": 0}},
+                                  "KEYPOINT": {"NUM_PTS": 17}})
+    ds = MultiViewH36M(h36m, data_dir, data_dir + "/h36m/annot/h36m_train.pkl", True)
+    assert ds[0]["img"].shape == (32, 32, 3)
+    batches = list(TrainLoader(ds, batch_size=1, seed=0, num_workers=2))
+    assert len(batches) == 2 and batches[1]["other_img"].shape == (1, 32, 32, 3)
+    DatasetCatalog.DATA_DIR = data_dir
+    results = main(["--cfg", "configs/epipolar/fake_h36m_zresidual.yaml", "--device", "cpu",
+                    "--max-steps", "1", "--max-eval-batches", "1",
+                    "BACKBONE.BODY", "epipolarposeR-18", "DATASETS.IMAGE_SIZE", "(32, 32)",
+                    "KEYPOINT.HEATMAP_SIZE", "(8, 8)", "EPIPOLAR.SAMPLESIZE", "4",
+                    "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_WORKERS", "2",
+                    "OUTPUT_DIR", data_dir + "/out"])
 assert math.isfinite(results["EPEmean_global"]), results
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)

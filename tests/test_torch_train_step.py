@@ -72,7 +72,14 @@ def step():
     np.random.seed(0)  # the train items draw their reference view from it
     ds = SyntheticMultiview(cfg, is_train=True, n_samples=BATCH, seed=0)
     batch = collate([ds[i] for i in range(BATCH)])
-    jinputs = {k: jnp.asarray(np.asarray(batch[k], np.float64)) for k in TRAIN_KEYS}
+    return train_step_pair(cfg, jcfg, batch, batch)
+
+
+def train_step_pair(cfg, jcfg, batch, jbatch):
+    """One JAX train step (`jcfg` on `jbatch`) and one port train step
+    (`cfg` on `batch`), both in f64 from the same randomized weights;
+    returns what the tests compare."""
+    jinputs = {k: jnp.asarray(np.asarray(jbatch[k], np.float64)) for k in TRAIN_KEYS}
 
     with pytest.MonkeyPatch.context() as mp:
         for module in (jresnet, jepipolar):
