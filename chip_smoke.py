@@ -129,20 +129,45 @@ run, each printed on its own lines:
      pymvg, both attention kernels launched, finite losses, MPJPE and JDR;
      the loader's wall per batch, the device step, the loop's wall per step
      and the peak memory; (d) neither cv2 nor PIL imported.
+ 14. the ResNet-152 recipes as written on a fake H36M tree (40 train and 72
+     validation groups of 1002x1000 JPEG frames, 4 and 2 of them distinct,
+     and a seeded random torchvision-layout R-152 where the `_8gpu` recipes
+     read it), each command line in a process of its own started in the
+     tree's directory: (a) keypoint_h36m_resnet152_384_fixed.yaml (batch 8,
+     384 px, 96x96, K=64): 3 steps and 2 eval groups, the device ms a step
+     (CUDA events), the loop's wall and the loader's share, the peak, both
+     kernels' launches and the tiles on each path, finite MPJPE and JDR;
+     then the attention alone at B=8 96x96 K=64 C=256 on that run's sample
+     locations, forward and backward against the plain version ([2]/[5]'s
+     tolerances), times and bounds; (b) ..._384_fixed_8gpu.yaml at its
+     global batch of 32 under `torchrun --nproc_per_node 1 ... --multihost`
+     (NCCL, world 1: DDP and BatchNorm's all-reduces run, as on each rank
+     of eight; each step an epoch, rank 0's checkpoint and eval between
+     them) beside the same without --multihost; (c) the same recipe
+     at a batch of 8 through one rank here and through 2 ranks x 4 on the
+     one card over gloo (processes this script starts, which make the gloo
+     group themselves): the ranks' mean loss, the all-reduced gradients and
+     the BN running statistics against the one rank's, the model's and each
+     parameter's gradient within the train-step parity's 2e-2, and the
+     ranks' parameters bit-equal after 3 steps; (d) ..._320_fixed_8gpu.yaml (batch 32, 80x80) and
+     keypoint_h36m_resnet50_384_strong_fixed.yaml (K=85): a step and an
+     eval group each, and the attention alone at their shapes.  Every child
+     must exit 0 and leave no process in its session.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b) and 13(c)), errors and times,
-each entry's `hourglass_shape` times at [8]'s shape, and each kernel's
+launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c) and 14), errors and times,
+each entry's `hourglass_shape` times at [8]'s shape and `r152_shapes` at
+[14]'s (96x96 K=64, 80x80 K=64, 96x96 K=85), and each kernel's
 bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
 input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b) and 13(c); the
+each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c) and 14; the
 backward's, `prior_gradient`, its time with and without the prior's
 gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
-`lifting_tasks` [12]'s, `h36m_path` [13]'s.  No
+`lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s.  No
 single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
@@ -266,6 +291,30 @@ H36M_STEPS = 3
 H36M_EVAL_GROUPS = 2
 H36M_LOADER_BATCHES = 6
 UNDISTORTED_MEAN_GAP = 0.05
+# [14]: the ResNet-152 recipes as written (and the K=85 one) on a fake H36M
+# tree of 1002x1000 frames, data parallel under torchrun and over gloo.
+# 40 train groups: a batch of 32 takes one a step, a batch of 8 runs 3
+# steps inside one epoch; 72 validation groups, of which TEST_SAMPLE 64
+# keeps 2; the frames of 4 train and 2 validation groups repeat
+R152_RECIPE = "configs/epipolar/keypoint_h36m_resnet152_384_fixed.yaml"
+R152_DDP_RECIPE = "configs/epipolar/keypoint_h36m_resnet152_384_fixed_8gpu.yaml"
+R152_320_RECIPE = "configs/epipolar/keypoint_h36m_resnet152_320_fixed_8gpu.yaml"
+K85_RECIPE = "configs/epipolar/keypoint_h36m_resnet50_384_strong_fixed.yaml"
+R152_WEIGHTS = "datasets/resnet152-b121ed2d.pth"  # the _8gpu recipes' PRETRAINED_WEIGHTS
+R152_TRAIN_GROUPS, R152_VAL_GROUPS, R152_DISTINCT = 40, 72, (4, 2)
+R152_STEPS = 3
+R152_EVAL_GROUPS = 2
+# (b): the _8gpu recipe's global batch on one rank under torchrun, and
+# without; its loader takes ~16 s a batch of 32, so 2 steps (the second
+# timed), each an epoch
+DDP_BATCH = 32
+DDP_STEPS = 2
+# (c): two ranks on the one card over gloo, the _8gpu recipe cut to a batch
+# of 8 (4 a rank) for memory and time
+GLOO_RANKS = 2
+GLOO_BATCH = 8
+GLOO_STEPS = 3
+CHILD_TIMEOUT = 600
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
@@ -500,7 +549,8 @@ def render_fake_frame(pts2d, colors, size: int, sigma: float):
 
 
 def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
-                    image_size: int = 1000, seed: int = SEED, quality: int = 92) -> None:
+                    image_size: int = 1000, seed: int = SEED, quality: int = 92,
+                    distinct_groups=None) -> None:
     """A fake H36M tree under `data_dir` in the reference layout, with the
     port's own code: h36m/annot/h36m_{train,validation}.pkl, the frames as
     (image_size + 2) x image_size JPEGs written by the port's baseline
@@ -509,7 +559,10 @@ def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
     undistorted by the port.  Four cameras a group on a ring, random
     17-joint skeletons, coloured splats at the distorted projections; the
     records are those of scripts/make_fake_h36m.py's make_split for the
-    same seeds (train `seed`, validation seed + 7919)."""
+    same seeds (train `seed`, validation seed + 7919).  With
+    `distinct_groups` (train, validation) = (a, b), group g of a split
+    repeats the skeleton and encoded frames of its group g % a (or b) under
+    its own names, so that a large tree costs a few groups' encodes."""
     import pickle
     import zipfile
 
@@ -526,14 +579,19 @@ def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
     rig = make_camera_ring(image_size=(image_size, image_size), focal=1.15 * image_size,
                            radius=3000.0)
     colors = joint_colors(17)
-    for split, n_groups, split_seed, subject in (("train", train_groups, seed, 1),
-                                                 ("validation", val_groups, seed + 7919, 9)):
+    distinct = distinct_groups or (None, None)
+    for split, n_groups, split_seed, subject, every in (
+            ("train", train_groups, seed, 1, distinct[0]),
+            ("validation", val_groups, seed + 7919, 9, distinct[1])):
         rng = np.random.RandomState(split_seed)
-        db, frames = [], []
+        db, frames, made = [], [], {}
         for g in range(n_groups):
             action = 2 + g % 15
-            center = np.array([0.0, 0.0, 1000.0]) + rng.uniform(-150, 150, 3)
-            X = center[None] + rng.uniform(-350.0, 350.0, (17, 3))
+            src = g % every if every else g
+            if src not in made:
+                center = np.array([0.0, 0.0, 1000.0]) + rng.uniform(-150, 150, 3)
+                made[src] = (center[None] + rng.uniform(-350.0, 350.0, (17, 3)), {})
+            X, encoded = made[src]
             for cam in range(4):
                 R, K = rig["R"][cam], rig["K"][cam]
                 cam3d = (R @ (X.T - rig["T"][cam].reshape(3, 1))).T
@@ -541,8 +599,10 @@ def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
                 dist2d = distort_points(proj[:, :2] / proj[:, 2:], K)
                 seq = f"s_{subject:02d}_act_{action:02d}_subact_01_ca_{cam + 1:02d}"
                 name = os.path.join(seq, f"{seq}_{g + 1:06d}.jpg")
-                data = encode_jpeg(render_fake_frame(dist2d, colors, image_size,
-                                                     0.01 * image_size), quality)
+                if cam not in encoded:
+                    encoded[cam] = encode_jpeg(render_fake_frame(dist2d, colors, image_size,
+                                                                 0.01 * image_size), quality)
+                data = encoded[cam]
                 path = os.path.join(root, "images", name)
                 os.makedirs(os.path.dirname(path), exist_ok=True)
                 with open(path, "wb") as f:
@@ -565,12 +625,15 @@ def write_fake_h36m(data_dir: str, train_groups: int = 8, val_groups: int = 4,
         anno = "h36m_train.pkl" if split == "train" else "h36m_validation.pkl"
         with open(os.path.join(root, "annot", anno), "wb") as f:
             pickle.dump(db, f)
+        undistorted = {}
         with zipfile.ZipFile(os.path.join(root, "images.zip"), "a") as zraw, \
                 zipfile.ZipFile(os.path.join(root, "undistoredimages.zip"), "a") as zund:
             for member, data, K in frames:
                 zraw.writestr(member, data)
-                und = undistort_image(read_jpeg(data)[:image_size], K, dist)
-                zund.writestr(member, encode_jpeg(und, quality))
+                if id(data) not in undistorted:
+                    und = undistort_image(read_jpeg(data)[:image_size], K, dist)
+                    undistorted[id(data)] = encode_jpeg(und, quality)
+                zund.writestr(member, undistorted[id(data)])
 
 
 def attention_phase(cfg, device):
@@ -1046,9 +1109,19 @@ def compare_step_paths(name, model, batch, per_param: bool):
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
-    loss_k, grads_k = loss_and_grads(False)
-    _, grads_k2 = loss_and_grads(False)
-    loss_p, grads_p = loss_and_grads(True)
+    # cuDNN's deterministic algorithms, so that the paths differ by their
+    # attention alone: the bf16 weight gradients of its default algorithms
+    # add in an order that varies between runs, and moved [12](b)'s
+    # whole-model error between 0.005 and 0.05 over six runs of the same
+    # code on an H100 (0.0100 in each of six with these)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k = loss_and_grads(False)
+        _, grads_k2 = loss_and_grads(False)
+        loss_p, grads_p = loss_and_grads(True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     kept = dict(grads_k)
     if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or not np.isfinite(loss_k):
         raise AssertionError(f"{name} train step loss: kernel path {loss_k}, plain {loss_p}")
@@ -1894,10 +1967,10 @@ def fusion_phase(cfg, device):
 
 def cli_run(name, argv):
     """The port's command line in this process, with the trainer's step
-    log lines collected.  Returns the RESULTS dict, the logged losses, the
-    loop's wall ms per step after the first (between two step log lines:
-    loader, upload and step), the peak device memory (GiB) and the wall
-    seconds."""
+    log lines collected.
+    Returns the RESULTS dict, the logged losses, the loop's wall ms per step
+    after the first (between two step log lines: loader, upload and step),
+    the peak device memory (GiB) and the wall seconds."""
     import torch
 
     from epipolar_transformers_tpu_torch import main as cli
@@ -2339,6 +2412,610 @@ def h36m_phase(device):
     return out
 
 
+def write_torchvision_resnet(path: str, depth: int = 152, seed: int = SEED,
+                             zero_init_residual: bool = True) -> None:
+    """A seeded random ImageNet ResNet state dict in torchvision's layout
+    (conv1, bn1, layer1-4 with downsample.0/1, fc), the file the recipes'
+    BACKBONE.PRETRAINED_WEIGHTS names: He-normal kernels, BN weights near 1
+    and small biases and running means, running variances near 1.  With
+    `zero_init_residual` (torchvision's option) the last BN of each block
+    starts near 0, so that each block starts near the identity and the
+    trunk's activations stay bounded, as a trained trunk's do.  Without
+    it, R-152's 50 blocks on these running statistics grow them so far
+    that after one step the 320 px recipe's heatmap peaks lie near +-1e4,
+    some joints peak below -1 in every view, and the pymvg triangulation
+    (the JAX package's too) has no view to solve them with: MPJPE NaN
+    (scripts/torch_r152_eval_nan.py)."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import Config, update_from_dict
+    from epipolar_transformers_tpu_torch.models.resnet import PoseResNet
+
+    cfg = update_from_dict(Config(), {"BACKBONE": {"BODY": f"poseR-{depth}"},
+                                      "KEYPOINT": {"NUM_PTS": 17}})
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in PoseResNet(cfg).state_dict().items():
+        if k.startswith(("deconv_layers.", "final_layer.")):
+            continue
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.long)
+        elif v.ndim == 4:
+            sd[k] = torch.randn(v.shape, generator=gen) * math.sqrt(2.0 / v[0].numel())
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=gen)
+        elif k.endswith("weight"):
+            last = zero_init_residual and k.startswith("layer") and k.endswith(
+                "bn3.weight" if depth >= 50 else "bn2.weight")
+            sd[k] = (0.01 if last else 0.1) * torch.randn(v.shape, generator=gen) + (not last)
+        else:  # bias, running_mean
+            sd[k] = 0.1 * torch.randn(v.shape, generator=gen)
+    sd["fc.weight"] = 0.01 * torch.randn(1000, 512 * 4 if depth >= 50 else 512, generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+
+
+def session_pids(sid: int) -> list:
+    """The processes of session `sid` that are still there."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[3]) == sid and fields[0] != "Z":
+            pids.append(int(entry))
+    return pids
+
+
+def run_children(name, cmds, cwd, env):
+    """Start each command in a session of its own, wait for all (at most
+    CHILD_TIMEOUT s), and check that every one exited 0 and left no
+    process behind (a moment's grace for the loader's forkserver and
+    resource tracker); on a failure kill every session's processes and
+    raise with the children's last output.  Returns their outputs."""
+    procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for c in cmds]
+    outs, failed = [], []
+    deadline = time.monotonic() + CHILD_TIMEOUT
+    try:
+        for i, p in enumerate(procs):
+            try:
+                out = p.communicate(timeout=max(deadline - time.monotonic(), 1))[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out = p.communicate()[0]
+                failed.append(f"child {i} ran past {CHILD_TIMEOUT} s")
+            if p.returncode != 0:
+                failed.append(f"child {i} exited {p.returncode}")
+            outs.append(out)
+            if p.returncode != 0:  # the others would wait on it: stop them
+                for q in procs:
+                    if q.poll() is None:
+                        os.killpg(q.pid, signal.SIGKILL)
+    finally:
+        left = []
+        for p in procs:
+            end = time.monotonic() + 15
+            while session_pids(p.pid) and time.monotonic() < end:
+                time.sleep(0.2)
+            rest = session_pids(p.pid)
+            if rest:
+                left += rest
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if left:
+        failed.append(f"processes {left} outlived their children")
+    if failed:
+        tail = "\n".join(f"--- child {i} ---\n{o[-4000:]}" for i, o in enumerate(outs))
+        raise AssertionError(f"{name}: {'; '.join(failed)}\n{tail}")
+    return outs
+
+
+def child_env() -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def step_log(messages) -> dict:
+    """The trainer's step lines: device ms (CUDA events) and peak GiB of
+    each step, and the last line's data_t / step_t (loader and loop wall,
+    seconds a step on average)."""
+    lines = [m for m in messages if " step " in m and " loss " in m]
+    if not lines:
+        raise AssertionError("no train step was logged")
+
+    def values(key):
+        return [float(v) for m in lines for v in re.findall(rf"\b{key} (\S+)", m)]
+
+    return {"device_ms": values("device_ms"), "peak_gib": values("peak_gib"),
+            "data_t": values("data_t")[-1], "step_t": values("step_t")[-1],
+            "losses": values("loss")}
+
+
+def recipe_cli(tag, recipe, tmp, steps, eval_groups, extra=(), torchrun=False):
+    """A recipe as written through the port's command line in a process of
+    its own, started in `tmp` (which holds its datasets/), as a user runs
+    it: `python -m epipolar_transformers_tpu_torch.main`, or under
+    `torchrun --nproc_per_node 1 ... --multihost`.  The process is this
+    script's `--cli-main` mode: the command line's `main`, with the kernels'
+    counters at 0 from the process's start, then its counts on a line of
+    their own and its first batch's sample locations in a file."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    key = re.sub(r"\W+", "_", tag)
+    locs_path = os.path.join(tmp, f"locs_{key}.pt")
+    entry = [os.path.join(root, "chip_smoke.py"), "--cli-main", locs_path]
+    argv = ["--cfg", os.path.join(root, recipe), "--max-steps", str(steps),
+            "--max-eval-batches", str(eval_groups), "LOG_FREQ", "1", "TENSORBOARD.USE", "False",
+            *extra, "OUTPUT_DIR", os.path.join(tmp, f"out_{key}")]
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+               "--master_port", str(free_port()), *entry, "--multihost", *argv]
+    else:
+        cmd = [sys.executable, *entry, *argv]
+    t0 = time.perf_counter()
+    (out,) = run_children(tag, [cmd], tmp, child_env())
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    counts = [json.loads(line.split(" ", 1)[1]) for line in lines
+              if line.startswith("RANK_COUNTS ")]
+    if len(counts) != 1 or sum(line.startswith("RESULTS:") for line in lines) != 1:
+        raise AssertionError(f"{tag}: {len(counts)} RANK_COUNTS lines\n{out[-3000:]}")
+    (c,) = counts
+    run = dict(results=c["results"], launches=c["launches"], tiles=c["tiles"],
+               backward_launches=c["backward_launches"], trained=c["trained"],
+               all_reduces=c["all_reduces"], wall=wall, steps=step_log(lines),
+               locs=torch.load(locs_path))
+    run["losses"] = run["steps"]["losses"]
+    if not (run["launches"] > 0 and run["backward_launches"] == steps
+            and len(run["losses"]) == steps and all(math.isfinite(v) for v in run["losses"])):
+        raise AssertionError(f"{tag}: forward kernel launches {run['launches']}, backward "
+                             f"{run['backward_launches']}, losses {run['losses']} over {steps} "
+                             f"steps\n{out[-3000:]}")
+    finite_metrics(tag, run["results"])
+    return run
+
+
+def cli_main(locs_path, argv) -> int:
+    """`--cli-main`: the port's command line in this process (a rank under
+    torchrun with --multihost), then, where it printed RESULTS, the kernels'
+    counts since the process started, the class of the module that trained
+    (DistributedDataParallel in a process group), the all-reduces that the
+    port called outside DDP (BatchNorm's moments, the logged means) and the
+    first sample locations the attention took (saved to `locs_path`)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.models import epipolar as layer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    kept, sample_locs = [], layer.epipolar_sample_locs
+    trained, data_parallel, all_reduce, reduces = [], trainer.data_parallel, dist.all_reduce, [0]
+
+    def keep(*args, **kwargs):
+        locs = sample_locs(*args, **kwargs)
+        if not kept:
+            kept.append(locs.detach().cpu())
+        return locs
+
+    def wrap(*args, **kwargs):
+        module = data_parallel(*args, **kwargs)
+        trained.append(type(module).__name__)
+        return module
+
+    def counted(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    layer.epipolar_sample_locs, trainer.data_parallel, dist.all_reduce = keep, wrap, counted
+    results = cli.main(argv)
+    if results is not None:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        torch.save(kept[0], locs_path)
+        print("RANK_COUNTS " + json.dumps({
+            "launches": attn.LAUNCHES, "backward_launches": attn.BACKWARD_LAUNCHES,
+            "tiles": list(attn.tile_counts()), "results": results, "trained": trained,
+            "all_reduces": reduces[0]}), flush=True)
+    return 0
+
+
+def describe(run) -> str:
+    st = run["steps"]
+    dev = st["device_ms"]
+    timed = (f"device {statistics.mean(dev[1:]):.1f} ms a step after the first (CUDA events: "
+             f"{', '.join(f'{v:.1f}' for v in dev)})" if len(dev) > 1 else
+             f"device {dev[0]:.1f} ms for the one step (CUDA events; the first, with cuDNN's "
+             f"algorithm search)")
+    return (f"losses {', '.join(f'{v:.5g}' for v in run['losses'])}; MPJPE "
+            f"{run['results']['EPEmean_global']:.4f} mm, JDR {run['results']['JDR']:.4f}, "
+            f"finite; {timed}; loop wall "
+            f"{1e3 * st['step_t']:.0f} ms a step, the loader's share "
+            f"{st['data_t'] / st['step_t']:.2f}; peak {st['peak_gib'][-1]:.3f} GiB in training; "
+            f"forward kernel launches {run['launches']}, backward {run['backward_launches']}; "
+            f"forward tiles on the tile path / per-query path {run['tiles'][0]} / "
+            f"{run['tiles'][1]}")
+
+
+def summary(run) -> dict:
+    """The numbers of a recipe's run for the kernels' line; the device ms
+    a step after the first, where it took more than one."""
+    st = run["steps"]
+    dev = st["device_ms"][1:]
+    return {"device_ms_per_step": statistics.mean(dev) if dev else None,
+            "device_ms": st["device_ms"],
+            "loop_ms_per_step": 1e3 * st["step_t"], "loader_share": st["data_t"] / st["step_t"],
+            "peak_gib": st["peak_gib"][-1], "launches": run["launches"],
+            "backward_launches": run["backward_launches"], "all_reduces": run["all_reduces"],
+            "tiles": {"tile_path": run["tiles"][0], "per_query_path": run["tiles"][1]},
+            "MPJPE": run["results"]["EPEmean_global"], "JDR": run["results"]["JDR"],
+            "seconds": run["wall"]}
+
+
+def attention_at(tag, cfg, locs, device):
+    """The attention alone at a recipe's shape and on its sample locations
+    (C=256 f32 features, keys = values one tensor, channels_last as the
+    model hands them over): forward and backward, kernel against plain
+    version ([2]/[5]'s tolerances), two runs bit-equal, the forward's tiles
+    on each path, the times in turns and the bounds.  Returns the forward's
+    and the backward's entries for the kernels' line."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    B, K, H, W, _ = locs.shape
+    C = cfg.KEYPOINT.NFEATS
+    params = Epipolar(cfg).attention_params
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    f1, f2 = (torch.randn(B, C, H, W, device=device, generator=gen)
+              .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+              for _ in range(2))
+    shape = f"B={B} {H}x{W} K={K} C={C} f32"
+    attn.TILE_COUNTS.clear()
+    got = attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+    tiles = attn.tile_counts()
+    want = attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params)
+    err = max(close(f"{tag} out", got[0], want[0], **F32_TOL),
+              close(f"{tag} depth", got[2], want[2], **F32_TOL))
+    agree = agreement(f"{tag} corr_pos", got[1], want[1], 1e-3)
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, attn.epipolar_attention_batch(f1, f2, f2, locs, params))):
+        raise AssertionError(f"{tag} two forward runs on the same inputs differ")
+    if sum(tiles) != B * -(-H * W // attn.TILE_QUERIES):
+        raise AssertionError(f"{tag} forward tiles {tiles}")
+    del got, want
+
+    def grads(fn):
+        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
+        out = fn(q, kv, kv, locs, params)[0]
+        r = torch.randn(out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED + 1))
+        return torch.autograd.grad((out.float() * r).sum(), (q, kv))
+
+    got_g = grads(attn.epipolar_attention_batch)
+    bwd_err = close_grads(f"{tag} keys = values one tensor", list(got_g) + [None],
+                          list(grads(attn.epipolar_attention_plain_batch)) + [None],
+                          **GRAD_F32_TOL)
+    if not all(torch.equal(a, b) for a, b in zip(got_g, grads(attn.epipolar_attention_batch))):
+        raise AssertionError(f"{tag} two backward runs on the same inputs differ")
+    del got_g
+
+    def backward_only(fn):
+        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
+        out = fn(q, kv, kv, locs, params)[0]
+        r = torch.randn_like(out)
+        return lambda: torch.autograd.grad(out, (q, kv), r, retain_graph=True)
+
+    fk, fp = in_turns(lambda: attn.epipolar_attention_batch(f1, f2, f2, locs, params),
+                      lambda: attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params))
+    bk, bp = in_turns(backward_only(attn.epipolar_attention_batch),
+                      backward_only(attn.epipolar_attention_plain_batch))
+    fwd_bound, bwd_bound = bound([f1, f2, f2], locs, False), bound([f1, f2], locs, True)
+    log(f"  {tag} attention alone at {shape} on the recipe's sample locations: forward max abs "
+        f"err {err:.3g}, corr_pos agree {agree:.4f}, backward (keys = values one tensor) max "
+        f"abs err {bwd_err:.3g}; two runs bit-equal each way; forward tiles on the tile path / "
+        f"per-query path {tiles[0]} / {tiles[1]}; times (CUDA events, 2x20 calls in turns): "
+        f"forward kernel {fk:.4f} ms, plain {fp:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+        f"({fwd_bound[1]}); backward kernel {bk:.4f} ms, plain autograd {bp:.4f} ms, bound "
+        f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+    torch.cuda.empty_cache()
+    tile_entry = {"tile_path": tiles[0], "per_query_path": tiles[1]}
+    return ({"shape": shape, "ms": fk, "plain_ms": fp, "bound_ms": fwd_bound[0],
+             "bound_by": fwd_bound[1], "max_abs_err": err, "tiles": tile_entry},
+            {"shape": shape, "ms": bk, "plain_ms": bp, "bound_ms": bwd_bound[0],
+             "bound_by": bwd_bound[1], "max_abs_err": bwd_err})
+
+
+def gloo_rank_main(rank: int, world: int, port: int, workdir: str) -> int:
+    """[14](c), one rank: join the gloo group on `port`, take the rank's
+    contiguous share of the batch in `workdir`, and train GLOO_STEPS steps
+    of the recipe under DDP on cuda:0; after the first step write the loss,
+    the ranks' mean loss, the all-reduced gradients and the BN running
+    statistics, after the last check that all ranks hold bit-equal
+    parameters and buffers."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from epipolar_transformers_tpu_torch import parallel
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        device = torch.device("cuda", 0)
+        cfg = load_config(os.path.join(root, R152_DDP_RECIPE),
+                          ["SOLVER.IMS_PER_BATCH", str(GLOO_BATCH)])
+        batch = torch.load(os.path.join(workdir, "gloo_batch.pt"), weights_only=False)
+        n = GLOO_BATCH // world
+        inputs = trainer.model_inputs({k: v[rank * n:(rank + 1) * n] for k, v in batch.items()},
+                                      device, None)
+        model = trainer.build_model(cfg, device)
+        trainer.load_weights(cfg, model)
+        step = trainer.make_train_step(cfg, trainer.data_parallel(cfg, model, device),
+                                       trainer.make_optimizer(cfg, model))
+        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
+        out, ms = {"rank": rank}, []
+        for i in range(GLOO_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(inputs)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            if i == 0:
+                out["loss"] = float(metrics["loss"])
+                out["mean_loss"] = parallel.mean_over_ranks(metrics)["loss"]
+                if rank == 0:
+                    out["grads"] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                                    if p.grad is not None}
+                    out["bn"] = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                                 if k.endswith(("running_mean", "running_var"))}
+        parallel.check_same_on_every_rank(model)
+        out.update(same_after_steps=True, ms=ms, launches=attn.LAUNCHES,
+                   backward_launches=attn.BACKWARD_LAUNCHES, tiles=list(attn.tile_counts()))
+        torch.save(out, os.path.join(workdir, f"gloo_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_phase(tmp, device):
+    """[14](c): one global batch of GLOO_BATCH from the loader, through one
+    rank (this process, no group) and through GLOO_RANKS ranks on the one
+    card over gloo, each taking its share as the loader splits it.  The
+    ranks' mean loss against the one rank's (STEP_LOSS_RTOL); the gradients
+    after the all-reduce and the BN running statistics against the one
+    rank's, by relative L2, over the model and each parameter within
+    STEP_GRAD_REL_L2; the ranks' parameters and buffers bit-equal after
+    GLOO_STEPS steps."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import DatasetCatalog, load_config
+    from epipolar_transformers_tpu_torch.data import pipeline
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, R152_DDP_RECIPE),
+                      ["SOLVER.IMS_PER_BATCH", str(GLOO_BATCH), "BACKBONE.PRETRAINED_WEIGHTS",
+                       os.path.join(tmp, R152_WEIGHTS)])
+    saved, DatasetCatalog.DATA_DIR = DatasetCatalog.DATA_DIR, os.path.join(tmp, "datasets")
+    try:
+        ds = pipeline.build_dataset(cfg, cfg.DATASETS.TRAIN[0])
+    finally:
+        DatasetCatalog.DATA_DIR = saved
+    whole = pipeline.TrainLoader(ds, GLOO_BATCH, cfg.SEED, 4)
+    shares = [pipeline.TrainLoader(ds, GLOO_BATCH, cfg.SEED, local_rank=r,
+                                   local_world=GLOO_RANKS).index_batches()[0]
+              for r in range(GLOO_RANKS)]
+    if not (np.concatenate(shares) == whole.index_batches()[0]).all():
+        raise AssertionError("[14](c) the ranks' shares are not the batch")
+    batch = next(iter(whole))
+    pipeline.stop_workers()
+    torch.save(batch, os.path.join(tmp, "gloo_batch.pt"))
+
+    model = trainer.build_model(cfg, device)
+    trainer.load_weights(cfg, model)
+    attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+    attn.TILE_COUNTS.clear()
+
+    def loss_and_grads(inputs):
+        model.zero_grad(set_to_none=True)
+        loss = model(inputs)[0]["loss"]
+        loss.backward()
+        return float(loss), {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                             if p.grad is not None}
+
+    inputs = trainer.model_inputs(batch, device, None)
+    loss, grads = loss_and_grads(inputs)
+    torch.cuda.synchronize()
+    one = dict(launches=attn.LAUNCHES, backward_launches=attn.BACKWARD_LAUNCHES,
+               tiles=list(attn.tile_counts()))
+    bn = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if k.endswith(("running_mean", "running_var"))}
+    del model, inputs
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    cmds = [[sys.executable, os.path.join(root, "chip_smoke.py"), "--gloo-rank", str(r),
+             str(GLOO_RANKS), str(port), tmp] for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    run_children("[14](c) gloo ranks", cmds, tmp, child_env())
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"gloo_rank{r}.pt"), weights_only=False)
+             for r in range(GLOO_RANKS)]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    mean_loss = ranks[0]["mean_loss"]
+    if abs(mean_loss - loss) > STEP_LOSS_RTOL * abs(loss) or not math.isfinite(mean_loss):
+        raise AssertionError(f"[14](c) loss: {GLOO_RANKS} ranks' mean {mean_loss}, one rank {loss}")
+    got = ranks[0]["grads"]
+    if set(got) != set(grads):
+        raise AssertionError("[14](c) the runs give gradients to different parameters")
+    floor = STEP_NOISE_FLOOR * max(float(g.abs().max()) for g in grads.values())
+    noise = {k for k in grads if k in ZERO_GRAD_PARAMS
+             or max(float(got[k].abs().max()), float(grads[k].abs().max())) < floor}
+    keys = [k for k in grads if k not in noise]
+    whole_err = rel(torch.cat([got[k].flatten() for k in keys]),
+                    torch.cat([grads[k].flatten() for k in keys]))
+    errs = {k: rel(got[k], grads[k]) for k in keys}
+    over = {k: e for k, e in errs.items() if e > STEP_GRAD_REL_L2}
+    worst = max(errs, key=errs.get)
+    bn_errs = {k: rel(ranks[0]["bn"][k], v) for k, v in bn.items()}
+    bn_worst = max(bn_errs, key=bn_errs.get)
+    line = (f"gradients after the all-reduce: relative L2 {whole_err:.3g} over the model, "
+            f"worst parameter {errs[worst]:.3g} ({worst}) over {len(errs)} parameters ({len(noise)} "
+            f"with a true gradient of 0 left out); BN running statistics worst "
+            f"{bn_errs[bn_worst]:.3g} ({bn_worst}) over {len(bn_errs)}")
+    if whole_err > STEP_GRAD_REL_L2 or over or bn_errs[bn_worst] > STEP_GRAD_REL_L2:
+        raise AssertionError(f"[14](c) {line}; over their limit: "
+                             + ", ".join(f"{k} {e:.3g}" for k, e in sorted(over.items())[:10]))
+    if not all(r["same_after_steps"] and r["launches"] > 0 and
+               r["backward_launches"] == GLOO_STEPS for r in ranks):
+        raise AssertionError(f"[14](c) ranks' launches "
+                             f"{[(r['launches'], r['backward_launches']) for r in ranks]}")
+    if not (one["launches"] > 0 and one["backward_launches"] == 1):
+        raise AssertionError(f"[14](c) one rank's kernel launches {one}")
+    log(f"  (c) {R152_DDP_RECIPE} at a batch of {GLOO_BATCH}: one rank x {GLOO_BATCH} here, "
+        f"{GLOO_RANKS} ranks x {GLOO_BATCH // GLOO_RANKS} on the one card over gloo "
+        f"(processes of their own, {wall:.1f} s, rc 0, no process left): loss {loss:.6g}, the "
+        f"ranks' mean {mean_loss:.6g} ({', '.join(f'{r['loss']:.6g}' for r in ranks)} each); "
+        f"{line}; parameters and buffers bit-equal across the ranks after {GLOO_STEPS} steps; "
+        f"kernel launches one rank {one['launches']} / {one['backward_launches']}, each rank "
+        f"{ranks[0]['launches']} / {ranks[0]['backward_launches']}; a rank's step "
+        f"{', '.join(f'{v:.1f}' for v in ranks[0]['ms'])} ms (CUDA events; gloo collectives "
+        f"through the host)")
+    return {"loss_one_rank": loss, "loss_ranks_mean": mean_loss, "grad_rel_l2": whole_err,
+            "grad_worst_rel_l2": errs[worst],
+            "bn_worst_rel_l2": bn_errs[bn_worst], "rank_step_ms": ranks[0]["ms"],
+            "seconds": wall,
+            "launches": one["launches"] + sum(r["launches"] for r in ranks),
+            "backward_launches": (one["backward_launches"]
+                                  + sum(r["backward_launches"] for r in ranks)),
+            "tiles": [one["tiles"][i] + sum(r["tiles"][i] for r in ranks) for i in range(2)]}
+
+
+def r152_phase(device):
+    """[14]: the ResNet-152 recipes as written, each command line in a
+    process of its own started in the fake tree's directory.  (a)
+    R152_RECIPE, and the attention alone at its shape; (b) R152_DDP_RECIPE
+    at DDP_BATCH under torchrun with --multihost (DDP and BatchNorm's
+    all-reduces on one NCCL rank) beside the same without;
+    (c) two ranks on the one card over gloo against one rank; (d)
+    R152_320_RECIPE (80x80) and K85_RECIPE (K=85), a step and an eval group
+    each, and the attention alone at their shapes.  Returns the main path's
+    launches and tiles and the numbers for the kernels' line."""
+    from epipolar_transformers_tpu_torch.config import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    out, entries, runs = {}, [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_fake_h36m(os.path.join(tmp, "datasets"), R152_TRAIN_GROUPS, R152_VAL_GROUPS,
+                        H36M_IMAGE_SIZE, distinct_groups=R152_DISTINCT)
+        write_torchvision_resnet(os.path.join(tmp, R152_WEIGHTS), 152)
+        log(f"  fake H36M tree: {R152_TRAIN_GROUPS} train and {R152_VAL_GROUPS} validation groups "
+            f"of 4 views ({R152_DISTINCT[0]} and {R152_DISTINCT[1]} distinct), "
+            f"{H36M_IMAGE_SIZE + 2}x{H36M_IMAGE_SIZE} JPEG frames, and a seeded random "
+            f"torchvision-layout R-152 at {R152_WEIGHTS}, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) the 384 fixed recipe as written
+        a = recipe_cli("[14](a)", R152_RECIPE, tmp, R152_STEPS, R152_EVAL_GROUPS)
+        runs.append(a)
+        log(f"  (a) {R152_RECIPE} as written (batch 8, 384 px, 96x96, K=64, NUM_WORKERS 14) "
+            f"through the command line in {a['wall']:.1f} s: {describe(a)}")
+        out["r152_384_fixed"] = summary(a)
+        entries.append(attention_at("(a)", load_config(os.path.join(root, R152_RECIPE)),
+                                    a.pop("locs").to(device), device))
+
+        # (b) the _8gpu recipe under torchrun, and without --multihost
+        batch = ["SOLVER.IMS_PER_BATCH", str(DDP_BATCH)]
+        b = recipe_cli("[14](b) torchrun", R152_DDP_RECIPE, tmp, DDP_STEPS, R152_EVAL_GROUPS,
+                       batch, torchrun=True)
+        plain = recipe_cli("[14](b) without --multihost", R152_DDP_RECIPE, tmp, DDP_STEPS,
+                           R152_EVAL_GROUPS, batch)
+        runs += [b, plain]
+        for r in (b, plain):
+            del r["locs"]
+        if not (b["trained"] == ["DistributedDataParallel"] and b["all_reduces"] > 0
+                and "DistributedDataParallel" not in plain["trained"]
+                and plain["all_reduces"] == 0):
+            raise AssertionError(f"[14](b) trained {b['trained']} with {b['all_reduces']} "
+                                 f"all-reduces under torchrun, {plain['trained']} with "
+                                 f"{plain['all_reduces']} without")
+        gap = (statistics.mean(b["steps"]["device_ms"][1:])
+               - statistics.mean(plain["steps"]["device_ms"][1:]))
+        log(f"  (b) torchrun --nproc_per_node 1 ... --multihost {R152_DDP_RECIPE} (NCCL, world 1, "
+            f"global batch {DDP_BATCH}, {DDP_STEPS} steps, each an epoch: rank 0's checkpoint "
+            f"and eval between them) in {b['wall']:.1f} s, rc 0, no process left: the model "
+            f"under {b['trained'][0]}, {b['all_reduces']} all-reduces outside DDP's (BatchNorm's "
+            f"moments, the logged means); {describe(b)}")
+        log(f"  (b) the same without --multihost in {plain['wall']:.1f} s ({plain['trained'][0]}, "
+            f"no collective): {describe(plain)}")
+        log(f"  (b) DDP and BatchNorm's collectives on one NCCL rank against none: {gap:+.1f} ms "
+            f"a device step, "
+            f"{b['steps']['peak_gib'][-1] - plain['steps']['peak_gib'][-1]:+.3f} GiB")
+        out["r152_8gpu_torchrun"] = {**summary(b), "without_multihost": summary(plain)}
+
+        # (c) two ranks on the one card over gloo
+        out["r152_gloo_ranks"] = c = gloo_phase(tmp, device)
+
+        # (d) 80x80 and K=85
+        for key, recipe, what in (("r152_320_fixed_8gpu", R152_320_RECIPE,
+                                   "batch 32, 320 px, 80x80, K=64"),
+                                  ("r50_384_strong_fixed", K85_RECIPE,
+                                   "R-50, batch 8, 384 px, 96x96, K=85")):
+            d = recipe_cli(f"[14](d) {key}", recipe, tmp, 1, 1)
+            runs.append(d)
+            log(f"  (d) {recipe} as written ({what}): one step and one eval group through "
+                f"the command line in {d['wall']:.1f} s: {describe(d)}")
+            out[key] = summary(d)
+            entries.append(attention_at(f"(d) {key}", load_config(os.path.join(root, recipe)),
+                                        d.pop("locs")[:8].to(device), device))
+    out["phase_seconds"] = time.perf_counter() - start
+    log(f"  [14] took {out['phase_seconds']:.1f} s")
+    return dict(launches=sum(r["launches"] for r in runs) + c["launches"],
+                backward_launches=(sum(r["backward_launches"] for r in runs)
+                                   + c["backward_launches"]),
+                tiles=[sum(r["tiles"][i] for r in runs) + c["tiles"][i] for i in range(2)],
+                numbers=out, forward_entries=[e[0] for e in entries],
+                backward_entries=[e[1] for e in entries])
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -2517,7 +3194,11 @@ def main() -> int:
     log(f"[13] the flagship recipe on H36M-layout data: {H36M_RECIPE} as written through the "
         f"command line on a fake tree of JPEG frames, {card}")
     h36m = h36m_phase(device)
-    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m]
+    log(f"[14] the ResNet-152 recipes as written on a fake H36M tree: {R152_RECIPE} through "
+        f"the command line, {R152_DDP_RECIPE} under torchrun --multihost and over two gloo "
+        f"ranks on the card, {R152_320_RECIPE} (80x80) and {K85_RECIPE} (K=85), {card}")
+    r152 = r152_phase(device)
+    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -2532,7 +3213,7 @@ def main() -> int:
             "per_query_path": (slice_tiles[1] + train_tiles[1] + eval_tiles[1]
                                + hg["tiles"][1] + recipe_tiles[1]
                                + sum(e["tiles"][1] for e in extra))},
-        "hourglass_shape": hg["entry"],
+        "hourglass_shape": hg["entry"], "r152_shapes": r152["forward_entries"],
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
@@ -2541,14 +3222,15 @@ def main() -> int:
                      + sum(e["backward_launches"] for e in extra)),
         "max_abs_err": bwd_err, "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
-        "hourglass_shape": hg["backward_entry"],
+        "hourglass_shape": hg["backward_entry"], "r152_shapes": r152["backward_entries"],
         "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],
                            "bound_by": prior_bound[1]},
     }], "param_recipe": param, "lifting_tasks": {
         k: {kk: vv for kk, vv in v.items() if kk not in ("launches", "backward_launches", "tiles")}
         if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()},
         "h36m_path": {k: v for k, v in h36m.items()
-                      if k not in ("launches", "backward_launches", "tiles")}}))
+                      if k not in ("launches", "backward_launches", "tiles")},
+        "r152_recipes": r152["numbers"]}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:
@@ -2565,6 +3247,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-main"]:  # [14]: the command line in a process of its own
+        sys.exit(cli_main(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--gloo-rank"]:  # [14](c): a rank that [14] starts
+        sys.exit(gloo_rank_main(*map(int, sys.argv[2:5]), sys.argv[5]))
     try:
         code = main()
     finally:

@@ -18,7 +18,21 @@ draws from its dataset reseeded with (cfg.SEED, epoch, w + 1) and takes
 the epoch's items w, w + N, ... in batch order, so a run is deterministic
 for a given N and a batch's items are made in parallel; with 0 workers
 the dataset's own stream, seeded with cfg.SEED, gives the JAX package's
-items.  Workers start with DATALOADER.MP_START_METHOD ('auto':
+items.
+
+Under a process group (parallel/) each rank loads its own share, as the
+JAX package's processes do (JAX `DataLoader._indices`): host h of H takes
+the epoch's order `idx[h::H]` in batches of SOLVER.IMS_PER_BATCH, and the
+host's L ranks split each such batch into contiguous slices, rank l taking
+the l-th; the slices concatenated in rank order are the JAX batch in mesh
+order, and on one host the single-rank batch.  DATALOADER.NUM_WORKERS is
+the host's too: each of its L ranks starts N = max(1, NUM_WORKERS // L)
+workers.  Rank r's worker w draws
+from its dataset reseeded with (cfg.SEED, epoch, r N + w + 1): rank 0
+replays the draws of a one-rank run with N workers, and each other rank's
+workers take streams no other worker draws.  With 0 workers every rank
+draws the dataset's own stream, seeded with cfg.SEED, as each JAX process
+does.  Workers start with DATALOADER.MP_START_METHOD ('auto':
 forkserver under a parent with threads, as a torch parent always has),
 touch no GPU, and a worker's error, or its death, stops the run with the
 error in the consumer.  RHD's loader stays in the calling process (its
@@ -37,6 +51,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from .. import parallel
 from ..config import Config, DatasetCatalog
 
 __all__ = ["ConcatDataset", "EvalLoader", "TrainLoader", "build_dataset", "collate",
@@ -115,11 +130,13 @@ def _worker_loop(dataset, seed, tasks, results) -> None:
 
 
 def _worker_batches(dataset, batches: List[np.ndarray], num_workers: int, start_method: str,
-                    seed: int, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+                    seed: int, epoch: int, first_worker: int = 0
+                    ) -> Iterator[Dict[str, np.ndarray]]:
     """`batches` of `dataset` from `num_workers` processes, collated and
     yielded in order.  The epoch's items, in batch order, go round the
     workers (item k to worker k % N), so a batch's items are made in
-    parallel; the items of the next two batches are kept in flight."""
+    parallel; the items of the next two batches are kept in flight.  Worker
+    w reseeds the dataset with (seed, epoch, first_worker + w + 1)."""
     order = [int(i) for idx in batches for i in idx]
     ends = np.cumsum([len(idx) for idx in batches]).tolist()
     n = min(num_workers, len(order))
@@ -132,8 +149,9 @@ def _worker_batches(dataset, batches: List[np.ndarray], num_workers: int, start_
         ctx.set_forkserver_preload([__name__, type(dataset).__module__])
     tasks = [ctx.Queue() for _ in range(n)]
     results = ctx.Queue()
-    workers = [ctx.Process(target=_worker_loop, args=(dataset, [seed, epoch, w + 1], tasks[w],
-                                                      results),
+    workers = [ctx.Process(target=_worker_loop,
+                           args=(dataset, [seed, epoch, first_worker + w + 1], tasks[w],
+                                 results),
                            daemon=True, name=f"loader-worker-{w}") for w in range(n)]
     for p in workers:
         p.start()
@@ -216,9 +234,10 @@ def stop_workers() -> None:
 
 
 def _batches(dataset, batches: List[np.ndarray], num_workers: int, start_method: str,
-             seed: int, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+             seed: int, epoch: int, first_worker: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     if num_workers > 0:
-        return _worker_batches(dataset, batches, num_workers, start_method, seed, epoch)
+        return _worker_batches(dataset, batches, num_workers, start_method, seed, epoch,
+                               first_worker)
     return (collate([dataset[int(i)] for i in idx]) for idx in batches)
 
 
@@ -260,31 +279,49 @@ class TrainLoader:
     dropped.  Epoch e visits the items in the order
     `np.random.RandomState(seed + e).shuffle(np.arange(n))`, as the JAX
     `DataLoader(shuffle=True, drop_last=True)` does; the epoch counts only
-    passes that ran to their end, as there."""
+    passes that ran to their end, as there.
+
+    Data parallel: `shard_id` of `num_shards` hosts takes `order[shard_id::
+    num_shards]` in batches of `batch_size` (the host's batch, as the JAX
+    `DataLoader(shard_id, num_shards)`), and `local_rank` of the host's
+    `local_world` ranks yields the local_rank-th contiguous slice of each;
+    the rank's workers are numbered from rank * num_workers."""
 
     def __init__(self, dataset, batch_size: int, seed: int, num_workers: int = 0,
-                 start_method: str = "auto"):
+                 start_method: str = "auto", shard_id: int = 0, num_shards: int = 1,
+                 local_rank: int = 0, local_world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.num_workers = num_workers
         self.start_method = start_method
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.local_rank = local_rank
+        self.local_world = local_world
+        self.rank_batch = parallel.per_rank_batch(batch_size, local_world)
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.num_shards // self.batch_size
 
     def indices(self) -> np.ndarray:
-        """This epoch's item order."""
+        """This epoch's item order over the whole dataset."""
         idx = np.arange(len(self.dataset))
         np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         return idx
 
+    def index_batches(self) -> List[np.ndarray]:
+        """This epoch's batches of this rank's items."""
+        idx = self.indices()[self.shard_id::self.num_shards]
+        lo = self.local_rank * self.rank_batch
+        return [idx[b * self.batch_size:(b + 1) * self.batch_size][lo:lo + self.rank_batch]
+                for b in range(len(self))]
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = self.indices()
-        batches = [idx[b * self.batch_size:(b + 1) * self.batch_size] for b in range(len(self))]
-        yield from _batches(self.dataset, batches, self.num_workers, self.start_method,
-                            self.seed, self.epoch)
+        rank = self.shard_id * self.local_world + self.local_rank
+        yield from _batches(self.dataset, self.index_batches(), self.num_workers,
+                            self.start_method, self.seed, self.epoch, rank * self.num_workers)
         self.epoch += 1
 
 
@@ -328,12 +365,19 @@ def _loader_args(cfg: Config, dataset) -> dict:
 
 def make_train_loader(cfg: Config) -> TrainLoader:
     """DATASETS.TRAIN concatenated into one shuffled loader of
-    SOLVER.IMS_PER_BATCH items that drops the last partial batch (JAX
-    `make_data_loader(cfg, is_train=True)`)."""
+    SOLVER.IMS_PER_BATCH items a host that drops the last partial batch
+    (JAX `make_data_loader(cfg, is_train=True, shard_id=process_index,
+    num_shards=process_count)`); under a process group, this rank's share
+    of its host's batches."""
     datasets = [build_dataset(cfg, n) for n in cfg.DATASETS.TRAIN]
     dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
+    args = _loader_args(cfg, dataset)
+    ranks = parallel.local_world()
+    if args["num_workers"]:  # DATALOADER.NUM_WORKERS is the host's, as the batch is
+        args["num_workers"] = max(1, args["num_workers"] // ranks)
     return TrainLoader(dataset, batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED,
-                       **_loader_args(cfg, dataset))
+                       shard_id=parallel.host(), num_shards=parallel.hosts(),
+                       local_rank=parallel.local_rank(), local_world=ranks, **args)
 
 
 def make_eval_loaders(cfg: Config) -> List[EvalLoader]:

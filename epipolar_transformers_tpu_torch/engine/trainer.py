@@ -20,8 +20,19 @@ then `load_weights` imports the pretrained and foreign weights
 batch without `img` is a DATALOADER.DEVICE_RENDER batch: only its
 coordinates, cameras and visibility go to the device, where
 ops/synthetic_render.py renders the images and heatmaps.  Not ported here,
-each said when met: DATALOADER.BENCHMARK (ROADMAP A13), tensorboard
-(ROADMAP A13, skipped with a log line) and data parallel (ROADMAP A8).
+each said when met: DATALOADER.BENCHMARK (ROADMAP A13) and tensorboard
+(ROADMAP A13, skipped with a log line).
+
+Under a process group (parallel/: `--multihost`, or a group the caller
+made) every rank builds the same seeded model, checks once that all hold
+bit-equal weights, and trains its share of each batch under
+DistributedDataParallel, which averages the gradients; BatchNorm takes the
+global batch's moments (models/layers.py) and the count-normalised losses
+the global count, so a step is the JAX package's step on the whole batch.
+Rank 0 alone saves checkpoints and runs `eval_fn` while the others wait at
+a barrier, and logs the step's values averaged over the ranks.  On the GPU
+each logged step also reports its device time (CUDA events) and the peak
+device memory so far.
 """
 
 from __future__ import annotations
@@ -31,10 +42,13 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from .. import parallel
 from ..config import Config
 from ..data.pipeline import make_train_loader
 from ..models import ModelBuilder
+from ..models.layers import BatchNorm2d
 from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
 from ..utils.pretrained import apply_pretrained
@@ -112,6 +126,33 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     return train_step
 
 
+def data_parallel(cfg: Config, model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """`model` under DistributedDataParallel in a process group (of one rank
+    too, as torchrun --nproc_per_node 1 makes it), else `model` itself.
+    Checks first that every
+    rank holds the same weights, and that every BatchNorm is one that takes
+    the global batch's moments (a torch BatchNorm would train on its rank's).
+    The BN statistics agree by construction, so no buffer is broadcast; the
+    sibling backbone of unshared weights runs under no-grad (without
+    EPIPOLAR.OTHER_GRAD), the one case where parameters get no gradient."""
+    if not parallel.distributed():
+        return model
+    local = [n for n, m in model.named_modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+             and not isinstance(m, BatchNorm2d)]
+    if local:
+        raise ValueError(f"{local[:3]} would train on each rank's own moments under "
+                         f"{parallel.world()} ranks; the port's BatchNorm2d takes the global "
+                         "batch's")
+    parallel.check_same_on_every_rank(model)
+    c = cfg.EPIPOLAR
+    unused = (cfg.DATASETS.TASK in ("multiview_keypoint", "multiview_img_lifting_rot")
+              and not c.SHARE_WEIGHTS and not c.OTHER_GRAD)
+    return DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == "cuda" else None,
+        broadcast_buffers=False, find_unused_parameters=unused)
+
+
 def check_supported(cfg: Config) -> None:
     """Raise on what the port's train loop does not run yet."""
     if cfg.DATALOADER.BENCHMARK:
@@ -149,8 +190,9 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
         start_epoch = int(extra.get("epoch", 0))
         logger.info("Resumed from epoch %d", start_epoch)
 
-    train_step = make_train_step(cfg, model, optimizer)
+    train_step = make_train_step(cfg, data_parallel(cfg, model, device), optimizer)
     render = make_batch_renderer(cfg)
+    timer = _StepTimer(device)
     step = 0
     t_data = t_step = 0.0
     for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS):
@@ -158,21 +200,59 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
         for batch in loader:
             inputs = model_inputs(batch, device, render)
             t_data += time.time() - t0
-            metrics = train_step(inputs)
+            with timer:
+                metrics = train_step(inputs)
             step += 1
             t_step += time.time() - t0
             if step % cfg.LOG_FREQ == 0:
-                values = {k: float(v) for k, v in metrics.items()}
-                logger.info("epoch %d step %d  %s  data_t %.3f step_t %.3f", epoch, step,
-                            "  ".join(f"{k} {v:.6g}" for k, v in values.items()),
-                            t_data / step, t_step / step)
+                values = parallel.mean_over_ranks(metrics)
+                if parallel.is_primary():
+                    logger.info("epoch %d step %d  %s  data_t %.3f step_t %.3f%s", epoch, step,
+                                "  ".join(f"{k} {v:.6g}" for k, v in values.items()),
+                                t_data / step, t_step / step, timer.report())
             if max_steps is not None and step >= max_steps:
                 return model, optimizer
             t0 = time.time()
         if (epoch + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-            checkpointer.save(f"model_{epoch:03d}", model, optimizer, epoch=epoch + 1)
+            _on_primary(checkpointer.save, f"model_{epoch:03d}", model, optimizer,
+                        epoch=epoch + 1)
         if eval_fn is not None and cfg.EVAL_FREQ > 0 and (epoch + 1) % cfg.EVAL_FREQ == 0:
-            eval_fn(cfg, model)
+            _on_primary(eval_fn, cfg, model)
     if cfg.SOLVER.MAX_EPOCHS > start_epoch:
-        checkpointer.save("model_final", model, optimizer, epoch=cfg.SOLVER.MAX_EPOCHS)
+        _on_primary(checkpointer.save, "model_final", model, optimizer,
+                    epoch=cfg.SOLVER.MAX_EPOCHS)
     return model, optimizer
+
+
+def _on_primary(fn, *args, **kwargs) -> None:
+    """fn on rank 0 alone (no collective inside) while the other ranks wait."""
+    if parallel.is_primary():
+        with parallel.alone():
+            fn(*args, **kwargs)
+    parallel.barrier()
+
+
+class _StepTimer:
+    """CUDA events around each train step; `report` gives the last step's
+    device ms and the peak device memory for the step log line (nothing on
+    the CPU)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def __enter__(self):
+        if self.cuda:
+            self.events[0].record()
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.events[1].record()
+
+    def report(self) -> str:
+        if not self.cuda:
+            return ""
+        self.events[1].synchronize()
+        return (f" device_ms {self.events[0].elapsed_time(self.events[1]):.3f}"
+                f" peak_gib {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}")

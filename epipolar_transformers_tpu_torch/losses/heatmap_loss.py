@@ -4,11 +4,18 @@ Port of epipolar_transformers_tpu/losses/heatmap_loss.py (reference
 modeling/metrics/metrics2d.py:18-90).  The JAX versions take NHWC heatmaps;
 these take (N, J, H, W).  Visibility is (N, J), or (N, J, 1|3) whose first
 column marks a visible joint.
+
+A loss divided by a count that the data sets (the visible joints, the mask)
+takes that count over the global batch under a process group
+(`parallel.global_ratio`), as GSPMD does in the JAX package; the mean
+losses need nothing, since every rank holds as many items.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import parallel
 
 
 def _vis2d(visibility: torch.Tensor, n: int, j: int) -> torch.Tensor:
@@ -39,7 +46,7 @@ def keypoints_mse_smooth_loss(pred: torch.Tensor, target: torch.Tensor,
     v = _vis2d(visibility, N, J)
     diff = (target.float() - pred.float()) ** 2 * v[:, :, None, None]
     diff = torch.where(diff > threshold, diff ** 0.1 * threshold ** 0.9, diff)
-    return diff.sum() / (H * W * torch.clamp(v.sum(), min=1.0))
+    return parallel.global_ratio(diff.sum(), v.sum(), 1.0) / (H * W)
 
 
 def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
@@ -48,7 +55,7 @@ def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torc
     if mask is None:
         return se.mean()
     m = torch.as_tensor(mask, device=se.device).bool()
-    return torch.where(m, se, torch.zeros_like(se)).sum() / torch.clamp(m.sum(), min=1)
+    return parallel.global_ratio(torch.where(m, se, torch.zeros_like(se)).sum(), m.sum(), 1)
 
 
 def compute_stage_loss(pred_stages, target, mask=None):

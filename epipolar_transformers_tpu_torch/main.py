@@ -11,8 +11,19 @@ the model, imports the pretrained and foreign weights (a reference `.pth`
 in cfg.WEIGHTS), then restores a native checkpoint: the `last_checkpoint`
 of OUTPUT_DIR, which wins, or a cfg.WEIGHTS that the port wrote.
 
+`--multihost` trains data parallel, one rank a GPU, under torchrun:
+
+    torchrun --nproc_per_node N -m epipolar_transformers_tpu_torch.main --multihost \
+        --cfg configs/foo.yaml [KEY VALUE ...]
+
+Each rank joins the NCCL group of torchrun's environment on
+cuda:LOCAL_RANK (gloo on the CPU with `--device cpu`) and trains its share
+of each batch (parallel/, engine/trainer.py); rank 0 alone runs the evals,
+logs and prints RESULTS, while the others wait.  The group is left at the
+end and on an error.
+
 Not ported yet, each raising when asked: VIS.FLOPS, the visualization
-dispatch and `--trace` (ROADMAP A13), `--multihost` (ROADMAP A8).
+dispatch and `--trace` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ import sys
 import numpy as np
 import torch
 
+from . import parallel
 from .config import load_config
+from .data.pipeline import stop_workers
 from .engine import test, train
 from .engine.trainer import build_model, load_weights, resolve_device
 
@@ -42,7 +55,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default cuda:0; 'cpu' runs on the CPU)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-process data parallel (ROADMAP A8; raises)")
+                        help="data parallel over the ranks that torchrun starts")
     parser.add_argument("--trace", metavar="DIR", default=None,
                         help="profiler trace of the run (ROADMAP A13; raises)")
     parser.add_argument("opts", nargs=argparse.REMAINDER,
@@ -63,9 +76,6 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
                         stream=sys.stdout)
 
-    if args.multihost:
-        raise NotImplementedError("--multihost (data parallel over processes) is ROADMAP A8 "
-                                  "in the port")
     if args.trace:
         raise NotImplementedError("--trace (a profiler trace of the run) is ROADMAP A13 "
                                   "in the port")
@@ -75,8 +85,21 @@ def main(argv=None):
     if _wants_visualization(cfg):
         raise NotImplementedError("the VIS dispatch (pointcloud, AUC, video, epipolar lines, "
                                   "cursor) is ROADMAP A13 in the port")
-    device = resolve_device(args.device)
+    if not args.multihost:
+        return run(cfg, args, resolve_device(args.device))
+    device = parallel.init_distributed(args.device)
+    try:
+        if not parallel.is_primary():
+            logging.getLogger().setLevel(logging.WARNING)
+        return run(cfg, args, device)
+    finally:
+        parallel.shutdown()
+        stop_workers()  # the loader's forkserver and resource tracker would outlive the rank
 
+
+def run(cfg, args, device):
+    """Train and/or evaluate `cfg` on `device`; under a process group, rank
+    0 alone evaluates and prints RESULTS (the others return None)."""
     if cfg.OUTPUT_DIR:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     np.random.seed(cfg.SEED)
@@ -95,6 +118,15 @@ def main(argv=None):
         model, _ = train(cfg, max_steps=args.max_steps, device=device, eval_fn=eval_fn)
     if not cfg.DOTEST:
         return None
+    results = None
+    if parallel.is_primary():
+        with parallel.alone():
+            results = evaluate(cfg, args, device, model)
+    parallel.barrier()
+    return results
+
+
+def evaluate(cfg, args, device, model):
     if model is None:
         # eval-only: build the model, then the foreign imports and the
         # native restore (root main.py:109-131); an unloadable WEIGHTS warns

@@ -44,7 +44,9 @@ models/builder.py:162-191, ops/epipolar_reproject.py) on a PoseResNet.
 The inputs' `camera` and `other_camera` reach the fusion (the learned
 prior), and `other_img` the hourglass (FIND_CORR 'rgb').  The lifting
 tasks take the hand-side one-hot where DATASET_FAMILY is 'rhd'.
-MULTITEST raises (ROADMAP A11b).
+EPIPOLAR.MULTITEST at eval runs the target view against each of several
+candidate other views and keeps, per joint, the most confident peak (JAX
+`_multitest_forward`, models/builder.py:336-371).
 """
 
 from __future__ import annotations
@@ -240,9 +242,31 @@ class ModelBuilder(nn.Module):
         if self.training:
             return self._train_forward(inputs)
         if c.EPIPOLAR.MULTITEST:
-            raise NotImplementedError("EPIPOLAR.MULTITEST is ROADMAP A11b")
+            return self._multitest_forward(inputs)
         with self._bn_batch_stats(bn_train):
             return self._eval_forward(inputs, bn_train)
+
+    def _multitest_forward(self, inputs: Dict[str, torch.Tensor]):
+        """MULTITEST eval (reference model.py:213-239): `other_img` (O, N, 3,
+        H, W) and `other_KRT` (O, N, 3, 4) carry O candidate views; the
+        target view runs against each, and each joint keeps the location
+        and score of its most confident candidate (the first on a tie).  The
+        heatmaps are the last candidate's.  As in the JAX package, the
+        cameras do not reach the fusion."""
+        locs, scores = [], []
+        for other_img, other_KRT in zip(inputs["other_img"], inputs["other_KRT"]):
+            bb = self.reference(inputs["img"],
+                                other_features=self._other_features(other_img, False),
+                                other_KRT=other_KRT, KRT=inputs["KRT"], other_img=other_img,
+                                decode_peaks=True)
+            locs.append(bb.locs)
+            scores.append(bb.scores)
+        scores = torch.stack(scores)  # (O, N, J)
+        best_score, best = scores.max(dim=0)
+        best_locs = torch.gather(torch.stack(locs), 0,
+                                 best[None, ..., None].expand(1, *best.shape, 2))[0]
+        return {"heatmap_pred": bb.heatmaps[-1], "batch_locs": best_locs,
+                "score_pred": best_score}
 
     def _keypoint_forward(self, inputs: Dict[str, torch.Tensor], bn_train: bool):
         """The single-view task: the backbone on `img`; its heatmap loss in

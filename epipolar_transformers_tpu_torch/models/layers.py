@@ -14,6 +14,18 @@ In training, BatchNorm follows flax's `nn.BatchNorm`, not torch's: both
 normalize with the biased batch variance, but flax also moves the running
 variance with the biased one where torch uses the unbiased one (a factor
 n / (n - 1): 8/7 for a 1x1 map at batch 8).
+
+Under a process group (parallel/; one of a single rank too, which runs
+the collectives as each rank of a larger group does), every BatchNorm in
+training takes the moments of the global batch, all ranks' items, as
+GSPMD makes them in the JAX package, whatever BACKBONE.SYNC_BN says
+(ROADMAP C13): the mean and the biased variance from two all-reduces, of
+the sum and then of the centred sum of squares, each differentiable
+(`parallel.all_sum_differentiable`), and the running statistics move with
+them as above.  torch's SyncBatchNorm would move the running variance with the
+unbiased variance, and takes CUDA tensors only.  A BatchNorm whose `sync`
+is off raises under more than one rank instead of training on its
+rank's moments (the JAX package's GuardedBatchNorm).
 """
 
 from __future__ import annotations
@@ -21,6 +33,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .. import parallel
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -69,9 +83,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch variance, `running = (1 - momentum) running + momentum batch`.
 
     `batch_stats` (TEST.TRAIN_BN): outside training, normalize with the
-    batch statistics and leave the running ones untouched."""
+    batch statistics and leave the running ones untouched.
+
+    `sync`: in training under a process group, take the global batch's
+    moments (through the collectives even in a group of one rank); a
+    BatchNorm with `sync` off raises under more than one rank."""
 
     batch_stats = False
+    sync = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -80,11 +99,35 @@ class BatchNorm2d(nn.BatchNorm2d):
                 return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if parallel.distributed() and (self.sync or parallel.world() > 1):
+            return self._global_forward(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            self._move_running(mean, var)
+        return out
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on the moments of every rank's items."""
+        if not self.sync:
+            raise ValueError(
+                f"BatchNorm2d({self.num_features}) would train on rank {parallel.rank()}'s "
+                f"own moments under a process group of {parallel.world()} ranks, where the "
+                "JAX package takes the global batch's; turn its `sync` on")
+        dims = (0, 2, 3)
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        total = parallel.all_sum_differentiable(torch.cat([x.sum(dims), count]))
+        mean = total[:-1] / total[-1]
+        centred = x - mean.view(1, -1, 1, 1)
+        var = parallel.all_sum_differentiable((centred * centred).sum(dims)) / total[-1]
+        out = centred * torch.rsqrt(var + self.eps).view(1, -1, 1, 1)
+        out = out * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        with torch.no_grad():
+            self._move_running(mean, var)
         return out
 
 

@@ -7,7 +7,9 @@ line back into the reference view, run the same soft attention along it
 (the plain path, ops/epipolar_attention.py), and penalize the expected
 back-projected position's distance from the pixel it started at.  The
 gradient reaches the attention weights through the expected match and
-through the back lines' sample locations, as in the JAX package.
+through the back lines' sample locations, as in the JAX package.  The
+loss's mask count is taken over the global batch under a process group
+(`parallel.global_ratio`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import parallel
 from ..geometry.camera import denormalize_pixel, pix2coord
 from .epipolar_attention import AttentionParams, epipolar_attention
 from .epipolar_sampling import EpipolarGeometry, epipolar_sample_locs
@@ -71,4 +74,4 @@ def gt_grid(geom: EpipolarGeometry) -> np.ndarray:
 def reprojection_loss(reproj: torch.Tensor, grid: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked MSE between reprojected and identity grids."""
     se = (reproj - grid) ** 2 * mask
-    return se.sum() / torch.clamp(mask.sum() * 2, min=1)
+    return parallel.global_ratio(se.sum(), mask.sum() * 2, 1)

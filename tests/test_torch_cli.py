@@ -151,15 +151,19 @@ def test_cli_needs_a_gpu_unless_asked_for_the_cpu(yaml_path, tmp_path, monkeypat
     assert not out.exists()
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--multihost"], "A8"),
-    (["--trace", "t"], "A13"),
-    (["VIS.FLOPS", "True"], "A13"),
-    (["VIS.POINTCLOUD", "True"], "A13"),
+@pytest.mark.parametrize("argv,error,match", [
+    # --multihost is ported: outside torchrun it raises for the missing
+    # environment (tests/test_torch_parallel.py runs it under a group)
+    (["--multihost"], RuntimeError, "torchrun's environment"),
+    (["--trace", "t"], NotImplementedError, "A13"),
+    (["VIS.FLOPS", "True"], NotImplementedError, "A13"),
+    (["VIS.POINTCLOUD", "True"], NotImplementedError, "A13"),
 ], ids=["multihost", "trace", "flops", "vis"])
-def test_cli_unported_options_raise(yaml_path, tmp_path, argv, match):
+def test_cli_unported_options_raise(yaml_path, tmp_path, monkeypatch, argv, error, match):
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     flags = [a for a in argv if a.startswith("--") or a == "t"]
     opts = [a for a in argv if a not in flags]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         cli.main(["--cfg", yaml_path, "--device", "cpu", *flags, *opts,
                   "OUTPUT_DIR", str(tmp_path)])

@@ -18,7 +18,9 @@ tree (a lifting train step, then `_test_lifting`) and the single-view
 on a fake tree that chip_smoke.write_fake_h36m writes with the port's JPEG
 encoder (an item, a train loader with 2 worker processes, and
 configs/epipolar/fake_h36m_zresidual.yaml through the command line, cut to
-a tiny width); no blocked module is loaded at the end.
+a tiny width), and the command line with --multihost on two gloo ranks
+(processes spawned with the same modules blocked; a train step, then rank
+0's eval); no blocked module is loaded at the end.
 """
 
 import os
@@ -131,6 +133,14 @@ with tempfile.TemporaryDirectory() as data_dir:
                     "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_WORKERS", "2",
                     "OUTPUT_DIR", data_dir + "/out"])
 assert math.isfinite(results["EPEmean_global"]), results
+sys.path.insert(0, "tests")
+from torch_ddp_ranks import run_ranks
+with tempfile.TemporaryDirectory() as tmp:
+    ranks = run_ranks("cli_rank", 2, tmp, [
+        "--multihost", "--device", "cpu", "--cfg", "configs/epipolar/synthetic_zresidual.yaml",
+        "--max-steps", "1", "--max-eval-batches", "1", "OUTPUT_DIR", tmp + "/out"], BLOCKED)
+assert math.isfinite(ranks[0]["results"]["EPEmean_global"]) and ranks[1]["results"] is None
+assert not ranks[0]["loaded"] and not ranks[1]["loaded"], ranks
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded

@@ -77,8 +77,8 @@ def step():
 
 def train_step_pair(cfg, jcfg, batch, jbatch):
     """One JAX train step (`jcfg` on `jbatch`) and one port train step
-    (`cfg` on `batch`), both in f64 from the same randomized weights;
-    returns what the tests compare."""
+    (`cfg` on `batch`), both in f64 from the same randomized weights (the
+    numpy tree `variables`); returns what the tests compare."""
     jinputs = {k: jnp.asarray(np.asarray(jbatch[k], np.float64)) for k in TRAIN_KEYS}
 
     with pytest.MonkeyPatch.context() as mp:
@@ -127,6 +127,7 @@ def train_step_pair(cfg, jcfg, batch, jbatch):
         return state
 
     return dict(
+        variables=variables,
         model=model, loss_dict=loss_dict, metric_dict=metric_dict, out=out, grads=grads,
         jloss=float(jloss),
         jgrads=as_port(jgrads, variables["batch_stats"]),

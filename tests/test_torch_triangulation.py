@@ -2,7 +2,9 @@
 
 * `geometry/host.py` is the port's own f64 numpy copy: on the same seeded
   points, confidences and rig (`tests/conftest.py:make_camera_ring`) the
-  four triangulations, RANSAC hypotheses included, agree to rtol 1e-12.
+  four triangulations, RANSAC hypotheses included, agree to rtol 1e-12;
+  with an untrained R-152's heatmap peaks, pymvg is NaN in both where no
+  view of a joint peaks above -1.
 * `ops/grid_sample.py` is `F.grid_sample` behind the JAX signature
   (channels-last image, (..., 2) grid): held to the JAX version at rtol
   1e-6, atol 1e-6, and to `grid_sample_golden.npz` (the reference's torch)
@@ -74,6 +76,25 @@ def test_host_triangulations_equal_jax(seed):
                                    jhost.triangulate_epipolar_np(*args, dlt=dlt), **EXACT)
     np.testing.assert_allclose(host.dlt_triangulate_np(pts[:, 2], ring["KRT"]),
                                jhost.dlt_triangulate_np(pts[:, 2], ring["KRT"]), **EXACT)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pymvg_is_nan_in_both_packages_where_no_view_peaks_above_minus_one(seed):
+    """Heatmap peaks as an untrained R-152 gives them (-4e3 .. 2.4e4,
+    scripts/torch_r152_eval_nan.py): a joint whose every view peaks below
+    -1 leaves the adaptive threshold no view, and both packages return
+    NaN for it; the other joints agree."""
+    ring, X, pts, _ = _observations(seed)
+    rng = np.random.RandomState(seed + 20)
+    confs = rng.uniform(-4e3, 2.4e4, (4, len(X)))
+    confs[:, 2] = -rng.uniform(2, 4e3, 4)
+    confs[:, 5] = [-3.0, -40.0, -2.0, -500.0]
+    got = host.triangulate_pymvg_np(pts, ring["K"], ring["RT"], confs, conf_thres=0.05)
+    want = jhost.triangulate_pymvg_np(pts, ring["K"], ring["RT"], confs, conf_thres=0.05)
+    nan = np.isnan(got).any(axis=-1)
+    assert nan[[2, 5]].all()
+    np.testing.assert_array_equal(nan, np.isnan(want).any(axis=-1))
+    np.testing.assert_allclose(got[~nan], want[~nan], **EXACT)
 
 
 def test_grid_sample_2d_matches_jax():
