@@ -132,8 +132,9 @@ run, each printed on its own lines:
  14. the ResNet-152 recipes as written on a fake H36M tree (40 train and 72
      validation groups of 1002x1000 JPEG frames, 4 and 2 of them distinct,
      and a seeded random torchvision-layout R-152 where the `_8gpu` recipes
-     read it), each command line in a process of its own started in the
-     tree's directory: (a) keypoint_h36m_resnet152_384_fixed.yaml (batch 8,
+     read it), their command lines in processes of their own started in
+     the tree's directory (the torchrun rank in one, the others one after
+     another in another): (a) keypoint_h36m_resnet152_384_fixed.yaml (batch 8,
      384 px, 96x96, K=64): 3 steps and 2 eval groups, the device ms a step
      (CUDA events), the loop's wall and the loader's share, the peak, both
      kernels' launches and the tiles on each path, finite MPJPE and JDR;
@@ -153,21 +154,45 @@ run, each printed on its own lines:
      keypoint_h36m_resnet50_384_strong_fixed.yaml (K=85): a step and an
      eval group each, and the attention alone at their shapes.  Every child
      must exit 0 and leave no process in its session.
+ 15. the fifteen recipes no card had run, as written (the batch, size, K,
+     TOPK, MAPPING, DATA_FORMAT, workers and triangulation of each YAML),
+     on a fake H36M tree (160 train, 72 validation groups), a fake RHD tree
+     and a seeded pose-ResNet-152 at the pretrained recipes'
+     datasets/pose_resnet_4.5_pixels_human36m.pth, their command lines
+     one after another in one process of their own started in the trees'
+     directory: 2 steps (3 for RHD) and 2 eval groups each, the device ms
+     a step, the peak, the loop's wall and the loader's share,
+     `profile_model`'s FLOPs an item and the step's TFLOP/s, both kernels'
+     launches and tiles, and finite metrics; seven stop with the error
+     that the CPU tests pin in both packages (C17-C19).  Then both
+     kernels against their plain versions at 96x96 on the 19 mm recipe's
+     sample locations ([14](a)'s tolerances, times, bounds); the 19 mm
+     recipe's eval on one group, kernel route against plain route
+     (corr_pos, and the 3D of its epipolar triangulation); and the
+     tooling: (a) `_384_aug`'s run is under --trace, whose trace must name
+     every hand kernel, with the device's busy share over the traced
+     steps; (b) VIS.FLOPS on the flagship (the same count on the card and
+     the host) and on the 384 fixed recipe; (c) DATALOADER.BENCHMARK of
+     keypoint_h36m_zresidual_fixed.yaml with its 15 workers, every stage's
+     ms nonzero; (d) that recipe's event files, read back, against its
+     logged values.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c) and 14), errors and times,
-each entry's `hourglass_shape` times at [8]'s shape and `r152_shapes` at
-[14]'s (96x96 K=64, 80x80 K=64, 96x96 K=85), and each kernel's
+launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14 and 15), errors and times,
+each entry's `hourglass_shape` times at [8]'s shape, `r152_shapes` at
+[14]'s (96x96 K=64, 80x80 K=64, 96x96 K=85) and `a11d_19mm_shape` at
+[15]'s 19 mm recipe's locations, and each kernel's
 bound: the larger of its
 operations over the f32 rate outside the tensor cores and its bytes (each
 input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c) and 14; the
+each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14 and 15; the
 backward's, `prior_gradient`, its time with and without the prior's
 gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
-`lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s.  No
+`lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s,
+`a11d_recipes` [15]'s.  No
 single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
@@ -232,14 +257,17 @@ GRAD_F32_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 # one train step, kernel path against plain path from the same weights:
 # the loss, and under f32 convolutions each parameter gradient's relative L2
-# error.  Under bf16 convolutions any f32-level difference (summation order,
-# a cuDNN algorithm choice) is amplified through the trunk: single
-# parameters differ by up to ~0.03 between the paths, so bf16 holds the
-# whole-model error within STEP_BF16_NOISE_FACTOR times the kernel path's
-# own spread in the same run, and never below STEP_GRAD_REL_L2
+# error.  Under bf16 convolutions any f32-level difference in the attention
+# flips bf16 roundings through the trunk, and the whole-model error of a
+# correct attention moves with the weights (scripts/torch_bf16_step_noise.py),
+# so bf16 holds it within STEP_BF16_NOISE_FACTOR times the largest of
+# `rounding_references`' errors at the same weights, never below
+# STEP_GRAD_REL_L2
 STEP_LOSS_RTOL = 2e-2
 STEP_GRAD_REL_L2 = 2e-2
 STEP_BF16_NOISE_FACTOR = 1.5
+ROUNDING_JITTER = 1e-6
+ROUNDING_DRAWS = 3
 # a parameter whose gradient stays below this share of the largest on both
 # paths has a true gradient of 0 (a bias feeding a batch-statistics BN; the
 # hourglass has ~50), and its rounding noise is left out of the comparison
@@ -315,6 +343,68 @@ GLOO_RANKS = 2
 GLOO_BATCH = 8
 GLOO_STEPS = 3
 CHILD_TIMEOUT = 600
+# [15]: the fifteen recipes no card had run, as written, on one fake H36M
+# tree, one fake RHD tree and one seeded pose-ResNet file, their command
+# lines one after another in one process.  160 train groups: TRAIN_SAMPLE
+# 5 (the union recipes' default) keeps 32, two steps at a batch of 16; 72
+# validation groups, of which TEST_SAMPLE 64 keeps 2.  Each entry: the
+# recipe and the error its command line raises in both packages (ROADMAP
+# C17-C19), else None.  The union-joint recipes train, then their eval
+# triangulates 20 union joints against 17 targets.
+A11D_RECIPES = (
+    ("configs/epipolar/keypoint_h36m_resnet152_384_pretrained_8gpu.yaml", None),
+    ("configs/epipolar/keypoint_h36m_resnet152_384_aug.yaml", None),
+    ("configs/epipolar/keypoint_h36m_resnet152_384_strong.yaml", "IndexError"),
+    ("configs/epipolar/keypoint_h36m_resnet152_384.yaml", "ValueError"),
+    ("configs/epipolar/keypoint_h36m_resnet152_320.yaml", "ValueError"),
+    ("configs/epipolar/keypoint_h36m.yaml", "ValueError"),
+    ("configs/epipolar/keypoint_h36m_zresidual_aug.yaml", None),
+    ("configs/epipolar/keypoint_h36m_zresidual_fixed.yaml", None),
+    ("configs/benchmark/keypoint_h36m.yaml", "ValueError"),
+    ("configs/benchmark/keypoint_h36m_resnet152_384.yaml", None),
+    ("configs/lifting/img_lifting_rot_h36m.yaml", "KeyError"),
+    ("configs/lifting/lifting_direct_h36m.yaml", "KeyError"),
+    ("configs/lifting/lifting.yaml", None),
+    ("configs/lifting/lifting_sgd.yaml", None),
+    ("configs/lifting/lifting_rot_sgd.yaml", None),
+)
+# the pinned errors' messages (tests/test_torch_recipes_a11d.py)
+A11D_ERRORS = {"IndexError": "list index out of range",
+               "ValueError": "(20,3) (17,3)",
+               "configs/lifting/img_lifting_rot_h36m.yaml": "can-points-3d",
+               "configs/lifting/lifting_direct_h36m.yaml": "other_points-2d"}
+A11D_TRAIN_GROUPS, A11D_VAL_GROUPS = 160, 72
+A11D_STEPS = 2
+A11D_RHD_STEPS = 3
+A11D_EVAL_GROUPS = 2
+POSE_RESNET_WEIGHTS = "datasets/pose_resnet_4.5_pixels_human36m.pth"
+A11D_19MM = A11D_RECIPES[0][0]
+A11D_TRACE_RECIPE = "configs/epipolar/keypoint_h36m_resnet152_384_aug.yaml"
+A11D_BENCHMARK_RECIPE = "configs/epipolar/keypoint_h36m_zresidual_fixed.yaml"
+A11D_BENCHMARK_BATCHES = 4  # the first (the workers' start in it) and 3 more
+# command lines run one after another in one process: its limit
+JOBS_TIMEOUT = 900
+A11D_STAGES = ("setup", "read", "undistort", "warp", "heatmap")
+# the hand kernels a trace of a 96x96 recipe's train steps must name: the
+# forward's grouping, tile and per-query kernels, the backward's passes
+TRACE_KERNELS = ("group_kernel", "tile_forward_kernel", "epipolar_attention_kernel",
+                 "query_backward_kernel", "tile_histogram_kernel", "tile_scan_kernel",
+                 "row_offset_kernel", "fill_kernel", "row_gather_kernel", "row_fixup_kernel")
+# the 19 mm recipe's eval, kernel route against plain route: corr_pos as
+# [8] holds it, the 3D of its `epipolar` triangulation per joint
+CORR_POS_TOL = 1e-3
+EPIPOLAR_3D_MM = 0.1
+# the attention alone on a recipe's whole batch: its plain version runs on
+# slices of this many items (a batch of 32 at 96x96 would need ~20 GB a
+# gathered tensor); the multiview recipes of [15] that set each (batch,
+# heatmap size) once: 32 and 16 at 96x96, 12 at 80x80, 16 at 64x64
+PLAIN_SLICE = 8
+A11D_ATTENTION_RECIPES = (
+    "configs/epipolar/keypoint_h36m_resnet152_384_pretrained_8gpu.yaml",
+    "configs/epipolar/keypoint_h36m_resnet152_384.yaml",
+    "configs/epipolar/keypoint_h36m_resnet152_320.yaml",
+    "configs/epipolar/keypoint_h36m_zresidual_fixed.yaml",
+)
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
@@ -738,17 +828,24 @@ def randomize(model, images, seed):
             m.eval()
 
 
-@contextlib.contextmanager
 def attention_path(model, plain: bool):
     """Run `model`'s epipolar layers through the plain version (plain) or
     the kernels, on the same weights."""
-    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    return attention_via(model, attn.epipolar_attention_plain_batch if plain
+                         else attn.epipolar_attention_batch)
+
+
+@contextlib.contextmanager
+def attention_via(model, fn):
+    """Run `model`'s epipolar layers through the attention function `fn`
+    (`epipolar_attention_batch`'s contract), on the same weights."""
+    from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
 
     samplers = [m for m in model.modules() if isinstance(m, Epipolar)]
     for sampler in samplers:
-        sampler.attention = (attn.epipolar_attention_plain_batch if plain
-                             else attn.epipolar_attention_batch)
+        sampler.attention = fn
     try:
         yield
     finally:
@@ -965,14 +1062,14 @@ def counted_train(name, tcfg, steps, device, per_step=1, terms=()):
     finally:
         train_log.removeHandler(messages)
     logged = [(t, float(m)) for t, msg in zip(messages.times, messages.messages)
-              for m in re.findall(r"\bloss (\S+)", msg)]
+              for m in re.findall(r"\bloss: (\S+)", msg)]
     losses = [loss for _, loss in logged]
     step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(logged, logged[1:])]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"{name} train losses {losses}")
     for term in terms:
         values = [float(v) for msg in messages.messages
-                  for v in re.findall(rf"\b{term} (\S+)", msg)]
+                  for v in re.findall(rf"\b{term}: (\S+)", msg)]
         if len(values) != steps or not all(np.isfinite(values)):
             raise AssertionError(f"{name} train {term} {values}")
     if not (launches == backward_launches == per_step * steps and optimizer.count == steps):
@@ -1087,41 +1184,94 @@ def step_parity(cfg, device, per_param: bool, hourglass: bool = False):
     return model, batch
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def step_grads(model, batch):
+    """One train step's loss and parameter gradients of `model` on `batch`
+    (ZERO_GRAD_PARAMS left out); the dropout masks restart from SEED."""
+    model.zero_grad(set_to_none=True)
+    model.seed_dropout(SEED)
+    loss = model(batch)[0]["loss"]
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None and k not in ZERO_GRAD_PARAMS}
+
+
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| in f64."""
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def rounding_references() -> dict:
+    """{name: attention function} of correct attentions that differ from
+    the f32 plain version by rounding alone (`epipolar_attention_batch`'s
+    contract): the plain version in f64, and the plain version with its
+    output moved by ROUNDING_JITTER relative noise (the kernel's own
+    distance from it, ~1e-6), from ROUNDING_DRAWS seeds."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    plain = attn.epipolar_attention_plain_batch
+
+    def f64(f1, f2, f3, sample_locs, params, prior=None):
+        out, corr_pos, depth = plain(f1.double(), f2.double(), f3.double(),
+                                     sample_locs.double(), params,
+                                     None if prior is None else prior.double())
+        return out.to(f3.dtype), corr_pos.float(), depth.float()
+
+    def jittered(seed):
+        def fn(f1, f2, f3, sample_locs, params, prior=None):
+            out, corr_pos, depth = plain(f1, f2, f3, sample_locs, params, prior)
+            gen = torch.Generator(device=out.device).manual_seed(seed)
+            noise = torch.randn(out.shape, device=out.device, generator=gen)
+            return out * (1 + ROUNDING_JITTER * noise).to(out.dtype), corr_pos, depth
+        return fn
+
+    return {"plain in f64": f64, **{f"plain, output jittered (seed {s})": jittered(s)
+                                    for s in range(SEED + 1, SEED + 1 + ROUNDING_DRAWS)}}
+
+
 def compare_step_paths(name, model, batch, per_param: bool):
     """One train step's loss and gradients of `model` on `batch`, kernel
     path (twice) against plain path, held as `step_parity` says; the
     dropout masks (the lifting net's) restart from SEED for each run.
-    Returns the kernel path's gradients."""
+    Under bf16 convolutions the noise that the limit scales with is the
+    largest error of the `rounding_references` against the plain path:
+    how far rounding-level differences in the attention move the gradient
+    through the bf16 trunk at these weights.  Returns the kernel path's
+    gradients."""
     import numpy as np
     import torch
 
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
     model.train()
 
-    def loss_and_grads(plain: bool):
-        model.zero_grad(set_to_none=True)
-        model.seed_dropout(SEED)
-        with attention_path(model, plain):
-            loss = model(batch)[0]["loss"]
-            loss.backward()
-        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
-                             if p.grad is not None and k not in ZERO_GRAD_PARAMS}
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    def loss_and_grads(fn):
+        with attention_via(model, fn):
+            return step_grads(model, batch)
 
     # cuDNN's deterministic algorithms, so that the paths differ by their
     # attention alone: the bf16 weight gradients of its default algorithms
-    # add in an order that varies between runs, and moved [12](b)'s
-    # whole-model error between 0.005 and 0.05 over six runs of the same
-    # code on an H100 (0.0100 in each of six with these)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        loss_k, grads_k = loss_and_grads(False)
-        _, grads_k2 = loss_and_grads(False)
-        loss_p, grads_p = loss_and_grads(True)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    # add in an order that varies between runs
+    with cudnn_deterministic():
+        loss_k, grads_k = loss_and_grads(attn.epipolar_attention_batch)
+        _, grads_k2 = loss_and_grads(attn.epipolar_attention_batch)
+        loss_p, grads_p = loss_and_grads(attn.epipolar_attention_plain_batch)
+        refs = {} if per_param else {name: loss_and_grads(fn)[1]
+                                     for name, fn in rounding_references().items()}
     kept = dict(grads_k)
     if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or not np.isfinite(loss_k):
         raise AssertionError(f"{name} train step loss: kernel path {loss_k}, plain {loss_p}")
@@ -1130,27 +1280,32 @@ def compare_step_paths(name, model, batch, per_param: bool):
     floor = STEP_NOISE_FLOOR * max(float(g.abs().max()) for g in grads_p.values())
     noise = {k for k in grads_p
              if max(float(grads_k[k].abs().max()), float(grads_p[k].abs().max())) < floor}
-    for grads in (grads_k, grads_k2, grads_p):
+    for grads in (grads_k, grads_k2, grads_p, *refs.values()):
         for k in noise:
-            del grads[k]
-    whole = rel(torch.cat([g.flatten() for g in grads_k.values()]),
-                torch.cat([g.flatten() for g in grads_p.values()]))
-    whole_self = rel(torch.cat([g.flatten() for g in grads_k2.values()]),
-                     torch.cat([g.flatten() for g in grads_k.values()]))
-    limit = STEP_GRAD_REL_L2 if per_param else max(STEP_GRAD_REL_L2,
-                                                   STEP_BF16_NOISE_FACTOR * whole_self)
+            grads.pop(k, None)
+
+    def whole_rel(got, want):
+        return rel_l2(torch.cat([g.flatten() for g in got.values()]),
+                      torch.cat([want[k].flatten() for k in got]))
+
+    whole, whole_self = whole_rel(grads_k, grads_p), whole_rel(grads_k2, grads_k)
+    rounding = {name: whole_rel(g, grads_p) for name, g in refs.items()}
+    limit = STEP_GRAD_REL_L2 if per_param else max(
+        STEP_GRAD_REL_L2, STEP_BF16_NOISE_FACTOR * max(rounding.values()))
+    reference = f"kernel path against itself {whole_self:.3g}" + "".join(
+        f", {name} {v:.3g}" for name, v in rounding.items())
     if not whole <= limit:
         raise AssertionError(f"{name} whole-model gradient relative L2 error {whole:.3g} "
-                             f"above {limit:.3g} (kernel path against itself {whole_self:.3g})")
-    errs = {k: rel(grads_k[k], g) for k, g in grads_p.items()}
+                             f"above {limit:.3g} ({reference})")
+    errs = {k: rel_l2(grads_k[k], g) for k, g in grads_p.items()}
     worst = max(errs, key=errs.get)
     if per_param and not errs[worst] <= STEP_GRAD_REL_L2:
         raise AssertionError(f"{name} {worst}: gradient relative L2 error {errs[worst]:.3g}")
     n = next(iter(batch.values())).shape[0]
     log(f"  one {name} step (batch {n}), kernel vs plain path: loss {loss_k:.6g} vs "
-        f"{loss_p:.6g}; gradient relative L2 error {whole:.3g} over the model (kernel path "
-        f"against itself {whole_self:.3g}), worst parameter {errs[worst]:.3g} ({worst}; kernel "
-        f"path against itself {rel(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} "
+        f"{loss_p:.6g}; gradient relative L2 error {whole:.3g} over the model, limit "
+        f"{limit:.3g} ({reference}), worst parameter {errs[worst]:.3g} ({worst}; kernel "
+        f"path against itself {rel_l2(grads_k2[worst], grads_k[worst]):.3g}) over {len(errs)} "
         f"parameters ({len(noise)} with a true gradient of 0 left out)")
     return kept
 
@@ -1990,7 +2145,7 @@ def cli_run(name, argv):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     logged = [(t, float(m)) for t, msg in zip(messages.times, messages.messages)
-              for m in re.findall(r"\bloss (\S+)", msg)]
+              for m in re.findall(r"\bloss: (\S+)", msg)]
     losses = [loss for _, loss in logged]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{name}: train losses {losses}")
@@ -2070,14 +2225,11 @@ def rhd_recipes_phase(device):
     return out
 
 
-def multiview_lifting_phase(cfg, device):
-    """[12](b): multiview_img_lifting_rot at the flagship's widths
-    (epipolarposeR-50, 256 px, bf16 convolutions, 64x64, K=64, 17 joints,
-    batch 8) on the synthetic rig's images and cameras, lifting targets
-    from SEED: three train steps through `make_train_step` (the main path,
-    one forward and one backward kernel launch a step); one step kernel
-    path against plain path ([6]'s limits); the fusion BN's scale gets a
-    gradient; no gradient reaches `other_img`; ms per step and peak memory."""
+def lifting_rot_case(cfg, device, seed: int = SEED):
+    """[12](b)'s case: multiview_img_lifting_rot at the flagship's widths
+    (`cfg`) and batch BENCH_BATCH on the synthetic rig's images and cameras,
+    lifting targets from SEED, the weights randomized from `seed`.
+    Returns (config, inputs, model)."""
     import numpy as np
     import torch
 
@@ -2085,7 +2237,6 @@ def multiview_lifting_phase(cfg, device):
     from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
     from epipolar_transformers_tpu_torch.data.pipeline import collate
     from epipolar_transformers_tpu_torch.engine import trainer
-    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
     mcfg = update_from_dict(cfg, {"DATASETS": {"TASK": "multiview_img_lifting_rot"},
                                   "LIFTING": {"ENABLED": True},
@@ -2102,7 +2253,25 @@ def multiview_lifting_phase(cfg, device):
                                       ).astype(np.float32)})
     inputs = trainer.model_inputs(host, device, None)
     model = trainer.build_model(mcfg, device)
-    randomize(model, torch.cat([inputs["img"], inputs["other_img"]]), SEED)
+    randomize(model, torch.cat([inputs["img"], inputs["other_img"]]), seed)
+    return mcfg, inputs, model
+
+
+def multiview_lifting_phase(cfg, device):
+    """[12](b): multiview_img_lifting_rot at the flagship's widths
+    (epipolarposeR-50, 256 px, bf16 convolutions, 64x64, K=64, 17 joints,
+    batch 8) on the synthetic rig's images and cameras, lifting targets
+    from SEED: three train steps through `make_train_step` (the main path,
+    one forward and one backward kernel launch a step); one step kernel
+    path against plain path ([6]'s limits); the fusion BN's scale gets a
+    gradient; no gradient reaches `other_img`; ms per step and peak memory."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    mcfg, inputs, model = lifting_rot_case(cfg, device)
+    B, J = BENCH_BATCH, mcfg.KEYPOINT.NUM_PTS
     step = trainer.make_train_step(mcfg, model, trainer.make_optimizer(mcfg, model))
 
     attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
@@ -2428,6 +2597,35 @@ def write_torchvision_resnet(path: str, depth: int = 152, seed: int = SEED,
     (scripts/torch_r152_eval_nan.py)."""
     import torch
 
+    sd = random_resnet_state(depth, seed, zero_init_residual, head=False)
+    gen = torch.Generator().manual_seed(seed + 1)
+    sd["fc.weight"] = 0.01 * torch.randn(1000, 512 * 4 if depth >= 50 else 512, generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+
+
+def write_pose_resnet(path: str, depth: int = 152, seed: int = SEED) -> None:
+    """A seeded random pose-ResNet checkpoint in the reference's layout (the
+    trunk, `deconv_layers` and `final_layer` of 17 joints, every key under
+    `module.`), the file that the 384 px pretrained recipes'
+    BACKBONE.PRETRAINED_WEIGHTS names; its trunk as `write_torchvision_resnet`
+    writes it, with each block's last BN near 0."""
+    import torch
+
+    sd = random_resnet_state(depth, seed, zero_init_residual=True, head=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({f"module.{k}": v for k, v in sd.items()}, path)
+
+
+def random_resnet_state(depth: int, seed: int, zero_init_residual: bool, head: bool) -> dict:
+    """The seeded random state dict of a pose-ResNet of `depth` (17
+    joints), with or without its deconv head and final layer: He-normal
+    kernels, BN weights near 1 and small biases and running means, running
+    variances near 1; with `zero_init_residual` each block's last BN weight
+    near 0."""
+    import torch
+
     from epipolar_transformers_tpu_torch.config import Config, update_from_dict
     from epipolar_transformers_tpu_torch.models.resnet import PoseResNet
 
@@ -2436,7 +2634,7 @@ def write_torchvision_resnet(path: str, depth: int = 152, seed: int = SEED,
     gen = torch.Generator().manual_seed(seed)
     sd = {}
     for k, v in PoseResNet(cfg).state_dict().items():
-        if k.startswith(("deconv_layers.", "final_layer.")):
+        if not head and k.startswith(("deconv_layers.", "final_layer.")):
             continue
         if k.endswith("num_batches_tracked"):
             sd[k] = torch.zeros((), dtype=torch.long)
@@ -2450,10 +2648,7 @@ def write_torchvision_resnet(path: str, depth: int = 152, seed: int = SEED,
             sd[k] = (0.01 if last else 0.1) * torch.randn(v.shape, generator=gen) + (not last)
         else:  # bias, running_mean
             sd[k] = 0.1 * torch.randn(v.shape, generator=gen)
-    sd["fc.weight"] = 0.01 * torch.randn(1000, 512 * 4 if depth >= 50 else 512, generator=gen)
-    sd["fc.bias"] = torch.zeros(1000)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(sd, path)
+    return sd
 
 
 def session_pids(sid: int) -> list:
@@ -2472,9 +2667,9 @@ def session_pids(sid: int) -> list:
     return pids
 
 
-def run_children(name, cmds, cwd, env):
+def run_children(name, cmds, cwd, env, timeout=CHILD_TIMEOUT):
     """Start each command in a session of its own, wait for all (at most
-    CHILD_TIMEOUT s), and check that every one exited 0 and left no
+    `timeout` s), and check that every one exited 0 and left no
     process behind (a moment's grace for the loader's forkserver and
     resource tracker); on a failure kill every session's processes and
     raise with the children's last output.  Returns their outputs."""
@@ -2482,7 +2677,7 @@ def run_children(name, cmds, cwd, env):
                               stderr=subprocess.STDOUT, text=True, start_new_session=True)
              for c in cmds]
     outs, failed = [], []
-    deadline = time.monotonic() + CHILD_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for i, p in enumerate(procs):
             try:
@@ -2490,7 +2685,7 @@ def run_children(name, cmds, cwd, env):
             except subprocess.TimeoutExpired:
                 p.kill()
                 out = p.communicate()[0]
-                failed.append(f"child {i} ran past {CHILD_TIMEOUT} s")
+                failed.append(f"child {i} ran past {timeout} s")
             if p.returncode != 0:
                 failed.append(f"child {i} exited {p.returncode}")
             outs.append(out)
@@ -2537,109 +2732,201 @@ def step_log(messages) -> dict:
     """The trainer's step lines: device ms (CUDA events) and peak GiB of
     each step, and the last line's data_t / step_t (loader and loop wall,
     seconds a step on average)."""
-    lines = [m for m in messages if " step " in m and " loss " in m]
+    lines = [m for m in messages if " step " in m and " loss: " in m]
     if not lines:
         raise AssertionError("no train step was logged")
 
-    def values(key):
-        return [float(v) for m in lines for v in re.findall(rf"\b{key} (\S+)", m)]
+    def values(key, sep=" "):
+        return [float(v) for m in lines for v in re.findall(rf"\b{key}{sep}(\S+)", m)]
 
     return {"device_ms": values("device_ms"), "peak_gib": values("peak_gib"),
             "data_t": values("data_t")[-1], "step_t": values("step_t")[-1],
-            "losses": values("loss")}
+            "losses": values("loss", ": ")}
 
 
-def recipe_cli(tag, recipe, tmp, steps, eval_groups, extra=(), torchrun=False):
-    """A recipe as written through the port's command line in a process of
-    its own, started in `tmp` (which holds its datasets/), as a user runs
-    it: `python -m epipolar_transformers_tpu_torch.main`, or under
-    `torchrun --nproc_per_node 1 ... --multihost`.  The process is this
-    script's `--cli-main` mode: the command line's `main`, with the kernels'
-    counters at 0 from the process's start, then its counts on a line of
-    their own and its first batch's sample locations in a file."""
-    import torch
-
+def cli_argv(tag, recipe, tmp, steps, eval_groups, extra=(), flags=(), tensorboard=False):
+    """(sample locations file, output dir, argv) of a recipe's command line
+    for the child runs: --max-steps, --max-eval-batches, LOG_FREQ 1,
+    TENSORBOARD.USE as the recipe writes it with `tensorboard`, else off,
+    then `extra`; `flags` before the config."""
     root = os.path.dirname(os.path.abspath(__file__))
     key = re.sub(r"\W+", "_", tag)
-    locs_path = os.path.join(tmp, f"locs_{key}.pt")
-    entry = [os.path.join(root, "chip_smoke.py"), "--cli-main", locs_path]
-    argv = ["--cfg", os.path.join(root, recipe), "--max-steps", str(steps),
-            "--max-eval-batches", str(eval_groups), "LOG_FREQ", "1", "TENSORBOARD.USE", "False",
-            *extra, "OUTPUT_DIR", os.path.join(tmp, f"out_{key}")]
-    if torchrun:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
-               "--master_port", str(free_port()), *entry, "--multihost", *argv]
-    else:
-        cmd = [sys.executable, *entry, *argv]
-    t0 = time.perf_counter()
-    (out,) = run_children(tag, [cmd], tmp, child_env())
-    wall = time.perf_counter() - t0
-    lines = out.splitlines()
-    counts = [json.loads(line.split(" ", 1)[1]) for line in lines
-              if line.startswith("RANK_COUNTS ")]
-    if len(counts) != 1 or sum(line.startswith("RESULTS:") for line in lines) != 1:
-        raise AssertionError(f"{tag}: {len(counts)} RANK_COUNTS lines\n{out[-3000:]}")
-    (c,) = counts
+    argv = [*flags, "--cfg", os.path.join(root, recipe), "--max-steps", str(steps),
+            "--max-eval-batches", str(eval_groups), "LOG_FREQ", "1",
+            *(() if tensorboard else ("TENSORBOARD.USE", "False")), *extra,
+            "OUTPUT_DIR", os.path.join(tmp, f"out_{key}")]
+    return os.path.join(tmp, f"locs_{key}.pt"), os.path.join(tmp, f"out_{key}"), argv
+
+
+def recipe_jobs(name, specs, tmp, torchrun=False) -> dict:
+    """Recipes (tag, recipe, steps, eval groups, extra) through `cli_jobs`,
+    one process for all (a rank under torchrun, each command line with
+    --multihost), each checked by `recipe_checked`; {tag: run}."""
+    jobs = []
+    for tag, recipe, steps, eval_groups, extra in specs:
+        locs, _, argv = cli_argv(tag, recipe, tmp, steps, eval_groups, extra,
+                                 flags=("--multihost",) if torchrun else ())
+        jobs.append(dict(tag=tag, locs=locs, options={}, argv=argv))
+    got = cli_jobs(name, jobs, tmp, torchrun)
+    return {tag: recipe_checked(tag, steps, got[tag][0], got[tag][2], got[tag][1])
+            for tag, _, steps, _, _ in specs}
+
+
+def recipe_checked(tag, steps, c, wall, lines) -> dict:
+    """A recipe's run that trains `steps` steps with both attention kernels
+    and evaluates with finite metrics, from its counts, wall seconds and
+    output lines; raises otherwise."""
+    import torch
+
+    if sum(line.startswith("RESULTS:") for line in lines) != 1:
+        raise AssertionError(f"{tag}: no RESULTS line\n" + "\n".join(lines[-40:]))
     run = dict(results=c["results"], launches=c["launches"], tiles=c["tiles"],
                backward_launches=c["backward_launches"], trained=c["trained"],
                all_reduces=c["all_reduces"], wall=wall, steps=step_log(lines),
-               locs=torch.load(locs_path))
+               locs=torch.load(c["locs"]))
     run["losses"] = run["steps"]["losses"]
     if not (run["launches"] > 0 and run["backward_launches"] == steps
             and len(run["losses"]) == steps and all(math.isfinite(v) for v in run["losses"])):
         raise AssertionError(f"{tag}: forward kernel launches {run['launches']}, backward "
                              f"{run['backward_launches']}, losses {run['losses']} over {steps} "
-                             f"steps\n{out[-3000:]}")
+                             f"steps\n" + "\n".join(lines[-40:]))
     finite_metrics(tag, run["results"])
     return run
 
 
-def cli_main(locs_path, argv) -> int:
-    """`--cli-main`: the port's command line in this process (a rank under
-    torchrun with --multihost), then, where it printed RESULTS, the kernels'
-    counts since the process started, the class of the module that trained
-    (DistributedDataParallel in a process group), the all-reduces that the
-    port called outside DDP (BatchNorm's moments, the logged means) and the
-    first sample locations the attention took (saved to `locs_path`)."""
+class _Spies:
+    """The child's view of the port's main path: the first sample locations
+    the attention took, the class of the module that trained, and the
+    all-reduces that the port called outside DDP, each from the last
+    `reset` on."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from epipolar_transformers_tpu_torch.engine import trainer
+        from epipolar_transformers_tpu_torch.models import epipolar as layer
+
+        self.kept, self.trained, self.reduces = [], [], 0
+        sample_locs, data_parallel, all_reduce = (layer.epipolar_sample_locs,
+                                                  trainer.data_parallel, dist.all_reduce)
+
+        def keep(*args, **kwargs):
+            locs = sample_locs(*args, **kwargs)
+            if not self.kept:
+                self.kept.append(locs.detach().cpu())
+            return locs
+
+        def wrap(*args, **kwargs):
+            module = data_parallel(*args, **kwargs)
+            self.trained.append(type(module).__name__)
+            return module
+
+        def counted(*args, **kwargs):
+            self.reduces += 1
+            return all_reduce(*args, **kwargs)
+
+        layer.epipolar_sample_locs, trainer.data_parallel, dist.all_reduce = keep, wrap, counted
+
+    def reset(self):
+        import torch
+
+        from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+        self.kept.clear()
+        self.trained.clear()
+        self.reduces = 0
+        attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+
+
+def run_command_line(spies, locs_path, options, argv, profiles=None) -> dict:
+    """The port's command line in this process; returns its counts: the
+    kernels' launches and tiles, RESULTS, what `spies` saw (the sample
+    locations saved to `locs_path`), the error and the profile.
+    `options`: `expect_error`, the name of the error the command line must
+    raise (a recipe that fails in both packages; its message is reported,
+    any other error propagates); `profile`, then
+    `utils.profiling.profile_model` of the config on the recipe's first
+    train item after the run (kept in `profiles` by architecture)."""
     import torch
-    import torch.distributed as dist
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    error = None
+    if options.get("expect_error"):
+        try:
+            results = cli.main(argv)
+        except Exception as exc:  # noqa: BLE001 - held to the expected error below
+            if type(exc).__name__ != options["expect_error"]:
+                raise
+            error = f"{type(exc).__name__}: {exc}"
+            results = None
+        if error is None:
+            raise AssertionError(f"the command line did not raise {options['expect_error']}")
+    else:
+        results = cli.main(argv)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    counts = {"launches": attn.LAUNCHES, "backward_launches": attn.BACKWARD_LAUNCHES,
+              "tiles": list(attn.tile_counts()), "results": results,
+              "trained": list(spies.trained), "all_reduces": spies.reduces, "error": error,
+              "locs": None, "profile": None}
+    if spies.kept:
+        torch.save(spies.kept[0], locs_path)
+        counts["locs"] = locs_path
+    if options.get("profile"):
+        counts["profile"] = recipe_profile(argv, {} if profiles is None else profiles)
+    return counts
+
+
+def cli_jobs_main(jobs_path) -> int:
+    """`--cli-jobs`: the command lines of a JSON list of jobs ({tag, locs,
+    options, argv}) one after another in this process, each after a
+    `CLI_JOB <tag>` line, with the kernels' counters and the peak memory
+    at 0 just before it and its counts on a line just after; the process
+    starts and imports once for all."""
+    import gc
+
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from epipolar_transformers_tpu_torch import main as cli
-    from epipolar_transformers_tpu_torch.engine import trainer
-    from epipolar_transformers_tpu_torch.models import epipolar as layer
-    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
-
-    kept, sample_locs = [], layer.epipolar_sample_locs
-    trained, data_parallel, all_reduce, reduces = [], trainer.data_parallel, dist.all_reduce, [0]
-
-    def keep(*args, **kwargs):
-        locs = sample_locs(*args, **kwargs)
-        if not kept:
-            kept.append(locs.detach().cpu())
-        return locs
-
-    def wrap(*args, **kwargs):
-        module = data_parallel(*args, **kwargs)
-        trained.append(type(module).__name__)
-        return module
-
-    def counted(*args, **kwargs):
-        reduces[0] += 1
-        return all_reduce(*args, **kwargs)
-
-    layer.epipolar_sample_locs, trainer.data_parallel, dist.all_reduce = keep, wrap, counted
-    results = cli.main(argv)
-    if results is not None:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        torch.save(kept[0], locs_path)
-        print("RANK_COUNTS " + json.dumps({
-            "launches": attn.LAUNCHES, "backward_launches": attn.BACKWARD_LAUNCHES,
-            "tiles": list(attn.tile_counts()), "results": results, "trained": trained,
-            "all_reduces": reduces[0]}), flush=True)
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    spies, profiles = _Spies(), {}
+    for job in jobs:
+        print(f"CLI_JOB {time.perf_counter():.3f} {job['tag']}", flush=True)
+        spies.reset()
+        counts = run_command_line(spies, job["locs"], job["options"], job["argv"], profiles)
+        print("RANK_COUNTS " + json.dumps(counts), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"CLI_JOB {time.perf_counter():.3f} end", flush=True)
     return 0
+
+
+def recipe_profile(argv, profiles) -> dict:
+    """`profile_model` of the command line's config on its first train
+    item (the recipe's own data, read in this process); a config of an
+    architecture already in `profiles` (the task, the input size and
+    every section that builds the model) takes that count."""
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.data.pipeline import build_dataset, collate
+    from epipolar_transformers_tpu_torch.utils.profiling import profile_model
+
+    args = cli.parse_args(argv)
+    cfg = load_config(args.cfg, args.opts)
+    key = repr((cfg.DATASETS.TASK, cfg.DATASETS.IMAGE_SIZE, cfg.BACKBONE, cfg.KEYPOINT,
+                cfg.EPIPOLAR, cfg.LIFTING))
+    if key not in profiles:
+        ds = build_dataset(cfg, cfg.DATASETS.TRAIN[0])
+        prof = profile_model(cfg, device=args.device, batch=collate([ds[0]]))
+        profiles[key] = {k: (None if math.isnan(v) else v) for k, v in prof.items()}
+    return profiles[key]
 
 
 def describe(run) -> str:
@@ -2675,17 +2962,22 @@ def summary(run) -> dict:
 
 
 def attention_at(tag, cfg, locs, device):
-    """The attention alone at a recipe's shape and on its sample locations
-    (C=256 f32 features, keys = values one tensor, channels_last as the
-    model hands them over): forward and backward, kernel against plain
-    version ([2]/[5]'s tolerances), two runs bit-equal, the forward's tiles
-    on each path, the times in turns and the bounds.  Returns the forward's
-    and the backward's entries for the kernels' line."""
+    """The attention alone at a recipe's shape, on the sample locations of
+    its first train batch, whole (C = NFEATS f32 features, keys = values
+    one tensor, channels_last as the model hands them over): the kernels'
+    forward and backward on the whole batch against the plain version on
+    slices of PLAIN_SLICE items (each item's output and gradients depend on
+    that item alone; the plain version of a batch of 32 at 96x96 would not
+    fit), [2]/[5]'s tolerances; two kernel runs bit-equal, the forward's
+    tiles on each path, the times and the bounds of the whole batch.
+    Returns the forward's and the backward's entries for the kernels'
+    line."""
     import torch
 
     from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
+    locs = locs.to(device)
     B, K, H, W, _ = locs.shape
     C = cfg.KEYPOINT.NFEATS
     params = Epipolar(cfg).attention_params
@@ -2693,60 +2985,131 @@ def attention_at(tag, cfg, locs, device):
     f1, f2 = (torch.randn(B, C, H, W, device=device, generator=gen)
               .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
               for _ in range(2))
+    slices = [slice(i, min(i + PLAIN_SLICE, B)) for i in range(0, B, PLAIN_SLICE)]
     shape = f"B={B} {H}x{W} K={K} C={C} f32"
+
+    def kernel():
+        return attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+
+    def plain():
+        outs = [attn.epipolar_attention_plain_batch(f1[s], f2[s], f2[s], locs[s], params)
+                for s in slices]
+        return [torch.cat(parts) for parts in zip(*outs)]
+
     attn.TILE_COUNTS.clear()
-    got = attn.epipolar_attention_batch(f1, f2, f2, locs, params)
+    got = kernel()
     tiles = attn.tile_counts()
-    want = attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params)
-    err = max(close(f"{tag} out", got[0], want[0], **F32_TOL),
-              close(f"{tag} depth", got[2], want[2], **F32_TOL))
+    want = plain()
+    ties, tie_rows, tie_sims = mask_ties(tag, f1, f2, locs, got[2], want[2])
+    keep = ~ties
+    err = max(close(f"{tag} out", got[0][keep], want[0][keep], **F32_TOL),
+              close(f"{tag} depth", got[2].permute(0, 2, 3, 1)[keep],
+                    want[2].permute(0, 2, 3, 1)[keep], **F32_TOL))
     agree = agreement(f"{tag} corr_pos", got[1], want[1], 1e-3)
-    if not all(torch.equal(a, b) for a, b in
-               zip(got, attn.epipolar_attention_batch(f1, f2, f2, locs, params))):
+    if not all(torch.equal(a, b) for a, b in zip(got, kernel())):
         raise AssertionError(f"{tag} two forward runs on the same inputs differ")
     if sum(tiles) != B * -(-H * W // attn.TILE_QUERIES):
         raise AssertionError(f"{tag} forward tiles {tiles}")
+    r = torch.randn(got[0].shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(SEED + 1))
     del got, want
 
-    def grads(fn):
-        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
-        out = fn(q, kv, kv, locs, params)[0]
-        r = torch.randn(out.shape, device=device,
-                        generator=torch.Generator(device=device).manual_seed(SEED + 1))
-        return torch.autograd.grad((out.float() * r).sum(), (q, kv))
+    def graph(fn, s):
+        """(out, leaves, cotangent) of `fn` on the items `s`."""
+        q, kv = (f[s].detach().clone().requires_grad_() for f in (f1, f2))
+        return fn(q, kv, kv, locs[s], params)[0], (q, kv), r[s]
 
-    got_g = grads(attn.epipolar_attention_batch)
-    bwd_err = close_grads(f"{tag} keys = values one tensor", list(got_g) + [None],
-                          list(grads(attn.epipolar_attention_plain_batch)) + [None],
-                          **GRAD_F32_TOL)
-    if not all(torch.equal(a, b) for a, b in zip(got_g, grads(attn.epipolar_attention_batch))):
+    def grads(fn, parts):
+        gs = []
+        for s in parts:
+            out, leaves, cot = graph(fn, s)
+            gs.append(torch.autograd.grad(out, leaves, cot))
+        return [torch.cat(g) for g in zip(*gs)]
+
+    whole = [slice(0, B)]
+    got_g = grads(attn.epipolar_attention_batch, whole)
+    want_g = grads(attn.epipolar_attention_plain_batch, slices)
+    rows_kept = ~tie_rows.reshape(B, H, W)
+    bwd_err = close_grads(f"{tag} keys = values one tensor",
+                          [got_g[0][keep], got_g[1][rows_kept], None],
+                          [want_g[0][keep], want_g[1][rows_kept], None], **GRAD_F32_TOL)
+    del want_g
+    if not all(torch.equal(a, b) for a, b in
+               zip(got_g, grads(attn.epipolar_attention_batch, whole))):
         raise AssertionError(f"{tag} two backward runs on the same inputs differ")
     del got_g
 
-    def backward_only(fn):
-        q, kv = f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_()
-        out = fn(q, kv, kv, locs, params)[0]
-        r = torch.randn_like(out)
-        return lambda: torch.autograd.grad(out, (q, kv), r, retain_graph=True)
+    def backward_only(fn, s):
+        out, leaves, cot = graph(fn, s)
+        return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
-    fk, fp = in_turns(lambda: attn.epipolar_attention_batch(f1, f2, f2, locs, params),
-                      lambda: attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params))
-    bk, bp = in_turns(backward_only(attn.epipolar_attention_batch),
-                      backward_only(attn.epipolar_attention_plain_batch))
+    # the forward in turns; the backward of the whole batch around the plain
+    # version's slices, one slice's graph held at a time
+    fk, fp = in_turns(kernel, plain)
+    bk_first = cuda_ms(backward_only(attn.epipolar_attention_batch, whole[0]))
+    bp = sum(cuda_ms(backward_only(attn.epipolar_attention_plain_batch, s)) for s in slices)
+    bk = (bk_first + cuda_ms(backward_only(attn.epipolar_attention_batch, whole[0]))) / 2
     fwd_bound, bwd_bound = bound([f1, f2, f2], locs, False), bound([f1, f2], locs, True)
-    log(f"  {tag} attention alone at {shape} on the recipe's sample locations: forward max abs "
-        f"err {err:.3g}, corr_pos agree {agree:.4f}, backward (keys = values one tensor) max "
-        f"abs err {bwd_err:.3g}; two runs bit-equal each way; forward tiles on the tile path / "
-        f"per-query path {tiles[0]} / {tiles[1]}; times (CUDA events, 2x20 calls in turns): "
-        f"forward kernel {fk:.4f} ms, plain {fp:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+    held = (f"; held out, where the two decide the zero-sentinel mask differently on a "
+            f"similarity within f32 rounding of 0 (f64 {', '.join(f'{v:.3g}' for v in tie_sims)}): "
+            f"{int(ties.sum())} queries and the {int(tie_rows.sum())} key rows their samples touch"
+            if tie_sims else "; no query held out (no mask tie)")
+    log(f"  {tag} attention alone at {shape} on the recipe's first batch of sample locations, "
+        f"the plain version on slices of {PLAIN_SLICE}: forward max abs err {err:.3g}, corr_pos "
+        f"agree {agree:.4f}, backward (keys = values one tensor) max abs err {bwd_err:.3g}{held}; two "
+        f"kernel runs bit-equal each way; forward tiles on the tile path / per-query path "
+        f"{tiles[0]} / {tiles[1]}; times of the batch (CUDA events, 2x20 calls, the forward in "
+        f"turns): forward kernel {fk:.4f} ms, plain {fp:.4f} ms, bound {fwd_bound[0]:.4f} ms "
         f"({fwd_bound[1]}); backward kernel {bk:.4f} ms, plain autograd {bp:.4f} ms, bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
     torch.cuda.empty_cache()
     tile_entry = {"tile_path": tiles[0], "per_query_path": tiles[1]}
     return ({"shape": shape, "ms": fk, "plain_ms": fp, "bound_ms": fwd_bound[0],
-             "bound_by": fwd_bound[1], "max_abs_err": err, "tiles": tile_entry},
+             "bound_by": fwd_bound[1], "max_abs_err": err, "tiles": tile_entry,
+             "mask_ties": {"queries": int(ties.sum()), "key_rows": int(tie_rows.sum()),
+                           "f64_similarities": tie_sims}},
             {"shape": shape, "ms": bk, "plain_ms": bp, "bound_ms": bwd_bound[0],
              "bound_by": bwd_bound[1], "max_abs_err": bwd_err})
+
+
+def mask_ties(tag, f1, f2, locs, depth_k, depth_p):
+    """Where the kernel and the plain version decide the zero-sentinel mask
+    (masked = sim == 0 ? -1e10 : sim) differently: a sample whose weight is
+    exactly 0 on one side and not negligible (> 1e-30, not an underflow) on
+    the other.  Each such sample's similarity, recomputed in f64, must lie
+    within the f32 rounding bound of its sum (gamma_C = C u / (1 - C u),
+    u = 2^-24, times the sum of |w_c f1_i f2_i|), where either side's f32
+    sum may be exactly 0; otherwise this raises.  Returns the (B, H, W)
+    queries of those samples, the (B, HW) key rows that any live corner of
+    their samples touches (their gradients move with the query's weights),
+    and the f64 similarities."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    B, K, H, W, _ = locs.shape
+    C = f1.shape[-1]
+    split = ((depth_k == 0) & (depth_p > 1e-30)) | ((depth_p == 0) & (depth_k > 1e-30))
+    b, k, h, w = torch.nonzero(split, as_tuple=True)
+    q = h * W + w
+    rows, wc = attn._corners(locs.reshape(B, K, H * W, 2), H, W)  # (B, HW, K, 4)
+    terms = (f2.reshape(B, H * W, C)[b[:, None], rows[b, q, k]].double()
+             * f1.reshape(B, H * W, C)[b, q].double()[:, None])  # (n, 4, C)
+    corner = wc[b, q, k].double()
+    sims = (terms.sum(-1) * corner).sum(-1)
+    u = 2.0 ** -24
+    bound = C * u / (1 - C * u) * (terms.abs().sum(-1) * corner.abs()).sum(-1)
+    if bool((sims.abs() > bound).any()):
+        raise AssertionError(f"{tag} the kernel and the plain version mask different samples "
+                             f"whose similarities are not 0 within f32 rounding: f64 "
+                             f"{sims.tolist()[:8]}, bounds {bound.tolist()[:8]}")
+    ties = torch.zeros(B, H, W, dtype=torch.bool, device=locs.device)
+    ties[b, h, w] = True
+    touched = torch.zeros(B, H * W, dtype=torch.bool, device=locs.device)
+    tb, tq = torch.nonzero(ties.reshape(B, H * W), as_tuple=True)
+    live = wc[tb, tq] != 0  # (n, K, 4)
+    touched[tb[:, None, None].expand_as(live)[live], rows[tb, tq][live]] = True
+    return ties, touched, sims.tolist()
 
 
 def gloo_rank_main(rank: int, world: int, port: int, workdir: str) -> int:
@@ -2875,9 +3238,6 @@ def gloo_phase(tmp, device):
     ranks = [torch.load(os.path.join(tmp, f"gloo_rank{r}.pt"), weights_only=False)
              for r in range(GLOO_RANKS)]
 
-    def rel(a, b):
-        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
-
     mean_loss = ranks[0]["mean_loss"]
     if abs(mean_loss - loss) > STEP_LOSS_RTOL * abs(loss) or not math.isfinite(mean_loss):
         raise AssertionError(f"[14](c) loss: {GLOO_RANKS} ranks' mean {mean_loss}, one rank {loss}")
@@ -2888,12 +3248,12 @@ def gloo_phase(tmp, device):
     noise = {k for k in grads if k in ZERO_GRAD_PARAMS
              or max(float(got[k].abs().max()), float(grads[k].abs().max())) < floor}
     keys = [k for k in grads if k not in noise]
-    whole_err = rel(torch.cat([got[k].flatten() for k in keys]),
+    whole_err = rel_l2(torch.cat([got[k].flatten() for k in keys]),
                     torch.cat([grads[k].flatten() for k in keys]))
-    errs = {k: rel(got[k], grads[k]) for k in keys}
+    errs = {k: rel_l2(got[k], grads[k]) for k in keys}
     over = {k: e for k, e in errs.items() if e > STEP_GRAD_REL_L2}
     worst = max(errs, key=errs.get)
-    bn_errs = {k: rel(ranks[0]["bn"][k], v) for k, v in bn.items()}
+    bn_errs = {k: rel_l2(ranks[0]["bn"][k], v) for k, v in bn.items()}
     bn_worst = max(bn_errs, key=bn_errs.get)
     line = (f"gradients after the all-reduce: relative L2 {whole_err:.3g} over the model, "
             f"worst parameter {errs[worst]:.3g} ({worst}) over {len(errs)} parameters ({len(noise)} "
@@ -2928,8 +3288,9 @@ def gloo_phase(tmp, device):
 
 
 def r152_phase(device):
-    """[14]: the ResNet-152 recipes as written, each command line in a
-    process of its own started in the fake tree's directory.  (a)
+    """[14]: the ResNet-152 recipes as written, their command lines in
+    processes of their own started in the fake tree's directory (the
+    torchrun rank in one, the others one after another in another).  (a)
     R152_RECIPE, and the attention alone at its shape; (b) R152_DDP_RECIPE
     at DDP_BATCH under torchrun with --multihost (DDP and BatchNorm's
     all-reduces on one NCCL rank) beside the same without;
@@ -2953,21 +3314,31 @@ def r152_phase(device):
             f"torchvision-layout R-152 at {R152_WEIGHTS}, written in "
             f"{time.perf_counter() - t0:.1f} s")
 
+        # (b) without --multihost, (a) and (d): one process for their command
+        # lines, (b)'s first, so that it starts as the torchrun rank does
+        # (a new process, cuDNN and the allocator cold)
+        batch = ["SOLVER.IMS_PER_BATCH", str(DDP_BATCH)]
+        d_specs = (("r152_320_fixed_8gpu", R152_320_RECIPE, "batch 32, 320 px, 80x80, K=64"),
+                   ("r50_384_strong_fixed", K85_RECIPE, "R-50, batch 8, 384 px, 96x96, K=85"))
+        single = recipe_jobs("[14]", [
+            ("[14](b) without --multihost", R152_DDP_RECIPE, DDP_STEPS, R152_EVAL_GROUPS, batch),
+            ("[14](a)", R152_RECIPE, R152_STEPS, R152_EVAL_GROUPS, ()),
+            *((f"[14](d) {key}", recipe, 1, 1, ()) for key, recipe, _ in d_specs)], tmp)
+
         # (a) the 384 fixed recipe as written
-        a = recipe_cli("[14](a)", R152_RECIPE, tmp, R152_STEPS, R152_EVAL_GROUPS)
+        a = single["[14](a)"]
         runs.append(a)
         log(f"  (a) {R152_RECIPE} as written (batch 8, 384 px, 96x96, K=64, NUM_WORKERS 14) "
             f"through the command line in {a['wall']:.1f} s: {describe(a)}")
         out["r152_384_fixed"] = summary(a)
         entries.append(attention_at("(a)", load_config(os.path.join(root, R152_RECIPE)),
-                                    a.pop("locs").to(device), device))
+                                    a.pop("locs"), device))
 
         # (b) the _8gpu recipe under torchrun, and without --multihost
-        batch = ["SOLVER.IMS_PER_BATCH", str(DDP_BATCH)]
-        b = recipe_cli("[14](b) torchrun", R152_DDP_RECIPE, tmp, DDP_STEPS, R152_EVAL_GROUPS,
-                       batch, torchrun=True)
-        plain = recipe_cli("[14](b) without --multihost", R152_DDP_RECIPE, tmp, DDP_STEPS,
-                           R152_EVAL_GROUPS, batch)
+        b = recipe_jobs("[14](b) torchrun", [("[14](b) torchrun", R152_DDP_RECIPE, DDP_STEPS,
+                                              R152_EVAL_GROUPS, batch)], tmp,
+                        torchrun=True)["[14](b) torchrun"]
+        plain = single["[14](b) without --multihost"]
         runs += [b, plain]
         for r in (b, plain):
             del r["locs"]
@@ -2986,8 +3357,8 @@ def r152_phase(device):
             f"moments, the logged means); {describe(b)}")
         log(f"  (b) the same without --multihost in {plain['wall']:.1f} s ({plain['trained'][0]}, "
             f"no collective): {describe(plain)}")
-        log(f"  (b) DDP and BatchNorm's collectives on one NCCL rank against none: {gap:+.1f} ms "
-            f"a device step, "
+        log(f"  (b) DDP and BatchNorm's collectives on one NCCL rank against none, each the "
+            f"first command line of a new process: {gap:+.1f} ms a device step, "
             f"{b['steps']['peak_gib'][-1] - plain['steps']['peak_gib'][-1]:+.3f} GiB")
         out["r152_8gpu_torchrun"] = {**summary(b), "without_multihost": summary(plain)}
 
@@ -2995,17 +3366,14 @@ def r152_phase(device):
         out["r152_gloo_ranks"] = c = gloo_phase(tmp, device)
 
         # (d) 80x80 and K=85
-        for key, recipe, what in (("r152_320_fixed_8gpu", R152_320_RECIPE,
-                                   "batch 32, 320 px, 80x80, K=64"),
-                                  ("r50_384_strong_fixed", K85_RECIPE,
-                                   "R-50, batch 8, 384 px, 96x96, K=85")):
-            d = recipe_cli(f"[14](d) {key}", recipe, tmp, 1, 1)
+        for key, recipe, what in d_specs:
+            d = single[f"[14](d) {key}"]
             runs.append(d)
             log(f"  (d) {recipe} as written ({what}): one step and one eval group through "
                 f"the command line in {d['wall']:.1f} s: {describe(d)}")
             out[key] = summary(d)
             entries.append(attention_at(f"(d) {key}", load_config(os.path.join(root, recipe)),
-                                        d.pop("locs")[:8].to(device), device))
+                                        d.pop("locs"), device))
     out["phase_seconds"] = time.perf_counter() - start
     log(f"  [14] took {out['phase_seconds']:.1f} s")
     return dict(launches=sum(r["launches"] for r in runs) + c["launches"],
@@ -3013,6 +3381,346 @@ def r152_phase(device):
                                    + c["backward_launches"]),
                 tiles=[sum(r["tiles"][i] for r in runs) + c["tiles"][i] for i in range(2)],
                 numbers=out, forward_entries=[e[0] for e in entries],
+                backward_entries=[e[1] for e in entries])
+
+
+def a11d_job(tag, recipe, tmp, error, flags=()):
+    """One of [15]'s recipes as written, as a job of `cli_jobs`: steps and
+    eval groups as A11D_* say, TENSORBOARD.USE as written, the profile of
+    its config after the run (where it trains); `error`, the error its
+    command line raises in both packages, else None."""
+    from epipolar_transformers_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), recipe))
+    steps = A11D_RHD_STEPS if "RHD_train" in cfg.DATASETS.TRAIN else A11D_STEPS
+    early = recipe in A11D_ERRORS  # the error comes before the first step
+    locs, out_dir, argv = cli_argv(tag, recipe, tmp, steps, A11D_EVAL_GROUPS, flags=flags,
+                                   tensorboard=True)
+    return dict(tag=tag, recipe=recipe, locs=locs, out_dir=out_dir, argv=argv, cfg=cfg,
+                steps=steps, error=error, early=early,
+                options={"expect_error": error, "profile": not early})
+
+
+def cli_jobs(name, jobs, tmp, torchrun=False) -> dict:
+    """The jobs' command lines one after another in one process of its own
+    started in `tmp` (which holds their datasets/; this script's
+    `--cli-jobs` mode), as a user runs them, or that process as the one
+    rank of `torchrun --nproc_per_node 1`: a process start and its imports
+    for all.  Returns {tag: (counts, output lines, wall seconds)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "jobs_" + re.sub(r"\W+", "_", name) + ".json")
+    with open(path, "w") as f:
+        json.dump([{k: j[k] for k in ("tag", "locs", "options", "argv")} for j in jobs], f)
+    entry = [os.path.join(root, "chip_smoke.py"), "--cli-jobs", path]
+    launcher = (["-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
+                 str(free_port())] if torchrun else [])
+    (out,) = run_children(name, [[sys.executable, *launcher, *entry]], tmp, child_env(),
+                          timeout=JOBS_TIMEOUT)
+    marks = [(i, float(line.split()[1]), line.split(" ", 2)[2])
+             for i, line in enumerate(out.splitlines()) if line.startswith("CLI_JOB ")]
+    lines = out.splitlines()
+    got = {}
+    for (i, t0, tag), (j, t1, _) in zip(marks, marks[1:]):
+        section = lines[i + 1:j]
+        counts = [json.loads(line.split(" ", 1)[1]) for line in section
+                  if line.startswith("RANK_COUNTS ")]
+        if len(counts) != 1:
+            raise AssertionError(f"{tag}: {len(counts)} RANK_COUNTS lines\n"
+                                 + "\n".join(section[-40:]))
+        got[tag] = (counts[0], section, t1 - t0)
+    if sorted(got) != sorted(j["tag"] for j in jobs):
+        raise AssertionError(f"{name}: ran {sorted(got)}\n{out[-3000:]}")
+    return got
+
+
+def a11d_check(job, counts, lines, wall) -> dict:
+    """A [15] job's run, checked: a recipe that fails in both packages must
+    have raised its pinned error; every step's loss is finite, a
+    multiview recipe launched the forward kernel and one backward a step,
+    the others none; the others print RESULTS with finite metrics."""
+    tag, recipe, error, steps, cfg = (job[k] for k in ("tag", "recipe", "error", "steps", "cfg"))
+    run = dict(counts, wall=wall, lines=lines, out_dir=job["out_dir"], cfg=cfg, recipe=recipe)
+    if error is not None:
+        want = A11D_ERRORS[recipe if job["early"] else error]
+        got = counts["error"]
+        if not (got and got.startswith(error) and want in got):
+            raise AssertionError(f"{tag}: error {got!r}, expected {error} with {want!r}")
+    if job["early"]:
+        run["steps"] = None
+        return run
+    run["steps"] = st = step_log(lines)
+    multiview = cfg.DATASETS.TASK == "multiview_keypoint"
+    if not (len(st["losses"]) == steps and all(math.isfinite(v) for v in st["losses"])
+            and (counts["launches"] > 0) == multiview
+            and counts["backward_launches"] == (steps if multiview else 0)):
+        raise AssertionError(f"{tag}: losses {st['losses']}, forward kernel launches "
+                             f"{counts['launches']}, backward {counts['backward_launches']}\n"
+                             + "\n".join(lines[-40:]))
+    if error is None:
+        if sum(line.startswith("RESULTS:") for line in lines) != 1:
+            raise AssertionError(f"{tag}: no RESULTS line\n" + "\n".join(lines[-40:]))
+        if "lifting" in cfg.DATASETS.TASK:
+            if "EPEmean_can" not in counts["results"] or not all(
+                    math.isfinite(v) for v in counts["results"].values()):
+                raise AssertionError(f"{tag}: RESULTS {counts['results']}")
+        else:
+            finite_metrics(tag, counts["results"])
+    return run
+
+
+def a11d_numbers(run) -> dict:
+    """A [15] run's numbers: the device ms a step after the first (CUDA
+    events), the peak, the loop's wall a step and the loader's share,
+    the profile's FLOPs an item and the step's achieved TFLOP/s (three
+    times the eval forward's FLOPs an item, the backward counted as twice
+    the forward, times the batch, over the device ms), the kernels'
+    launches and tiles, the metrics or the pinned error."""
+    out = {"seconds": run["wall"], "launches": run["launches"],
+           "backward_launches": run["backward_launches"],
+           "tiles": {"tile_path": run["tiles"][0], "per_query_path": run["tiles"][1]},
+           "error": run["error"], "results": run["results"]}
+    st = run["steps"]
+    if st is None:
+        return out
+    dev = st["device_ms"][1:]
+    step_ms = statistics.mean(dev) if dev else None
+    prof = run["profile"] or {}
+    flops = prof.get("flops")
+    batch = run["cfg"].SOLVER.IMS_PER_BATCH
+    out.update(device_ms_per_step=step_ms, device_ms=st["device_ms"],
+               peak_gib=st["peak_gib"][-1], loop_ms_per_step=1e3 * st["step_t"],
+               loader_share=st["data_t"] / st["step_t"], losses=st["losses"],
+               flops_per_item=flops, params=prof.get("params"),
+               attention_flops_per_item=prof.get("attention_flops"),
+               step_tflops_per_s=(3 * flops * batch / (step_ms * 1e-3) / 1e12
+                                  if flops and step_ms else None))
+    return out
+
+
+def a11d_line(n) -> str:
+    """One recipe's line of [15]."""
+    parts = []
+    if n.get("device_ms_per_step") is not None:
+        parts.append(f"device {n['device_ms_per_step']:.1f} ms a step after the first (CUDA "
+                     f"events: {', '.join(f'{v:.1f}' for v in n['device_ms'])}), peak "
+                     f"{n['peak_gib']:.3f} GiB, loop wall {n['loop_ms_per_step']:.0f} ms a step, "
+                     f"the loader's share {n['loader_share']:.2f}; losses (window medians) "
+                     f"{', '.join(f'{v:.5g}' for v in n['losses'])}")
+        if n["flops_per_item"]:
+            parts.append(f"profile_model {n['flops_per_item'] / 1e9:.3f} GFLOP an item "
+                         f"(attention {n['attention_flops_per_item'] / 1e9:.4f}), "
+                         f"{n['params']} parameters; ~{n['step_tflops_per_s']:.2f} TFLOP/s in "
+                         f"the step (3x the forward's FLOPs)")
+    parts.append(f"forward kernel launches {n['launches']}, backward "
+                 f"{n['backward_launches']}; tiles on the tile path / per-query path "
+                 f"{n['tiles']['tile_path']} / {n['tiles']['per_query_path']}")
+    if n["error"]:
+        parts.append(f"raised, as in the JAX package: {n['error'][:160]}")
+    else:
+        parts.append("RESULTS " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            n["results"].items()) if not k.startswith(("PCK@", "MPJPE@")) or k in (
+                "PCK@10",)))
+    return "; ".join(parts)
+
+
+def corr_pos_19mm(tmp, device) -> dict:
+    """[15]: the 19 mm recipe's eval on one validation group, kernel route
+    against plain route on the same weights (the recipe's model from its
+    seed and the pose-ResNet file): corr_pos within CORR_POS_TOL as [8]
+    holds it, and the 3D of its `epipolar` triangulation (CONF_THRES .85,
+    RANSAC_THRES 35) per joint within EPIPOLAR_3D_MM.  These launches
+    compare the kernel with its plain version and are not counted."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch.config import DatasetCatalog, load_config
+    from epipolar_transformers_tpu_torch.data.pipeline import build_dataset
+    from epipolar_transformers_tpu_torch.engine import tester, trainer
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, A11D_19MM), [
+        "BACKBONE.PRETRAINED_WEIGHTS", os.path.join(tmp, POSE_RESNET_WEIGHTS), "OUTPUT_DIR", ""])
+    saved, DatasetCatalog.DATA_DIR = DatasetCatalog.DATA_DIR, os.path.join(tmp, "datasets")
+    try:
+        group = build_dataset(cfg, cfg.DATASETS.TEST[0])[0]
+    finally:
+        DatasetCatalog.DATA_DIR = saved
+    model = trainer.build_model(cfg, device)
+    trainer.load_weights(cfg, model)
+    step = tester.make_eval_step(cfg, model, device)
+    layer = model.reference.epipolar_sampler
+    outs = []
+    for plain in (False, True):
+        if plain:
+            layer.attention = attn.epipolar_attention_plain_batch
+        out = step(group)
+        outs.append({k: out[k].float().cpu().numpy() for k in ("batch_locs", "score_pred",
+                                                               "corr_pos")})
+    del layer.attention
+    agree = agreement("[15] 19 mm recipe corr_pos", torch.from_numpy(outs[0]["corr_pos"]),
+                      torch.from_numpy(outs[1]["corr_pos"]), CORR_POS_TOL)
+    pred = [tester._triangulate(cfg, group, o["batch_locs"].astype(np.float64),
+                                o["score_pred"].astype(np.float64), o) for o in outs]
+    gap = np.linalg.norm(pred[0] - pred[1], axis=-1)
+    if not (np.isfinite(pred[0]).all() and gap.max() <= EPIPOLAR_3D_MM):
+        raise AssertionError(f"[15] 19 mm recipe 3D kernel route against plain route: "
+                             f"{np.round(gap, 4).tolist()} mm")
+    target = np.asarray(group["points-3d"], dtype=np.float64)[0]
+    mpjpe = float(np.minimum(np.linalg.norm(pred[0] - target, axis=-1),
+                             cfg.TEST.EPEMEAN_MAX_DIST).mean())
+    del model
+    torch.cuda.empty_cache()
+    return {"corr_pos_agree": agree, "max_3d_gap_mm": float(gap.max()), "mpjpe_mm": mpjpe}
+
+
+def a11d_phase(device):
+    """[15]: the fifteen recipes as written, their command lines one after
+    another in one process of their own started in the fake trees'
+    directory, and the tooling on the card: (a) a recipe under --trace,
+    (b) VIS.FLOPS, (c) DATALOADER.BENCHMARK, (d) the event files.  Returns
+    the main path's launches and tiles and the numbers for the kernels'
+    line."""
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.config import flagship_cfg
+    from epipolar_transformers_tpu_torch.utils.metric_logger import read_scalars
+    from epipolar_transformers_tpu_torch.utils.profiling import profile_model, trace_summary
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    out, runs = {"recipes": {}}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "datasets")
+        write_fake_h36m(data, A11D_TRAIN_GROUPS, A11D_VAL_GROUPS, H36M_IMAGE_SIZE,
+                        distinct_groups=R152_DISTINCT)
+        write_fake_rhd(data, RHD_ITEMS)
+        write_pose_resnet(os.path.join(tmp, POSE_RESNET_WEIGHTS), 152)
+        log(f"  fake H36M tree ({A11D_TRAIN_GROUPS} train, {A11D_VAL_GROUPS} validation groups, "
+            f"{R152_DISTINCT[0]} and {R152_DISTINCT[1]} distinct, {H36M_IMAGE_SIZE + 2}x"
+            f"{H36M_IMAGE_SIZE} JPEGs), fake RHD tree ({RHD_ITEMS} + {RHD_ITEMS} samples) and a "
+            f"seeded pose-ResNet-152 at {POSE_RESNET_WEIGHTS}, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        trace_dir = os.path.join(tmp, "trace")
+        jobs = [a11d_job(f"[15] {recipe[len('configs/'):-len('.yaml')]}", recipe, tmp, error,
+                         ("--trace", trace_dir) if recipe == A11D_TRACE_RECIPE else ())
+                for recipe, error in A11D_RECIPES]
+        # (c) DATALOADER.BENCHMARK with the recipe's 15 workers: the loader alone
+        _, _, bench_argv = cli_argv("[15](c)", A11D_BENCHMARK_RECIPE, tmp,
+                                    A11D_BENCHMARK_BATCHES, 0,
+                                    ("DATALOADER.BENCHMARK", "True", "DOTEST", "False"))
+        bench_job = dict(tag="[15](c) DATALOADER.BENCHMARK", locs="", options={},
+                         argv=bench_argv)
+        got = cli_jobs("[15]", jobs + [bench_job], tmp)
+        for job in jobs:
+            run = a11d_check(job, *got[job["tag"]])
+            runs.append(run)
+            name = job["tag"][len("[15] "):]
+            out["recipes"][name] = n = a11d_numbers(run)
+            traced = " under --trace" if job["recipe"] == A11D_TRACE_RECIPE else ""
+            log(f"  {job['recipe']} as written{traced} ({run['wall']:.1f} s): {a11d_line(n)}")
+
+        # both kernels against their plain versions on the whole first batch
+        # of each (batch, heatmap size) that the recipes hand them
+        by_recipe = {r["recipe"]: r for r in runs}
+        entries = [attention_at(f"[15] {recipe[len('configs/'):-len('.yaml')]}",
+                                by_recipe[recipe]["cfg"], torch.load(by_recipe[recipe]["locs"]),
+                                device)
+                   for recipe in A11D_ATTENTION_RECIPES]
+
+        # the 19 mm recipe's corr_pos and 3D, kernel route against plain
+        out["corr_pos_19mm"] = c = corr_pos_19mm(tmp, device)
+        log(f"  {A11D_19MM} eval, one group, kernel route against plain route: corr_pos agree "
+            f"{c['corr_pos_agree']:.4f} within {CORR_POS_TOL}; the epipolar triangulation's 3D "
+            f"within {c['max_3d_gap_mm']:.3g} mm of each other; MPJPE {c['mpjpe_mm']:.2f} mm")
+
+        # (a) the recipe under --trace
+        summ = trace_summary(os.path.join(trace_dir, "trace.json"))
+        named = {k: {"launches": 0, "ms": 0.0} for k in TRACE_KERNELS}
+        for kname, v in summ["kernels"].items():
+            for k in TRACE_KERNELS:
+                if re.search(rf"\b{k}\b", kname):
+                    named[k]["launches"] += v["launches"]
+                    named[k]["ms"] += v["ms"]
+        missing = [k for k, v in named.items() if not v["launches"]]
+        if missing or not summ["device_events"] or summ["steps"] != A11D_STEPS:
+            raise AssertionError(f"[15](a) the trace holds {summ['device_events']} device "
+                                 f"events over {summ['steps']} steps, and no {missing}")
+        out["trace"] = {k: v for k, v in summ.items() if k != "kernels"}
+        out["trace"]["hand_kernels"] = named
+        log(f"  (a) {A11D_TRACE_RECIPE} under --trace: {summ['device_events']} device events, "
+            f"{len(summ['kernels'])} kernels by name; the device busy {summ['busy_ms']:.1f} of "
+            f"{summ['window_ms']:.1f} ms over the {summ['steps']} traced train steps (share "
+            f"{summ['busy_share']:.3f}); the hand kernels over the run: "
+            + ", ".join(f"{k} {v['launches']} launches {v['ms']:.2f} ms" for k, v in named.items()))
+
+        # (b) VIS.FLOPS on the flagship and the 384 fixed recipe
+        flagship = profile_model(flagship_cfg(), device=device)
+        on_host = profile_model(flagship_cfg(), device="cpu")
+        if on_host["flops"] != flagship["flops"] or on_host["params"] != flagship["params"]:
+            raise AssertionError(f"[15](b) the flagship's count on the card {flagship} and on "
+                                 f"the host {on_host} differ")
+        fixed = cli.main(["--cfg", os.path.join(root, R152_RECIPE), "VIS.FLOPS", "True"])
+        h, w = flagship_cfg().KEYPOINT.HEATMAP_SIZE
+        if not (fixed["flops"] > flagship["flops"] > flagship["attention_flops"]
+                == 2 * h * w * flagship_cfg().EPIPOLAR.SAMPLESIZE * 2 * 256):
+            raise AssertionError(f"[15](b) flagship {flagship}, {R152_RECIPE} {fixed}")
+        out["vis_flops"] = {"flagship": flagship, "r152_384_fixed": fixed}
+        log(f"  (b) VIS.FLOPS: the flagship {flagship['params']} parameters, "
+            f"{flagship['flops'] / 1e9:.3f} GFLOP an item (attention "
+            f"{flagship['attention_flops'] / 1e9:.4f}; the same count on the card and on the "
+            f"host); {R152_RECIPE} {fixed['params']} parameters, {fixed['flops'] / 1e9:.3f} "
+            f"GFLOP an item; bytes_accessed not counted (NaN)")
+
+        # (c) DATALOADER.BENCHMARK with the recipe's 15 workers
+        counts, lines, wall = got[bench_job["tag"]]
+        runs.append(counts)
+        bench = [line for line in lines if "DATALOADER.BENCHMARK:" in line]
+        if len(bench) != 1:
+            raise AssertionError("[15](c) no DATALOADER.BENCHMARK line")
+        stages = {k: float(v) for k, v in re.findall(r"(\w+)=([\d.]+)ms", bench[0])}
+        if set(stages) != set(A11D_STAGES) or not all(v > 0 for v in stages.values()):
+            raise AssertionError(f"[15](c) stages {stages}")
+        batches = re.search(r"(\d+) batches .* the first ([\d.]+) ms, the others ([\d.]+) "
+                            r"ms/batch", bench[0])
+        if not batches or int(batches[1]) != A11D_BENCHMARK_BATCHES:
+            raise AssertionError(f"[15](c) {bench[0]}")
+        out["dataloader_benchmark"] = {"line": bench[0].split("DATALOADER.BENCHMARK: ")[1],
+                                       "stage_ms": stages, "first_batch_ms": float(batches[2]),
+                                       "then_ms_per_batch": float(batches[3])}
+        log(f"  (c) {A11D_BENCHMARK_RECIPE} with DATALOADER.BENCHMARK ({wall:.1f} s): "
+            f"{bench[0].split('DATALOADER.BENCHMARK: ')[1]}")
+
+        # (d) the event files of a recipe's run against its logged values
+        fixed_run = next(r for r in runs if r["out_dir"].endswith("keypoint_h36m_zresidual_fixed"))
+        scalars = read_scalars(fixed_run["out_dir"])
+        logged = [re.findall(r"(\w+): (\S+) \((\S+)\)", line) for line in fixed_run["lines"]
+                  if " step " in line and " loss: " in line]
+        keys = {k for k, _, _ in logged[0]}
+        if set(scalars) != {f"train/{k}" for k in keys}:
+            raise AssertionError(f"[15](d) event tags {sorted(scalars)}, logged {sorted(keys)}")
+        worst = 0.0
+        for s_i, step_vals in enumerate(logged):
+            for k, median, _ in step_vals:
+                series = [v for _, v in scalars[f"train/{k}"][:s_i + 1]]
+                worst = max(worst, abs(float(np.median(series)) - float(median)))
+        if worst > 1e-4 or [s for s, _ in scalars["train/loss"]] != list(
+                range(1, len(logged) + 1)):
+            raise AssertionError(f"[15](d) event values off the logged medians by {worst}")
+        out["event_files"] = {"tags": sorted(scalars), "max_gap_to_log": worst}
+        log(f"  (d) the event files of {A11D_BENCHMARK_RECIPE}'s run, read back by the port's "
+            f"reader: {len(scalars)} train/* tags at steps "
+            f"{[s for s, _ in scalars['train/loss']]}, their window medians within {worst:.2g} "
+            f"of the logged values (printed to 4 decimals)")
+    out["phase_seconds"] = time.perf_counter() - start
+    log(f"  [15] took {out['phase_seconds']:.1f} s")
+    return dict(launches=sum(r["launches"] for r in runs),
+                backward_launches=sum(r["backward_launches"] for r in runs),
+                tiles=[sum(r["tiles"][i] for r in runs) for i in range(2)], numbers=out,
+                forward_entries=[e[0] for e in entries],
                 backward_entries=[e[1] for e in entries])
 
 
@@ -3198,7 +3906,10 @@ def main() -> int:
         f"the command line, {R152_DDP_RECIPE} under torchrun --multihost and over two gloo "
         f"ranks on the card, {R152_320_RECIPE} (80x80) and {K85_RECIPE} (K=85), {card}")
     r152 = r152_phase(device)
-    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152]
+    log(f"[15] the fifteen recipes no card had run, as written, on a fake H36M tree, a fake "
+        f"RHD tree and a seeded pose-ResNet file, and the profiling and loader tooling, {card}")
+    a11d = a11d_phase(device)
+    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152, a11d]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -3214,6 +3925,7 @@ def main() -> int:
                                + hg["tiles"][1] + recipe_tiles[1]
                                + sum(e["tiles"][1] for e in extra))},
         "hourglass_shape": hg["entry"], "r152_shapes": r152["forward_entries"],
+        "a11d_shapes": a11d["forward_entries"],
     }, {
         "name": "epipolar_attention_backward", "route": "cuda",
         "source": "epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu",
@@ -3223,6 +3935,7 @@ def main() -> int:
         "max_abs_err": bwd_err, "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
         "hourglass_shape": hg["backward_entry"], "r152_shapes": r152["backward_entries"],
+        "a11d_shapes": a11d["backward_entries"],
         "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],
                            "bound_by": prior_bound[1]},
     }], "param_recipe": param, "lifting_tasks": {
@@ -3230,7 +3943,7 @@ def main() -> int:
         if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()},
         "h36m_path": {k: v for k, v in h36m.items()
                       if k not in ("launches", "backward_launches", "tiles")},
-        "r152_recipes": r152["numbers"]}))
+        "r152_recipes": r152["numbers"], "a11d_recipes": a11d["numbers"]}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:
@@ -3247,8 +3960,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli-main"]:  # [14]: the command line in a process of its own
-        sys.exit(cli_main(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--cli-jobs"]:  # [14], [15]: command lines in a process of their own
+        sys.exit(cli_jobs_main(sys.argv[2]))
     if sys.argv[1:2] == ["--gloo-rank"]:  # [14](c): a rank that [14] starts
         sys.exit(gloo_rank_main(*map(int, sys.argv[2:5]), sys.argv[5]))
     try:

@@ -20,19 +20,24 @@ global generator gives the JAX items.
 
 The 20-joint union <-> 17-joint mapping (MPII-compatible heads,
 joints_dataset.py:53-158) and the S9 damaged-sequence filter
-(joints_dataset.py:174-184) are kept.  Not ported here: DATALOADER.BENCHMARK's
-stage timers (ROADMAP A13; the trainer raises on it).
+(joints_dataset.py:174-184) are kept.  Under DATALOADER.BENCHMARK an item
+times its stages (setup, read, undistort, warp, heatmap; JAX
+joints_dataset.py:161-172,206-255) into utils/profiling.py's
+DATALOADER_STAGES, which a loader worker ships back to its consumer
+(data/pipeline.py).
 """
 
 from __future__ import annotations
 
 import os.path as osp
+import time
 
 import numpy as np
 
 from ...config import Config
 from ...geometry.undistort import undistort_image, undistort_points
 from ...utils import zipreader
+from ...utils.profiling import DATALOADER_STAGES
 from ..jpeg import read_jpeg
 from ..transforms.affine import IMAGENET_MEAN, IMAGENET_STD, affine_transform, get_affine_transform
 from ..transforms.warp import render_heatmaps, warp_affine
@@ -137,6 +142,7 @@ class JointsDataset:
         cfg = self.cfg
         db_rec = self.db[idx]
         needs_image = cfg.DATASETS.TASK not in LIFTING_TASKS
+        mark = _StageClock() if cfg.DATALOADER.BENCHMARK else _no_clock
 
         joints = db_rec["joints_2d"].copy()
         joints_3d_camera = db_rec["joints_3d_camera"].copy()
@@ -163,9 +169,12 @@ class JointsDataset:
 
         img = None
         if needs_image:
+            mark("setup")
             img = self._read_image(db_rec)
+            mark("read")
             if self.data_format != "undistoredzip":
                 img = undistort_image(img, K, dist)
+            mark("undistort")
 
         joints = undistort_points(joints[:, :2], K, dist)
         center = undistort_points(center[None], K, dist)[0]
@@ -184,6 +193,7 @@ class JointsDataset:
         if needs_image:
             img = warp_affine(img.astype(np.float32), trans,
                               (int(self.image_size[0]), int(self.image_size[1])))
+            mark("warp")
 
         for i in range(self.num_joints):
             if joints_vis[i, 0] > 0.0:
@@ -194,6 +204,7 @@ class JointsDataset:
 
         target = render_heatmaps(joints, tuple(self.heatmap_size), self.sigma,
                                  cfg.BACKBONE.DOWNSAMPLE)
+        mark("heatmap")
 
         ret = {
             "heatmap": target.transpose(1, 2, 0),  # (h, w, J) NHWC
@@ -217,3 +228,20 @@ class JointsDataset:
             ret["crop_center"] = center.astype(np.float32)
             ret["crop_scale"] = np.asarray(scale, dtype=np.float32)
         return ret
+
+
+class _StageClock:
+    """`mark(stage)` adds the seconds since the last mark (or since the
+    clock started) to DATALOADER_STAGES under `stage`."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, stage: str) -> None:
+        now = time.perf_counter()
+        DATALOADER_STAGES.add(stage, now - self.t)
+        self.t = now
+
+
+def _no_clock(stage: str) -> None:
+    return None

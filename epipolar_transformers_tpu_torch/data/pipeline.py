@@ -32,7 +32,10 @@ from its dataset reseeded with (cfg.SEED, epoch, r N + w + 1): rank 0
 replays the draws of a one-rank run with N workers, and each other rank's
 workers take streams no other worker draws.  With 0 workers every rank
 draws the dataset's own stream, seeded with cfg.SEED, as each JAX process
-does.  Workers start with DATALOADER.MP_START_METHOD ('auto':
+does.  Under DATALOADER.BENCHMARK each item's stage times come back with
+it and join the consumer's DATALOADER_STAGES (the JAX package's workers
+keep theirs, so its report holds only what the consumer made).  Workers
+start with DATALOADER.MP_START_METHOD ('auto':
 forkserver under a parent with threads, as a torch parent always has),
 touch no GPU, and a worker's error, or its death, stops the run with the
 error in the consumer.  RHD's loader stays in the calling process (its
@@ -53,6 +56,7 @@ import numpy as np
 
 from .. import parallel
 from ..config import Config, DatasetCatalog
+from ..utils.profiling import DATALOADER_STAGES
 
 __all__ = ["ConcatDataset", "EvalLoader", "TrainLoader", "build_dataset", "collate",
            "make_eval_loaders", "make_train_loader", "stop_workers"]
@@ -109,23 +113,27 @@ def _start_method(method: str) -> str:
 
 def _worker_loop(dataset, seed, tasks, results) -> None:
     """A loader worker: reseed the dataset's draws, then turn (seq, index)
-    tasks into (seq, item, None) until a None task; on an error, ship
-    (seq, None, the pickled error) and stop."""
+    tasks into (seq, item, None, stage times) until a None task; on an
+    error, ship (seq, None, the pickled error, None) and stop.  The stage
+    times are what the item added to this process's DATALOADER_STAGES
+    (DATALOADER.BENCHMARK), else None; the consumer adds them to its own."""
     dataset.reseed(seed)
+    DATALOADER_STAGES.reset()  # a forked worker starts with its parent's
     while True:
         task = tasks.get()
         if task is None:
             return
         seq, idx = task
         try:
-            results.put((seq, dataset[idx], None))
+            item = dataset[idx]
+            results.put((seq, item, None, DATALOADER_STAGES.take()))
         except BaseException as exc:  # noqa: BLE001 - relayed to the consumer
             try:
                 payload = pickle.dumps(exc)
                 pickle.loads(payload)
             except Exception:
                 payload = pickle.dumps(RuntimeError(f"loader worker failed: {exc!r}"))
-            results.put((seq, None, payload))
+            results.put((seq, None, payload, None))
             return
 
 
@@ -174,13 +182,15 @@ def _worker_batches(dataset, batches: List[np.ndarray], num_workers: int, start_
                 if failed:  # its worker has stopped: raise it
                     raise pickle.loads(ready[failed[0]][1])
                 try:
-                    got, item, err = results.get(timeout=POLL_SECONDS)
+                    got, item, err, stages = results.get(timeout=POLL_SECONDS)
                 except queue.Empty:
                     dead = [p for p in workers if p.exitcode not in (None, 0)]
                     if dead:
                         raise RuntimeError(f"loader worker {dead[0].name} (pid {dead[0].pid}) "
                                            f"died with exit code {dead[0].exitcode}") from None
                     continue
+                if stages:
+                    DATALOADER_STAGES.merge(stages)
                 ready[got] = (item, err)
             items = []
             for k in range(start, end):  # an error surfaces in the item order

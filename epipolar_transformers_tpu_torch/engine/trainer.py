@@ -19,9 +19,13 @@ then `load_weights` imports the pretrained and foreign weights
 `create_train_state` and its Checkpointer do.  A
 batch without `img` is a DATALOADER.DEVICE_RENDER batch: only its
 coordinates, cameras and visibility go to the device, where
-ops/synthetic_render.py renders the images and heatmaps.  Not ported here,
-each said when met: DATALOADER.BENCHMARK (ROADMAP A13) and tensorboard
-(ROADMAP A13, skipped with a log line).
+ops/synthetic_render.py renders the images and heatmaps.  Every LOG_FREQ
+steps the step's values go into the windowed meters, whose median and
+global average the log line shows, and into the tensorboard event files
+under `train/` (OUTPUT_DIR, or OUTPUT_DIR/<TENSORBOARD.COMMENT>-<time>),
+as the JAX loop does; each step runs inside a `train_step` profiler span.
+DATALOADER.BENCHMARK runs the loader alone (`benchmark_loader`) and trains
+nothing.
 
 Under a process group (parallel/: `--multihost`, or a group the caller
 made) every rank builds the same seeded model, checks once that all hold
@@ -30,7 +34,7 @@ DistributedDataParallel, which averages the gradients; BatchNorm takes the
 global batch's moments (models/layers.py) and the count-normalised losses
 the global count, so a step is the JAX package's step on the whole batch.
 Rank 0 alone saves checkpoints and runs `eval_fn` while the others wait at
-a barrier, and logs the step's values averaged over the ranks.  On the GPU
+a barrier, and logs and writes the step's values averaged over the ranks.  On the GPU
 each logged step also reports its device time (CUDA events) and the peak
 device memory so far.
 """
@@ -38,6 +42,7 @@ device memory so far.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -51,7 +56,9 @@ from ..models import ModelBuilder
 from ..models.layers import BatchNorm2d
 from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
+from ..utils.metric_logger import MetricLogger, TensorboardWriter
 from ..utils.pretrained import apply_pretrained
+from ..utils.profiling import DATALOADER_STAGES
 from .solver import Optimizer, make_optimizer
 from .tester import MODEL_KEYS, to_model_inputs
 
@@ -153,18 +160,48 @@ def data_parallel(cfg: Config, model: torch.nn.Module, device: torch.device) -> 
         broadcast_buffers=False, find_unused_parameters=unused)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on what the port's train loop does not run yet."""
-    if cfg.DATALOADER.BENCHMARK:
-        raise NotImplementedError("DATALOADER.BENCHMARK (the loader-only benchmark) is "
-                                  "ROADMAP A13 in the port")
+def benchmark_loader(loader, max_steps: Optional[int] = None) -> Dict:
+    """DATALOADER.BENCHMARK: one pass of the loader alone (at most
+    `max_steps` batches) with the datasets' stage timers on (JAX
+    engine/trainer.py:135-153).  Logs and returns the batches, the wall
+    seconds, ms a batch, the first batch's ms (the workers' start in it)
+    apart from the mean of the others', and each stage's mean ms an item,
+    the loader workers' included."""
+    DATALOADER_STAGES.reset()
+    t0 = time.time()
+    n, first = 0, None
+    for _ in loader:
+        n += 1
+        if first is None:
+            first = time.time() - t0
+        if max_steps is not None and n >= max_steps:
+            break
+    total = time.time() - t0
+    first_ms = first * 1e3 if first is not None else float("nan")
+    then_ms = (total - first) / (n - 1) * 1e3 if n > 1 else float("nan")
+    logger.info("DATALOADER.BENCHMARK: %d batches in %.2fs (%.1f ms/batch; the first %.1f ms, "
+                "the others %.1f ms/batch)  stages: %s", n, total, total / max(n, 1) * 1e3,
+                first_ms, then_ms, DATALOADER_STAGES.report())
+    return {"batches": n, "seconds": total, "ms_per_batch": total / max(n, 1) * 1e3,
+            "first_batch_ms": first_ms, "then_ms_per_batch": then_ms,
+            "stage_ms": {k: v * 1e3 for k, v in DATALOADER_STAGES.averages().items()}}
+
+
+def tensorboard_dir(cfg: Config) -> str:
+    """TENSORBOARD.COMMENT names the event folder under OUTPUT_DIR
+    (reference main.py:41-44, FOLDER_NAME = OUTPUT_DIR/<comment>-<time>)."""
+    if cfg.TENSORBOARD.COMMENT and cfg.OUTPUT_DIR:
+        return os.path.join(cfg.OUTPUT_DIR,
+                            f"{cfg.TENSORBOARD.COMMENT}-{time.strftime('%Y-%m-%d-%H-%M')}")
+    return cfg.OUTPUT_DIR
 
 
 def train(cfg: Config, max_steps: Optional[int] = None, device=None,
           eval_fn: Optional[Callable[[Config, ModelBuilder], Dict]] = None
-          ) -> Tuple[ModelBuilder, Optimizer]:
+          ) -> Tuple[Optional[ModelBuilder], Optional[Optimizer]]:
     """The training loop; returns the model and its optimizer, whose
-    `count` is the number of optimizer updates, restored ones included.
+    `count` is the number of optimizer updates, restored ones included;
+    under DATALOADER.BENCHMARK, (None, None) after the loader's pass.
 
     Args:
         max_steps: stop after this many steps of this call (smoke runs and
@@ -175,10 +212,10 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
             (reference trainer.py:139-141); EVAL_FREQ <= 0 never calls it.
     """
     device = resolve_device(device)
-    check_supported(cfg)
-    if cfg.TENSORBOARD.USE:
-        logger.info("TENSORBOARD.USE: the port writes no event files yet (ROADMAP A13)")
     loader = make_train_loader(cfg)
+    if cfg.DATALOADER.BENCHMARK:
+        benchmark_loader(loader, max_steps)
+        return None, None
     steps_per_epoch = max(len(loader), 1)
     model = build_model(cfg, device)
     optimizer = make_optimizer(cfg, model, steps_per_epoch)
@@ -193,31 +230,35 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
     train_step = make_train_step(cfg, data_parallel(cfg, model, device), optimizer)
     render = make_batch_renderer(cfg)
     timer = _StepTimer(device)
+    meters = MetricLogger()
     step = 0
     t_data = t_step = 0.0
-    for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS):
-        t0 = time.time()
-        for batch in loader:
-            inputs = model_inputs(batch, device, render)
-            t_data += time.time() - t0
-            with timer:
-                metrics = train_step(inputs)
-            step += 1
-            t_step += time.time() - t0
-            if step % cfg.LOG_FREQ == 0:
-                values = parallel.mean_over_ranks(metrics)
-                if parallel.is_primary():
-                    logger.info("epoch %d step %d  %s  data_t %.3f step_t %.3f%s", epoch, step,
-                                "  ".join(f"{k} {v:.6g}" for k, v in values.items()),
-                                t_data / step, t_step / step, timer.report())
-            if max_steps is not None and step >= max_steps:
-                return model, optimizer
+    with TensorboardWriter(tensorboard_dir(cfg),
+                           enabled=cfg.TENSORBOARD.USE and parallel.is_primary()) as tb:
+        for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS):
             t0 = time.time()
-        if (epoch + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-            _on_primary(checkpointer.save, f"model_{epoch:03d}", model, optimizer,
-                        epoch=epoch + 1)
-        if eval_fn is not None and cfg.EVAL_FREQ > 0 and (epoch + 1) % cfg.EVAL_FREQ == 0:
-            _on_primary(eval_fn, cfg, model)
+            for batch in loader:
+                inputs = model_inputs(batch, device, render)
+                t_data += time.time() - t0
+                with timer, torch.profiler.record_function("train_step"):
+                    metrics = train_step(inputs)
+                step += 1
+                t_step += time.time() - t0
+                if step % cfg.LOG_FREQ == 0:
+                    values = parallel.mean_over_ranks(metrics)
+                    if parallel.is_primary():
+                        meters.update(**values)
+                        tb.write(values, step, tag="train")
+                        logger.info("epoch %d step %d  %s  data_t %.3f step_t %.3f%s", epoch,
+                                    step, meters, t_data / step, t_step / step, timer.report())
+                if max_steps is not None and step >= max_steps:
+                    return model, optimizer
+                t0 = time.time()
+            if (epoch + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
+                _on_primary(checkpointer.save, f"model_{epoch:03d}", model, optimizer,
+                            epoch=epoch + 1)
+            if eval_fn is not None and cfg.EVAL_FREQ > 0 and (epoch + 1) % cfg.EVAL_FREQ == 0:
+                _on_primary(eval_fn, cfg, model)
     if cfg.SOLVER.MAX_EPOCHS > start_epoch:
         _on_primary(checkpointer.save, "model_final", model, optimizer,
                     epoch=cfg.SOLVER.MAX_EPOCHS)

@@ -41,11 +41,16 @@ def joints_mse_loss(pred: torch.Tensor, target: torch.Tensor, visibility: torch.
 
 def keypoints_mse_smooth_loss(pred: torch.Tensor, target: torch.Tensor,
                               visibility: torch.Tensor, threshold: float = 400.0) -> torch.Tensor:
-    """KeypointsMSESmoothLoss (metrics2d.py:43-58)."""
+    """KeypointsMSESmoothLoss (metrics2d.py:43-58).  The power is taken of
+    the squared error clamped to `threshold`, so the branch `where` leaves
+    out has a finite derivative: JAX's `diff ** 0.1` on all of `diff` gives
+    a NaN gradient wherever the error is exactly 0, as on every pixel of a
+    joint with visibility 0.  The loss is the same."""
     N, J, H, W = pred.shape
     v = _vis2d(visibility, N, J)
     diff = (target.float() - pred.float()) ** 2 * v[:, :, None, None]
-    diff = torch.where(diff > threshold, diff ** 0.1 * threshold ** 0.9, diff)
+    over = diff > threshold
+    diff = torch.where(over, torch.where(over, diff, threshold) ** 0.1 * threshold ** 0.9, diff)
     return parallel.global_ratio(diff.sum(), v.sum(), 1.0) / (H * W)
 
 

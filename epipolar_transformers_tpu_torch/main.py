@@ -22,8 +22,12 @@ of each batch (parallel/, engine/trainer.py); rank 0 alone runs the evals,
 logs and prints RESULTS, while the others wait.  The group is left at the
 end and on an error.
 
-Not ported yet, each raising when asked: VIS.FLOPS, the visualization
-dispatch and `--trace` (ROADMAP A13).
+VIS.FLOPS prints the model's parameters and eval-forward FLOPs as
+`PROFILE: {...}` and stops (utils/profiling.py).  `--trace DIR` runs the
+train/test dispatch under `torch.profiler` (the host's ops and, on the
+card, its kernels) and writes a Chrome/Perfetto trace, DIR/trace.json, or
+DIR/trace_rank<r>.json for each rank under --multihost.  Not ported yet,
+raising when asked: the visualization dispatch (ROADMAP A13b).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from .config import load_config
 from .data.pipeline import stop_workers
 from .engine import test, train
 from .engine.trainer import build_model, load_weights, resolve_device
+from .utils.profiling import profile_model
 
 logger = logging.getLogger("main")
 
@@ -57,7 +62,8 @@ def parse_args(argv=None):
     parser.add_argument("--multihost", action="store_true",
                         help="data parallel over the ranks that torchrun starts")
     parser.add_argument("--trace", metavar="DIR", default=None,
-                        help="profiler trace of the run (ROADMAP A13; raises)")
+                        help="write a torch.profiler trace of the run into DIR (open with "
+                             "Perfetto or chrome://tracing)")
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="KEY VALUE config override pairs")
     return parser.parse_args(argv)
@@ -76,15 +82,9 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
                         stream=sys.stdout)
 
-    if args.trace:
-        raise NotImplementedError("--trace (a profiler trace of the run) is ROADMAP A13 "
-                                  "in the port")
-    if cfg.VIS.FLOPS:
-        raise NotImplementedError("VIS.FLOPS (the parameter and FLOP count) is ROADMAP A13 "
-                                  "in the port")
-    if _wants_visualization(cfg):
+    if _wants_visualization(cfg) and not cfg.VIS.FLOPS:
         raise NotImplementedError("the VIS dispatch (pointcloud, AUC, video, epipolar lines, "
-                                  "cursor) is ROADMAP A13 in the port")
+                                  "cursor) is ROADMAP A13b in the port")
     if not args.multihost:
         return run(cfg, args, resolve_device(args.device))
     device = parallel.init_distributed(args.device)
@@ -108,7 +108,29 @@ def run(cfg, args, device):
     logger.info("device: %s (%s)", device,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
     logger.info("task=%s backbone=%s", cfg.DATASETS.TASK, cfg.BACKBONE.BODY)
+    if cfg.VIS.FLOPS:
+        # reference tester.py:36-43: print the parameters and FLOPs and stop
+        prof = profile_model(cfg, device=device)
+        if parallel.is_primary():
+            print("PROFILE:", prof)
+        return prof
+    if not args.trace:
+        return dispatch(cfg, args, device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(args.trace, exist_ok=True)
+    path = os.path.join(args.trace, f"trace_rank{parallel.rank()}.json" if args.multihost
+                        else "trace.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        results = dispatch(cfg, args, device)
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace -> %s", path)
+    return results
 
+
+def dispatch(cfg, args, device):
+    """DOTRAIN, with the periodic eval under DOTEST, then DOTEST."""
     model = None
     if cfg.DOTRAIN:
         eval_fn = None

@@ -230,6 +230,22 @@ class Epipolar(nn.Module):
         return (e.REPROJECT_LOSS_WEIGHT != 0 or e.WARPEDHEATMAP or c.VIS.EPIPOLAR_LINE
                 or (not self.training and c.VIS.SAVE_PRED))
 
+    def attend(self, q, k, v, sample_locs, prior=None):
+        """The attention on this layer's route: (N, H, W, C) queries, keys
+        and values and (N, K, H, W, 2) sample locations -> out (N, H, W,
+        C'), corr_pos, depth.  utils/profiling.py counts its FLOPs by
+        formula, whatever route computes it."""
+        params = self.attention_params
+        if self.route == "kernel":
+            return self.attention(q, k, v, sample_locs, params, prior)
+        if self.route == "pooled":
+            return epipolar_attention_pooled(q, k, v, sample_locs, params, prior,
+                                             shared_kv=self.shared_kv)
+        depth_kind = ("rank" if self.route == "streaming" and not self._need_depth()
+                      else "weights")
+        return epipolar_attention(q, k, v, sample_locs, params, prior,
+                                  shared_kv=self.shared_kv, depth=depth_kind)
+
     def forward(self, feat1, feat2, P1, P2, camera=None, other_camera=None, ref1=None, ref2=None):
         """
         Args:
@@ -275,17 +291,7 @@ class Epipolar(nn.Module):
 
         q, k = nhwc(query), nhwc(keys)
         v = k if values is keys else nhwc(values)
-        params = self.attention_params
-        if self.route == "kernel":
-            out, corr_pos, depth = self.attention(q, k, v, sample_locs, params, prior)
-        elif self.route == "pooled":
-            out, corr_pos, depth = epipolar_attention_pooled(q, k, v, sample_locs, params, prior,
-                                                             shared_kv=self.shared_kv)
-        else:
-            depth_kind = ("rank" if self.route == "streaming" and not self._need_depth()
-                          else "weights")
-            out, corr_pos, depth = epipolar_attention(q, k, v, sample_locs, params, prior,
-                                                      shared_kv=self.shared_kv, depth=depth_kind)
+        out, corr_pos, depth = self.attend(q, k, v, sample_locs, prior)
         out = out.permute(0, 3, 1, 2)
 
         # z projection + zero-init BN (+ residual)   epipolar.py:249-255

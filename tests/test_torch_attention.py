@@ -135,3 +135,66 @@ def test_epipolar_layer_matches_reference_golden():
         np.testing.assert_allclose(out.numpy(), want_out, rtol=0, atol=0.03, err_msg=case)
         assert np.abs(out.numpy() - want_out).mean() < 3e-3
         np.testing.assert_allclose(depth.numpy(), g[f"{case}__depth"], rtol=0, atol=0.03)
+
+
+def _sentinel_case(tiny: float):
+    """Every query's f1 = (1, 1, 0, 0) but query (0, 0)'s = (1, 0.5, 0, 0);
+    sample 0 of every query sits on key pixel (1, 1), whose row is (1, -1 +
+    tiny, 0, 0), sample 1 on (3, 2), whose row is (2, 0, 0, 0); the other
+    key rows are 0.  Sample 0's similarity is `tiny` (0.5 at query (0, 0)),
+    sample 1's 2."""
+    B, K, H, W, C = 1, 2, 4, 5, 4
+    f1 = np.zeros((B, H, W, C), np.float32)
+    f1[..., :2] = 1.0
+    f1[0, 0, 0, 1] = 0.5
+    f2 = np.zeros((B, H, W, C), np.float32)
+    f2[0, 1, 1, :2] = (1.0, -1.0 + tiny)
+    f2[0, 3, 2, 0] = 2.0
+    locs = np.zeros((B, K, H, W, 2), np.float32)
+    for k, (y, x) in enumerate(((1, 1), (3, 2))):
+        locs[:, k, ..., 0] = -1 + 2 * x / (W - 1)
+        locs[:, k, ..., 1] = -1 + 2 * y / (H - 1)
+    return [f1, f2, f2], locs
+
+
+def test_zero_sentinel_is_a_step_in_both_packages():
+    """The reference's mask (masked = sim == 0 ? -1e10 : sim) is a step at
+    0: in both packages a sample whose similarity is exactly 0 leaves the
+    softmax, and one a rounding error away (1.2e-7) keeps its whole weight,
+    1 / (1 + e^2) at softmax_scale 1.  So two f32 sums of a similarity
+    within rounding of 0 may differ by a whole sample's weight."""
+    kw = dict(softmax_scale=1.0)
+    _, _, exact = _both(*_sentinel_case(0.0), kw)
+    _, _, near = _both(*_sentinel_case(1e-7), kw)
+    assert float(exact[0, 0, 1, 1]) == 0.0 and float(exact[0, 1, 1, 1]) == 1.0
+    np.testing.assert_allclose(float(near[0, 0, 1, 1]), 1 / (1 + np.exp(2.0)), rtol=1e-5)
+    # query (0, 0), sample 0's similarity 0.5, is the same on both sides
+    np.testing.assert_allclose(float(near[0, 0, 0, 0]), float(exact[0, 0, 0, 0]), rtol=1e-5)
+
+
+def test_mask_ties_hold_out_only_rounding_ties():
+    """chip_smoke.mask_ties: where one side masks a sample that the other
+    keeps, the query and the key rows its samples touch are held out if
+    the sample's f64 similarity lies within the f32 rounding bound of its
+    sum; a mask split on a similarity of 0.5 raises."""
+    from chip_smoke import mask_ties
+
+    feat, locs = _sentinel_case(1e-7)
+    f1, f2, _ = (torch.from_numpy(f) for f in feat)
+    locs = torch.from_numpy(locs)
+    params = AttentionParams(softmax_scale=1.0)
+    kept = attn.epipolar_attention_plain_batch(f1, f2, f2, locs, params)[2]
+    masked = attn.epipolar_attention_plain_batch(
+        f1, torch.from_numpy(_sentinel_case(0.0)[0][1]), f2, locs, params)[2]
+    ties, rows, sims = mask_ties("case", f1, f2, locs, masked, kept)
+    assert ties.sum() == 19 and not ties[0, 0, 0]
+    assert len(sims) == 19 and max(abs(s) for s in sims) < 2e-7
+    W = locs.shape[3]
+    assert rows[0, 1 * W + 1] and rows[0, 3 * W + 2] and rows.sum() <= 8
+    none, no_rows, _ = mask_ties("case", f1, f2, locs, kept, kept)
+    assert not none.any() and not no_rows.any()
+    # a split at query (0, 0), whose sample 0 has similarity 0.5: a fault
+    wrong = kept.clone()
+    wrong[0, 0, 0, 0] = 0.0
+    with pytest.raises(AssertionError, match="not 0 within f32 rounding"):
+        mask_ties("case", f1, f2, locs, wrong, kept)

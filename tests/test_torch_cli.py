@@ -155,10 +155,8 @@ def test_cli_needs_a_gpu_unless_asked_for_the_cpu(yaml_path, tmp_path, monkeypat
     # --multihost is ported: outside torchrun it raises for the missing
     # environment (tests/test_torch_parallel.py runs it under a group)
     (["--multihost"], RuntimeError, "torchrun's environment"),
-    (["--trace", "t"], NotImplementedError, "A13"),
-    (["VIS.FLOPS", "True"], NotImplementedError, "A13"),
     (["VIS.POINTCLOUD", "True"], NotImplementedError, "A13"),
-], ids=["multihost", "trace", "flops", "vis"])
+], ids=["multihost", "vis"])
 def test_cli_unported_options_raise(yaml_path, tmp_path, monkeypatch, argv, error, match):
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)

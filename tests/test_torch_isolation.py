@@ -18,7 +18,10 @@ tree (a lifting train step, then `_test_lifting`) and the single-view
 on a fake tree that chip_smoke.write_fake_h36m writes with the port's JPEG
 encoder (an item, a train loader with 2 worker processes, and
 configs/epipolar/fake_h36m_zresidual.yaml through the command line, cut to
-a tiny width), and the command line with --multihost on two gloo ranks
+a tiny width), the profiling and loader tooling on that tree (the
+command line with DATALOADER.BENCHMARK and 2 worker processes, with
+--trace and tensorboard event files, with VIS.FLOPS), and the command
+line with --multihost on two gloo ranks
 (processes spawned with the same modules blocked; a train step, then rank
 0's eval); no blocked module is loaded at the end.
 """
@@ -133,6 +136,25 @@ with tempfile.TemporaryDirectory() as data_dir:
                     "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_WORKERS", "2",
                     "OUTPUT_DIR", data_dir + "/out"])
 assert math.isfinite(results["EPEmean_global"]), results
+from epipolar_transformers_tpu_torch.utils.metric_logger import read_scalars
+from epipolar_transformers_tpu_torch.utils.profiling import DATALOADER_STAGES, trace_summary
+with tempfile.TemporaryDirectory() as data_dir:
+    write_fake_h36m(data_dir, train_groups=2, val_groups=1, image_size=64)
+    DatasetCatalog.DATA_DIR = data_dir
+    tiny = ["--cfg", "configs/epipolar/fake_h36m_zresidual.yaml", "--device", "cpu",
+            "--max-steps", "1", "--max-eval-batches", "1", "BACKBONE.BODY", "epipolarposeR-18",
+            "DATASETS.IMAGE_SIZE", "(32, 32)", "KEYPOINT.HEATMAP_SIZE", "(8, 8)",
+            "EPIPOLAR.SAMPLESIZE", "4", "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_WORKERS", "2"]
+    assert main([*tiny, "DATALOADER.BENCHMARK", "True", "DOTEST", "False",
+                 "OUTPUT_DIR", data_dir + "/bench"]) is None
+    assert set(DATALOADER_STAGES.times) == {"setup", "read", "undistort", "warp", "heatmap"}
+    results = main(["--trace", data_dir + "/trace", *tiny, "TENSORBOARD.USE", "True",
+                    "LOG_FREQ", "1", "OUTPUT_DIR", data_dir + "/tb"])
+    assert math.isfinite(results["EPEmean_global"]), results
+    assert trace_summary(data_dir + "/trace/trace.json")["steps"] == 1
+    assert [s for s, _ in read_scalars(data_dir + "/tb")["train/loss"]] == [1]
+    prof = main([*tiny, "VIS.FLOPS", "True"])
+    assert prof["flops"] > prof["attention_flops"] > 0, prof
 sys.path.insert(0, "tests")
 from torch_ddp_ranks import run_ranks
 with tempfile.TemporaryDirectory() as tmp:

@@ -40,7 +40,7 @@ def test_train_steps_with_finite_loss(cfg, caplog):
     cfg = cfg.replace(SOLVER=cfg.SOLVER.replace(MAX_EPOCHS=2))
     with caplog.at_level("INFO", logger="epipolar_transformers_tpu_torch.engine.trainer"):
         model, optimizer = train(cfg, max_steps=3, device="cpu")
-    losses = [float(m) for m in re.findall(r"\bloss (\S+)", caplog.text)]
+    losses = [float(m) for m in re.findall(r"\bloss: (\S+)", caplog.text)]
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses), losses
     assert optimizer.count == 3
     assert all(torch.isfinite(p).all() for p in model.parameters())
