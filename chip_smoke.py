@@ -176,9 +176,28 @@ run, each printed on its own lines:
      keypoint_h36m_zresidual_fixed.yaml with its 15 workers, every stage's
      ms nonzero; (d) that recipe's event files, read back, against its
      logged values.
+ 16. the last modules, on the flagship: (a) its weights (the seeded
+     initial ones, every BN's statistics and the fusion BN's scale moved
+     by seeded noise) packed as a JAX checkpoint (flax msgpack `.ckpt`,
+     utils/flax_msgpack.py) and loaded through cfg.WEIGHTS into a model
+     drawn from another seed: every tensor bit-equal, and both models'
+     heatmaps at batch 8 bit-equal through the forward kernel; (b)
+     configs/epipolar/synthetic_zresidual_flagship.yaml with DTYPE
+     bfloat16 and that `.ckpt` through the command line, `test` on
+     VIS_GROUPS groups with VIS.VIDEO and SAVE_PRED: one forward launch a
+     group, the PNG frames and the AVI that the dispatch assembles, read
+     back bit-equal to them; (c) VIDEO_GT (no forward) and its AVI,
+     EPIPOLAR_LINE on the card (17 heatmap channels: the plain route, no
+     launch), AUC and POINTCLOUD on (b)'s files, and the score panel
+     where matplotlib imports (a line says whether it does); (d) the
+     batched triangulation (geometry/triangulate.py) on the card in f64:
+     pymvg on (b)'s saved predictions within 1e-4 mm of the host copy,
+     and the ground-truth 2D points through naive (a torch generator on
+     the card), refine and pymvg within 0.1 mm; (e) `graft_entry.entry()`
+     on cuda:0 bit-equal to the builder at the same weights.
 
 The line before the card line is a JSON object with both kernels'
-launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14 and 15), errors and times,
+launches on the main path (phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14, 15 and 16), errors and times,
 each entry's `hourglass_shape` times at [8]'s shape, `r152_shapes` at
 [14]'s (96x96 K=64, 80x80 K=64, 96x96 K=85) and `a11d_19mm_shape` at
 [15]'s 19 mm recipe's locations, and each kernel's
@@ -188,11 +207,11 @@ input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
 pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14 and 15; the
+each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14, 15 and 16; the
 backward's, `prior_gradient`, its time with and without the prior's
 gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
 `lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s,
-`a11d_recipes` [15]'s.  No
+`a11d_recipes` [15]'s, `last_modules` [16]'s.  No
 single PyTorch call
 computes either kernel's function, so `library_ms` is null.  Before the
 last line the script checks that nothing of the JAX package was imported;
@@ -399,6 +418,11 @@ EPIPOLAR_3D_MM = 0.1
 # gathered tensor); the multiview recipes of [15] that set each (batch,
 # heatmap size) once: 32 and 16 at 96x96, 12 at 80x80, 16 at 64x64
 PLAIN_SLICE = 8
+# [16] the last modules: the .ckpt import, VIS and the batched triangulation,
+# on the flagship recipe's eval groups
+VIS_GROUPS = 4
+VIS_GT_GROUPS = 2
+TRIANGULATION_MM = 1e-4  # the batched f64 pymvg on the card against the host copy
 A11D_ATTENTION_RECIPES = (
     "configs/epipolar/keypoint_h36m_resnet152_384_pretrained_8gpu.yaml",
     "configs/epipolar/keypoint_h36m_resnet152_384.yaml",
@@ -3724,6 +3748,258 @@ def a11d_phase(device):
                 backward_entries=[e[1] for e in entries])
 
 
+def vis_phase(cfg, device):
+    """[16]: (a) the flagship's weights as a JAX .ckpt through cfg.WEIGHTS,
+    (b) the command line's test with VIS.VIDEO, (c) the other VIS modes,
+    (d) the batched triangulation on the card, (e) `graft_entry.entry`.
+    Returns the forward launches and tiles, and the numbers of the JSON
+    line."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from epipolar_transformers_tpu_torch import main as cli
+    from epipolar_transformers_tpu_torch.config import load_config
+    from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
+    from epipolar_transformers_tpu_torch.data.pipeline import (EvalLoader, collate,
+                                                               make_eval_loaders)
+    from epipolar_transformers_tpu_torch.engine import trainer
+    from epipolar_transformers_tpu_torch.engine.tester import to_model_inputs
+    from epipolar_transformers_tpu_torch.geometry import host
+    from epipolar_transformers_tpu_torch.geometry import triangulate as tri
+    from epipolar_transformers_tpu_torch.graft_entry import ARGS, entry
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+    from epipolar_transformers_tpu_torch.utils.flax_msgpack import write_checkpoint
+    from epipolar_transformers_tpu_torch.vis.visualization import read_avi, read_frame
+
+    t_phase = time.perf_counter()
+    launches, tiles, numbers = 0, [0, 0], {}
+
+    def counted(fn):
+        nonlocal launches
+        attn.LAUNCHES = 0
+        attn.TILE_COUNTS.clear()
+        out = fn()
+        torch.cuda.synchronize(device)
+        launches += attn.LAUNCHES
+        t = attn.tile_counts()
+        tiles[0] += t[0]
+        tiles[1] += t[1]
+        return out, attn.LAUNCHES
+
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    log(f"  matplotlib importable: {'yes' if have_mpl else 'no'} (only the score panel "
+        f"below needs it; nothing that launches a kernel does)")
+
+    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic():
+        # (a) the flagship's port weights packed as flax lays them out, read
+        # back through cfg.WEIGHTS into a model drawn from another seed
+        # the seeded initial weights, with every BN's statistics and the
+        # zero-init fusion BN's scale moved by seeded noise, so that no
+        # tensor of the check is a constant (the initial heatmaps stay small,
+        # so pymvg keeps two views above -1 in (b), C15)
+        model = trainer.build_model(cfg, device).eval()
+        gen = torch.Generator().manual_seed(SEED + 16)
+        with torch.no_grad():
+            for name, t in [*model.named_buffers(), *model.named_parameters()]:
+                noise = torch.randn(t.shape, generator=gen).to(device)
+                if name.endswith("running_mean") or name.endswith("epipolar_sampler.bn.weight"):
+                    t.add_(0.1 * noise)
+                elif name.endswith("running_var"):
+                    t.mul_(1 + 0.1 * noise.abs())
+        ckpt = os.path.join(tmp, "flagship.ckpt")
+        t0 = time.perf_counter()
+        write_checkpoint(ckpt, model, epoch=0)
+        write_s = time.perf_counter() - t0
+        fresh = trainer.build_model(cfg.replace(SEED=SEED + 1), device)
+        t0 = time.perf_counter()
+        extra = trainer.load_weights(cfg.replace(WEIGHTS=ckpt, OUTPUT_DIR=""), fresh)
+        load_s = time.perf_counter() - t0
+        fresh.eval()
+        if extra != {"epoch": 0}:
+            raise AssertionError(f"(a) the .ckpt's extra came back as {extra}")
+        want, got = model.state_dict(), fresh.state_dict()
+        keys = [k for k in want if not k.endswith("num_batches_tracked")]
+        differ = [k for k in keys if not torch.equal(want[k], got[k])]
+        if differ:
+            raise AssertionError(f"(a) {len(differ)} tensors differ after the .ckpt, e.g. "
+                                 f"{differ[:3]}")
+        n_bn = sum(1 for k in keys if k.endswith(("running_mean", "running_var")))
+        np.random.seed(SEED)
+        ds = SyntheticMultiview(cfg, is_train=True, n_samples=BENCH_BATCH, seed=SEED)
+        batch = to_model_inputs(collate([ds[i] for i in range(BENCH_BATCH)]), device)
+        with torch.inference_mode():
+            (a_out, b_out), n = counted(lambda: (model(batch), fresh(batch)))
+        if n != 2 or not torch.equal(a_out["heatmap_pred"], b_out["heatmap_pred"]):
+            raise AssertionError(f"(a) heatmaps of the .ckpt model: {n} launches, bit-equal "
+                                 f"{torch.equal(a_out['heatmap_pred'], b_out['heatmap_pred'])}")
+        size = os.path.getsize(ckpt) / 2 ** 20
+        log(f"  (a) flagship weights as a JAX .ckpt: {size:.1f} MiB written in {write_s:.2f} s, "
+            f"loaded through cfg.WEIGHTS in {load_s:.2f} s; all {len(keys)} tensors bit-equal "
+            f"({n_bn} BN statistics); heatmaps at batch {BENCH_BATCH} bit-equal through the "
+            f"forward kernel, launches {n}")
+        numbers["ckpt"] = {"mib": size, "write_s": write_s, "load_s": load_s,
+                           "tensors": len(keys)}
+        del model, fresh, a_out, b_out
+
+        # (b) the command line's test on the flagship recipe with the .ckpt's
+        # weights (bf16 convolutions, as the flagship), VIDEO and SAVE_PRED on
+        out = os.path.join(tmp, "vis")
+        opts = ["DOTRAIN", "False", "DTYPE", "bfloat16", "WEIGHTS", ckpt]
+
+        def command_line(groups, *more):
+            return cli.main(["--cfg", FLAGSHIP_RECIPE, "--max-eval-batches", str(groups),
+                             *opts, *more])
+
+        t0 = time.perf_counter()
+        results, n = counted(lambda: command_line(
+            VIS_GROUPS, "VIS.DOVIS", "True", "VIS.VIDEO", "True", "VIS.SAVE_PRED", "True",
+            "VIS.SAVE_PRED_FREQ", "1", "OUTPUT_DIR", out))
+        wall = time.perf_counter() - t0
+        finite_metrics("(b) test with VIS.VIDEO", results)
+        if n != VIS_GROUPS:
+            raise AssertionError(f"(b) {VIS_GROUPS} groups launched the forward kernel {n} times")
+        views = sorted(os.listdir(os.path.join(out, "video", "ds0")))
+        avi = os.path.join(out, "video", "ds0.avi")
+        frames = read_avi(avi)
+        if len(frames) != VIS_GROUPS or len(views) != 4:
+            raise AssertionError(f"(b) {len(frames)} AVI frames, {len(views)} view dirs")
+        for i, frame in enumerate(frames):
+            for v, view in enumerate(views):
+                png = read_frame(os.path.join(out, "video", "ds0", view, f"{i:08d}.png"))
+                r, c = divmod(v, 2)
+                h, w = png.shape[:2]
+                if not np.array_equal(frame[r * h:(r + 1) * h, c * w:(c + 1) * w], png):
+                    raise AssertionError(f"(b) AVI frame {i} view {v} differs from its PNG")
+        avi_mib = os.path.getsize(avi) / 2 ** 20
+        log(f"  (b) {FLAGSHIP_RECIPE} through the command line, test on {VIS_GROUPS} groups "
+            f"(DTYPE bfloat16, the .ckpt's weights) with VIS.VIDEO: MPJPE "
+            f"{results['EPEmean_global']:.3f} mm, JDR {results['JDR']:.3f}; forward kernel "
+            f"launches {n}; {VIS_GROUPS} x 4 PNG frames and ds0.avi ({frames[0].shape[1]}x"
+            f"{frames[0].shape[0]}, {avi_mib:.2f} MiB), read back bit-equal to the frames; "
+            f"{wall:.1f} s")
+        numbers["video"] = {"groups": VIS_GROUPS, "wall_s": wall, "avi_mib": avi_mib,
+                            "launches": n, "mpjpe": results["EPEmean_global"]}
+
+        # (c) VIDEO_GT (no forward), EPIPOLAR_LINE (17 heatmap channels: the
+        # plain route), AUC and POINTCLOUD on (b)'s files
+        gt = os.path.join(tmp, "gt")
+        _, n_gt = counted(lambda: command_line(VIS_GT_GROUPS, "VIS.VIDEO", "True",
+                                               "VIS.VIDEO_GT", "True", "OUTPUT_DIR", gt))
+        command_line(0, "DOTEST", "False", "VIS.VIDEO", "True",
+                     "OUTPUT_DIR", os.path.join(gt, "video_gt"))
+        gt_frames = read_avi(os.path.join(gt, "video_gt", "video", "ds0.avi"))
+        _, n_line = counted(lambda: command_line(0, "DOTEST", "False", "VIS.EPIPOLAR_LINE",
+                                                 "True", "EPIPOLAR.ZRESIDUAL", "False",
+                                                 "OUTPUT_DIR", out))
+        command_line(0, "DOTEST", "False", "VIS.AUC", "True", "VIS.POINTCLOUD", "True",
+                     "OUTPUT_DIR", out)
+        with open(os.path.join(out, "epipolar_introspection.pkl"), "rb") as f:
+            dump = pickle.load(f)
+        with open(os.path.join(out, "auc.pkl"), "rb") as f:
+            auc = pickle.load(f)
+        clouds = sorted(os.listdir(os.path.join(out, "pointclouds")))
+        K = cfg.EPIPOLAR.SAMPLESIZE
+        h, w = cfg.KEYPOINT.HEATMAP_SIZE
+        want_shapes = {"sample_locs": (1, K, h, w, 2), "corr_pos": (1, h, w, 2),
+                       "attention": (1, K, h, w), "fused": (1, h, w, 256)}
+        shapes = {k: tuple(v.shape) for k, v in dump.items()}
+        if (n_gt or len(gt_frames) != VIS_GT_GROUPS or shapes != want_shapes or n_line
+                or not 0 <= auc["auc"] <= 1 or len(clouds) != VIS_GROUPS):
+            raise AssertionError(f"(c) VIDEO_GT launches {n_gt}, {len(gt_frames)} frames; "
+                                 f"EPIPOLAR_LINE {shapes} launches {n_line}; AUC {auc['auc']}; "
+                                 f"{len(clouds)} pointclouds")
+        line = "matplotlib missing: no score panel"
+        if have_mpl:
+            from epipolar_transformers_tpu_torch.vis.score_curves import draw_score_panel
+
+            H, W = cfg.DATASETS.IMAGE_SIZE
+            panel = draw_score_panel(dump, W / 2, H / 2, os.path.join(out, "panel.png"))
+            line = f"score panel {os.path.getsize(panel)} bytes"
+        log(f"  (c) VIDEO_GT: {VIS_GT_GROUPS} groups of ground-truth frames, forward launches "
+            f"{n_gt}, their AVI {len(gt_frames)} frames; EPIPOLAR_LINE on the card: "
+            f"{shapes} ({cfg.KEYPOINT.NUM_PTS} channels: the plain route, launches {n_line}); AUC "
+            f"{auc['auc']:.4f}; {len(clouds)} pointclouds; {line}")
+
+        # (d) the batched triangulation on the card against the host copies,
+        # on (b)'s saved predictions and the same groups' cameras
+        with open(os.path.join(out, "predictions.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        rcfg = load_config(FLAGSHIP_RECIPE)
+        groups = []
+        for ib, b in enumerate(EvalLoader(make_eval_loaders(rcfg)[0].dataset)):
+            if ib >= VIS_GROUPS:
+                break
+            groups.append({k: v[0] for k, v in b.items()})
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+        worst_pymvg, worst_gt, card_ms, host_ms = 0.0, {}, 0.0, 0.0
+        # one call first: the solver's handle and workspace are made once
+        tri.triangulate_pymvg(dev(preds[0]["batch_locs"]), dev(groups[0]["K"]),
+                              dev(groups[0]["RT"]), dev(preds[0]["score_pred"]))
+        for g, p in zip(groups, preds):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            card = tri.triangulate_pymvg(dev(p["batch_locs"]), dev(g["K"]), dev(g["RT"]),
+                                         dev(p["score_pred"])).cpu().numpy()
+            card_ms += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            hostp = host.triangulate_pymvg_np(p["batch_locs"], g["K"], g["RT"], p["score_pred"])
+            host_ms += (time.perf_counter() - t0) * 1e3
+            if not np.allclose(card, p["pred3d"], rtol=0, atol=TRIANGULATION_MM, equal_nan=True):
+                raise AssertionError(f"(d) pymvg on the card vs the host: "
+                                     f"{np.nanmax(np.abs(card - p['pred3d']))} mm")
+            worst_pymvg = max(worst_pymvg, float(np.nanmax(np.abs(card - hostp))))
+            pts2d, pts3d = dev(g["points-2d"]), np.asarray(g["points-3d"], np.float64)
+            ones = torch.ones(pts2d.shape[:2], dtype=torch.float64, device=device)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            for name, fn in (("naive", lambda: tri.triangulate_ransac(
+                    pts2d, dev(g["KRT"]), ones, gen)),
+                             ("refine", lambda: tri.triangulate_refine(
+                                 pts2d, dev(g["KRT"]), ones, gen)),
+                             ("pymvg", lambda: tri.triangulate_pymvg(
+                                 pts2d, dev(g["K"]), dev(g["RT"]), ones))):
+                err = float(np.linalg.norm(fn().cpu().numpy() - pts3d, axis=-1).max())
+                worst_gt[name] = max(worst_gt.get(name, 0.0), err)
+        if not max(worst_gt.values()) < GT_TRIANGULATION_MM:
+            raise AssertionError(f"(d) ground truth on the card: {worst_gt} mm")
+        log(f"  (d) batched triangulation on the card (f64): pymvg on (b)'s {VIS_GROUPS} groups "
+            f"within {worst_pymvg:.3g} mm of the host copy (limit {TRIANGULATION_MM}), "
+            f"{card_ms / len(groups):.2f} ms a group on the card, {host_ms / len(groups):.2f} ms "
+            f"on the host; ground-truth 2D points, worst joint (mm, limit "
+            f"{GT_TRIANGULATION_MM}): " + ", ".join(f"{k} {v:.3g}" for k, v in worst_gt.items()))
+        numbers["triangulation"] = {"pymvg_vs_host_mm": worst_pymvg, "gt_mm": worst_gt,
+                                    "card_ms": card_ms / len(groups),
+                                    "host_ms": host_ms / len(groups)}
+
+        # (e) entry() against the builder at the same weights
+        np.random.seed(SEED)
+        fn, args = entry()
+        builder = trainer.build_model(cfg, device).eval()
+        with torch.inference_mode():
+            (got_e, want_e), n = counted(lambda: (fn(*args), builder(dict(zip(ARGS, args)))))
+        same = all(torch.equal(a, want_e[k]) for a, k in zip(
+            got_e, ("heatmap_pred", "batch_locs", "score_pred")))
+        if n != 2 or not same:
+            raise AssertionError(f"(e) entry(): {n} launches, outputs bit-equal {same}")
+        log(f"  (e) graft_entry.entry() on cuda:0: heatmaps {tuple(got_e[0].shape)}, locations "
+            f"and scores bit-equal to the builder's at the same weights, launches {n}")
+    seconds = time.perf_counter() - t_phase
+    check_main_path_tiles("[16]", tiles, sum(tiles))
+    log(f"  [16] forward kernel launches {launches}, forward tiles on the tile path / "
+        f"per-query path {tiles[0]} / {tiles[1]}; {seconds:.1f} s")
+    numbers["seconds"] = seconds
+    return {"launches": launches, "backward_launches": 0, "tiles": tuple(tiles),
+            "numbers": numbers}
+
+
 def live_pairs(locs, distinct: bool = True) -> int:
     """The (query, key row) pairs that the bilinear corners with a non-zero
     weight touch at these locations: distinct per query, or every corner
@@ -3909,7 +4185,11 @@ def main() -> int:
     log(f"[15] the fifteen recipes no card had run, as written, on a fake H36M tree, a fake "
         f"RHD tree and a seeded pose-ResNet file, and the profiling and loader tooling, {card}")
     a11d = a11d_phase(device)
-    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152, a11d]
+    log(f"[16] the last modules: the flagship's weights as a JAX .ckpt, the command line's "
+        f"VIS modes on {FLAGSHIP_RECIPE}, the batched triangulation on the card, "
+        f"graft_entry.entry(), {card}")
+    vis = vis_phase(cfg, device)
+    extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152, a11d, vis]
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -3943,7 +4223,8 @@ def main() -> int:
         if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()},
         "h36m_path": {k: v for k, v in h36m.items()
                       if k not in ("launches", "backward_launches", "tiles")},
-        "r152_recipes": r152["numbers"], "a11d_recipes": a11d["numbers"]}))
+        "r152_recipes": r152["numbers"], "a11d_recipes": a11d["numbers"],
+        "last_modules": vis["numbers"]}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "epipolar_transformers_tpu"))
     if jax_side:

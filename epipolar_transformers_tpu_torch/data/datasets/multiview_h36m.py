@@ -12,8 +12,9 @@ ones.  `evaluate` is the JDR at half the head size.  Items equal the JAX
 package's (tests/test_torch_h36m.py).
 
 The draws come from the dataset's own `rng` (joints_dataset.py): the four
-views' augmentations first, then the reference camera.  Not ported here:
-VIS.MULTIVIEWH36M's debug dump (ROADMAP A13), which raises.
+views' augmentations first, then the reference camera.  Under
+VIS.MULTIVIEWH36M each train item also writes its epipolar debug view
+(vis/visualization.py:dump_epipolar_debug_pair).
 """
 
 from __future__ import annotations
@@ -43,9 +44,6 @@ class MultiViewH36M(JointsDataset):
 
     def __init__(self, cfg: Config, root: str, anno_file: str, is_train: bool, seed: int = 0):
         super().__init__(cfg, root, is_train, seed)
-        if cfg.VIS.MULTIVIEWH36M and is_train:
-            raise NotImplementedError("VIS.MULTIVIEWH36M (the epipolar debug dump of each "
-                                      "train item) is ROADMAP A13 in the port")
         with open(anno_file, "rb") as f:
             self.db = pickle.load(f)
         if cfg.DATASETS.H36M.FILTER_DAMAGE:
@@ -105,6 +103,12 @@ class MultiViewH36M(JointsDataset):
             for k in ("img", "KRT", "heatmap"):
                 if k in other:
                     ret["other_" + k] = other[k]
+            if cfg.VIS.MULTIVIEWH36M:
+                # the reference's in-dataset epipolar debug view,
+                # headless (multiview_h36m.py:159-243)
+                from ...vis.visualization import dump_epipolar_debug_pair
+
+                dump_epipolar_debug_pair(cfg, ret, idx)
             return ret
 
         # test: all views stacked + nearest other per view

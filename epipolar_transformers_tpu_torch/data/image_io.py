@@ -4,16 +4,18 @@ The JAX package reads RHD's PNGs and resizes its crops with cv2 (JAX
 data/datasets/rhd.py:44-50,127-128); the port carries both itself, so that
 its RHD path needs neither cv2 nor PIL:
 
-  * `read_png`: 8-bit, non-interlaced PNGs of colour type 0 (grey, (H, W)),
-    2 (RGB, (H, W, 3)) and 6 (RGBA, (H, W, 4)), with all five row filters.
-    Colour comes back in the file's order, RGB(A): what the JAX `_read`
-    returns after flipping cv2's BGR.
+  * `read_png`: 8- and 16-bit, non-interlaced PNGs of colour type 0 (grey,
+    (H, W)), 2 (RGB, (H, W, 3)) and 6 (RGBA, (H, W, 4)), with all five row
+    filters, as uint8 or uint16.  Colour comes back in the file's order,
+    RGB(A): what the JAX `_read` returns after flipping cv2's BGR.
   * `resize_bilinear`: cv2.resize(..., INTER_LINEAR) on float images: pixel
     centres at (i + 0.5) scale - 0.5, the coordinates clamped at both edges.
 
-`write_png` is the inverse of `read_png`, with the row filters chosen by
-the caller: it writes the fake RHD trees of the tests and of
-chip_smoke.py.  tests/test_torch_rhd.py holds the reader and the resize to
+`write_png` is the inverse of `read_png` (uint8, or uint16 grey), with the
+row filters chosen by the caller: it writes the fake RHD trees of the
+tests and of chip_smoke.py, the visualization's frames and 16-bit depth
+maps.  `read_pgm` reads binary (P5) and text (P2) PGMs, `read_tiff`
+uncompressed baseline TIFFs (utils/depth_io.py).  tests/test_torch_rhd.py holds the reader and the resize to
 cv2.
 """
 
@@ -60,8 +62,8 @@ def _unfilter(pix: np.ndarray, filters: np.ndarray) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit non-interlaced PNG as uint8: (H, W) grey, (H, W, 3) RGB or
-    (H, W, 4) RGBA.  Raises ValueError on anything else."""
+    """An 8- or 16-bit non-interlaced PNG as uint8 or uint16: (H, W) grey,
+    (H, W, 3) RGB or (H, W, 4) RGBA.  Raises ValueError on anything else."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_SIGNATURE:
@@ -80,15 +82,19 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or colour not in _CHANNELS or interlace != 0:
         raise ValueError(f"{path}: bit depth {depth}, colour type {colour}, interlace "
-                         f"{interlace}; read_png takes 8-bit non-interlaced PNGs of colour "
-                         f"type 0, 2 or 6")
-    bpp = _CHANNELS[colour]
+                         f"{interlace}; read_png takes 8- and 16-bit non-interlaced PNGs of "
+                         f"colour type 0, 2 or 6")
+    channels, size = _CHANNELS[colour], depth // 8
+    bpp = channels * size  # bytes a pixel: the filters' left distance
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = rows.reshape(height, 1 + width * bpp)
     img = _unfilter(rows[:, 1:].reshape(height, width, bpp), rows[:, 0])
-    return img.reshape(height, width) if bpp == 1 else img
+    if size == 2:  # big-endian samples
+        img = img.reshape(height, width, channels, 2).astype(np.uint16)
+        img = (img[..., 0] << 8) | img[..., 1]
+    return img.reshape(height, width) if channels == 1 else img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -97,13 +103,23 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray, filters=(0,)) -> None:
-    """Write a uint8 (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA image as
-    a PNG whose row y is filtered with filters[y % len(filters)]."""
-    img = np.ascontiguousarray(img, np.uint8)
-    H, W = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else img.shape[2]
-    colour = {v: k for k, v in _CHANNELS.items()}[bpp]
-    x = img.reshape(H, W, bpp).astype(np.int16)
+    """Write a uint8 (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA image,
+    or a uint16 (H, W) grey one, as a PNG whose row y is filtered with
+    filters[y % len(filters)]."""
+    sixteen = np.asarray(img).dtype == np.uint16
+    if sixteen:
+        if np.ndim(img) != 2:
+            raise ValueError("write_png: 16-bit images must be grey (H, W)")
+        img = np.asarray(img).astype(">u2")
+        H, W = img.shape
+        colour, bpp = 0, 2
+        x = img.view(np.uint8).reshape(H, W, 2).astype(np.int16)
+    else:
+        img = np.ascontiguousarray(img, np.uint8)
+        H, W = img.shape[:2]
+        bpp = 1 if img.ndim == 2 else img.shape[2]
+        colour = {v: k for k, v in _CHANNELS.items()}[bpp]
+        x = img.reshape(H, W, bpp).astype(np.int16)
     left = np.zeros_like(x)
     left[:, 1:] = x[:, :-1]
     up = np.zeros_like(x)
@@ -118,10 +134,83 @@ def write_png(path: str, img: np.ndarray, filters=(0,)) -> None:
     rows[:, 0] = kinds
     for y, f in enumerate(kinds):
         rows[y, 1:] = ((x[y] - preds[f][y]) & 255).reshape(-1)
-    header = struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", W, H, 16 if sixteen else 8, colour, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def read_pgm(path: str) -> np.ndarray:
+    """A PGM, binary (P5) or text (P2), as (H, W) uint8 where its maxval is
+    below 256, else uint16; the samples as they are stored, not scaled."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace() and data[end:end + 1] != b"#":
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    magic, (W, H, maxval) = fields[0], map(int, fields[1:])
+    if magic not in (b"P5", b"P2"):
+        raise ValueError(f"{path}: not a PGM (magic {magic!r})")
+    dtype = np.uint8 if maxval < 256 else np.uint16
+    if magic == b"P2":
+        return np.array(data[pos:].split()[:W * H], np.int64).astype(dtype).reshape(H, W)
+    raw = data[pos + 1:]  # one whitespace byte ends the header
+    return np.frombuffer(raw, ">u2" if dtype == np.uint16 else np.uint8,
+                         count=W * H).astype(dtype).reshape(H, W)
+
+
+_TIFF_COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4", 5: "LZW",
+                     6: "old JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits",
+                     32946: "Deflate"}
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+
+
+def read_tiff(path: str) -> np.ndarray:
+    """An uncompressed baseline TIFF (its first image; chunky samples of 8,
+    16, 32 or 64 bits, unsigned, signed or float, in strips) as (H, W) or
+    (H, W, samples).  A compressed one raises ValueError naming its
+    compression."""
+    with open(path, "rb") as f:
+        data = f.read()
+    order = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if order is None or struct.unpack(order + "H", data[2:4])[0] != 42:
+        raise ValueError(f"{path}: not a TIFF file")
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    tags = {}
+    for i in range(n):
+        tag, kind, count, value = struct.unpack(order + "HHI4s",
+                                                data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        code = _TIFF_TYPES.get(kind)
+        if code is None:
+            continue
+        size = struct.calcsize(code) * count
+        raw = value if size <= 4 else data[struct.unpack(order + "I", value)[0]:][:size]
+        tags[tag] = struct.unpack(order + code * count, raw[:size])
+    compression = tags.get(259, (1,))[0]
+    if compression != 1:
+        raise ValueError(f"{path}: a TIFF compressed with "
+                         f"{_TIFF_COMPRESSION.get(compression, f'scheme {compression}')} "
+                         f"(compression {compression}); read_tiff reads uncompressed TIFFs")
+    if tags.get(284, (1,))[0] != 1:
+        raise ValueError(f"{path}: planar TIFF samples; read_tiff reads chunky ones")
+    W, H = tags[256][0], tags[257][0]
+    samples = tags.get(277, (1,))[0]
+    bits = tags.get(258, (1,))[0]
+    fmt = {1: "u", 2: "i", 3: "f"}[tags.get(339, (1,))[0]]
+    dtype = np.dtype(f"{order}{fmt}{bits // 8}")
+    body = b"".join(data[o:o + c] for o, c in zip(tags[273], tags[279]))
+    img = np.frombuffer(body, dtype, count=W * H * samples).astype(dtype.newbyteorder("="))
+    return img.reshape(H, W) if samples == 1 else img.reshape(H, W, samples)
 
 
 def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

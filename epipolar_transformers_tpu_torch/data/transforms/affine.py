@@ -75,3 +75,8 @@ def affine_transform_pts(pts, t):
     pts = np.asarray(pts)
     homo = np.concatenate([pts, np.ones((len(pts), 1))], axis=1)
     return (t @ homo.T).T[:, :2]
+
+
+def de_normalize_image(img_hwc: np.ndarray) -> np.ndarray:
+    """An ImageNet-normalized (H, W, 3) image back to [0, 1] RGB."""
+    return img_hwc * IMAGENET_STD + IMAGENET_MEAN

@@ -32,8 +32,11 @@ single-view `keypoint` task goes through the multiview eval above, with its
 views as the batch; the epipolar modes need `corr_pos`, which only the
 multiview task gives, and raise.
 
-Not ported yet, each raising when asked: VIS.VIDEO and VIS.VIDEO_GT
-(ROADMAP A13).
+VIS.VIDEO dumps each group's views with its predicted skeletons drawn
+over them (vis/visualization.py:dump_eval_frames, OUTPUT_DIR/video/ds<i>/
+view<k>/%08d.png); VIS.VIDEO_GT dumps the ground-truth skeletons into
+OUTPUT_DIR/video_gt/... and runs no model on those groups (JAX
+engine/tester.py:213-221,243-248, reference tester.py:100-166).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from ..geometry.pictorial import rpsm
 from ..metrics.metrics2d import calculate_err, jdr
 from ..utils.file_utils import pred_pickle_path
 from ..utils.metric_logger import MetricLogger
+from ..vis.visualization import dump_eval_frames
 
 logger = logging.getLogger(__name__)
 
@@ -292,10 +296,16 @@ def fetch_outputs(out: Dict[str, torch.Tensor], keys):
     return host, event
 
 
+def dump_gt_frames(cfg: Config, group, tag: str, idx: int) -> None:
+    """VIS.VIDEO_GT: the ground-truth skeletons over the group's views, in
+    OUTPUT_DIR/video_gt (reference tester.py:100-128 draws
+    batchdata['points-2d'] and runs no model)."""
+    gt2d = np.asarray(group["points-2d"], dtype=np.float64)
+    out_cfg = cfg.replace(OUTPUT_DIR=os.path.join(cfg.OUTPUT_DIR, "video_gt"))
+    dump_eval_frames(out_cfg, group, gt2d, tag, idx)
+
+
 def _check_supported(cfg: Config) -> None:
-    if cfg.VIS.VIDEO or cfg.VIS.VIDEO_GT:
-        raise NotImplementedError("VIS.VIDEO / VIS.VIDEO_GT (the eval frame dumps) are "
-                                  "ROADMAP A13 in the port")
     if (cfg.DATASETS.TASK == "keypoint"
             and cfg.KEYPOINT.TRIANGULATION in ("epipolar", "epipolar_dlt")):
         # the JAX tester fails on the missing out['corr_pos'] there
@@ -381,18 +391,27 @@ def _evaluate(cfg: Config, model: torch.nn.Module, max_batches: Optional[int],
     eval_step = make_eval_step(cfg, model, device, train_bn=cfg.TEST.TRAIN_BN)
     record = EvalRecord()
 
-    def process(ib, group, host, event):
+    def process(ib, group, host, event, tag):
         if event is not None:
             event.synchronize()  # this group's copies only
-        process_group(cfg, group, {k: v.numpy() for k, v in host.items()}, record, ib, device)
+        out = {k: v.numpy() for k, v in host.items()}
+        if cfg.VIS.VIDEO:
+            dump_eval_frames(cfg, group, out["batch_locs"].astype(np.float64), tag, ib)
+        process_group(cfg, group, out, record, ib, device)
 
-    for loader in make_eval_loaders(cfg):
+    for ids, loader in enumerate(make_eval_loaders(cfg)):
+        tag = f"ds{ids}"
         pending = None
         for ib, batch in enumerate(loader):
             if max_batches is not None and ib >= max_batches:
                 break
             group = {k: v[0] for k, v in batch.items()}
-            current = (ib, group, *fetch_outputs(eval_step(group), host_output_keys(cfg, group)))
+            if cfg.VIS.VIDEO_GT:
+                # the ground-truth overlay: frames only, no forward
+                dump_gt_frames(cfg, group, tag, ib)
+                continue
+            current = (ib, group, *fetch_outputs(eval_step(group), host_output_keys(cfg, group)),
+                       tag)
             if not double_buffer:
                 process(*current)
                 continue

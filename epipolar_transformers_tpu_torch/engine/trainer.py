@@ -93,11 +93,12 @@ def load_weights(cfg: Config, model: torch.nn.Module, optimizer: Optional[Optimi
     """The pretrained and foreign weights (`apply_pretrained`), then the
     native resume: the `last_checkpoint` tag of OUTPUT_DIR, else a
     cfg.WEIGHTS that the port wrote, which wins over the imports as in the
-    JAX package (engine/trainer.py:73-91,163-182 there).  With load_opt
-    False (WEIGHTS_LOAD_OPT) the optimizer is not restored.  Returns the
+    JAX package (engine/trainer.py:73-91,163-182 there); a JAX `.ckpt`
+    restores the weights only.  With load_opt False (WEIGHTS_LOAD_OPT) the
+    optimizer is not restored.  Returns the
     resumed checkpoint's metadata, or None."""
     imported = apply_pretrained(cfg, model)
-    native = cfg.WEIGHTS if cfg.WEIGHTS.endswith(".pth") and not imported else None
+    native = cfg.WEIGHTS if cfg.WEIGHTS.endswith((".pth", ".ckpt")) and not imported else None
     extra = Checkpointer(cfg.OUTPUT_DIR).load(model, optimizer, native, load_opt=load_opt)
     if extra is None and native:
         logger.warning("cfg.WEIGHTS=%r was not loaded (missing file and no last_checkpoint): "

@@ -26,8 +26,12 @@ VIS.FLOPS prints the model's parameters and eval-forward FLOPs as
 `PROFILE: {...}` and stops (utils/profiling.py).  `--trace DIR` runs the
 train/test dispatch under `torch.profiler` (the host's ops and, on the
 card, its kernels) and writes a Chrome/Perfetto trace, DIR/trace.json, or
-DIR/trace_rank<r>.json for each rank under --multihost.  Not ported yet,
-raising when asked: the visualization dispatch (ROADMAP A13b).
+DIR/trace_rank<r>.json for each rank under --multihost.
+
+Under VIS.DOVIS, a VIS mode (POINTCLOUD, AUC, VIDEO, EPIPOLAR_LINE,
+CURSOR) runs the visualization dispatch (vis/visualization.py) after the
+train/test dispatch, as the root main.py does, and prints `VIS: {...}`;
+EPIPOLAR_LINE and CURSOR run their layer on the same device.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from .data.pipeline import stop_workers
 from .engine import test, train
 from .engine.trainer import build_model, load_weights, resolve_device
 from .utils.profiling import profile_model
+from .vis.visualization import visualization
 
 logger = logging.getLogger("main")
 
@@ -82,9 +87,6 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
                         stream=sys.stdout)
 
-    if _wants_visualization(cfg) and not cfg.VIS.FLOPS:
-        raise NotImplementedError("the VIS dispatch (pointcloud, AUC, video, epipolar lines, "
-                                  "cursor) is ROADMAP A13b in the port")
     if not args.multihost:
         return run(cfg, args, resolve_device(args.device))
     device = parallel.init_distributed(args.device)
@@ -130,7 +132,16 @@ def run(cfg, args, device):
 
 
 def dispatch(cfg, args, device):
-    """DOTRAIN, with the periodic eval under DOTEST, then DOTEST."""
+    """DOTRAIN, with the periodic eval under DOTEST, then DOTEST, then the
+    VIS modes (root main.py `_maybe_visualize`, on rank 0 alone)."""
+    results = _train_test(cfg, args, device)
+    if _wants_visualization(cfg) and parallel.is_primary():
+        with parallel.alone():
+            print("VIS:", visualization(cfg, device))
+    return results
+
+
+def _train_test(cfg, args, device):
     model = None
     if cfg.DOTRAIN:
         eval_fn = None

@@ -11,6 +11,13 @@ load_opt=False (WEIGHTS_LOAD_OPT) restores the model weights only.
 A file `save` wrote holds exactly the keys {"model", "optimizer", "extra"}
 (`is_native`); any other `.pth` is a foreign torch file, which
 utils/pretrained.py imports instead.
+
+A JAX checkpoint (a flax msgpack `.ckpt`, in cfg.WEIGHTS or tagged in
+`last_checkpoint`) loads too, weights only: its `state.params` and
+`state.batch_stats` through `utils/jax_import.load_jax_variables`, as
+the JAX `Checkpointer.load` restores them under WEIGHTS_LOAD_OPT=False.
+Its optimizer state (optax's, in flax's layout) is not read; its `extra`
+(the epoch) is returned as it is.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import os
 from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import torch
+
+from .flax_msgpack import read_checkpoint
+from .jax_import import load_jax_variables
 
 if TYPE_CHECKING:  # engine/ imports this module
     from ..engine.solver import Optimizer
@@ -64,6 +74,11 @@ class Checkpointer:
             path = os.path.join(self.save_dir, self.get_checkpoint_file())
         if not path or not os.path.exists(path):
             return None
+        if path.endswith(".ckpt"):
+            params, stats, extra = read_checkpoint(path)
+            load_jax_variables(model, {"params": params, "batch_stats": stats})
+            logger.info("Loaded model weights only (WEIGHTS_LOAD_OPT=False) from %s", path)
+            return extra
         # these files are written by `save` above: plain state dicts and
         # python scalars, which the weights-only unpickler accepts
         payload = torch.load(path, map_location="cpu", weights_only=True)

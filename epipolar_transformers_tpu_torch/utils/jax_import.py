@@ -116,6 +116,14 @@ def nhwc_to_nchw_columns(w: np.ndarray, channels: int) -> np.ndarray:
     return np.concatenate([conv.reshape(O, hw * channels), w[:, hw * channels:]], axis=1)
 
 
+def nchw_to_nhwc_columns(w: np.ndarray, channels: int) -> np.ndarray:
+    """The inverse of `nhwc_to_nchw_columns`."""
+    O, I = w.shape
+    hw = I // channels
+    conv = w[:, :hw * channels].reshape(O, channels, hw).transpose(0, 2, 1)
+    return np.concatenate([conv.reshape(O, hw * channels), w[:, hw * channels:]], axis=1)
+
+
 def to_port_value(value: np.ndarray, path: Tuple[str, ...], is_deconv: bool,
                   fc0: Optional[int]) -> np.ndarray:
     """A flax leaf in the port's layout (`_to_torch_layout`, then the fc0
@@ -133,6 +141,36 @@ def _to_torch_layout(value: np.ndarray, leaf_name: str, is_deconv: bool) -> np.n
     if leaf_name == "kernel" and value.ndim == 2:
         return value.T  # nn.Dense (I, O) -> nn.Linear (O, I)
     return value
+
+
+def _to_flax_value(value: np.ndarray, path: Tuple[str, ...], is_deconv: bool,
+                   fc0: Optional[int]) -> np.ndarray:
+    """The inverse of `to_port_value`: a port tensor in the flax layout."""
+    if fc0 is not None:
+        value = nchw_to_nhwc_columns(value, fc0)
+    if path[-1] == "kernel" and value.ndim == 4:
+        if is_deconv:
+            return np.ascontiguousarray(np.transpose(value, (2, 3, 0, 1))[::-1, ::-1])
+        return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+    if path[-1] == "kernel" and value.ndim == 2:
+        return np.ascontiguousarray(value.T)
+    return value
+
+
+def flax_variables(module: torch.nn.Module) -> Dict[str, dict]:
+    """`module`'s weights as the JAX package's variables tree
+    ({'params': ..., 'batch_stats': ...}, nested dicts of numpy arrays in
+    the flax layout): the inverse of `jax_state_dict`."""
+    state = module.state_dict()
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, (coll, path, is_deconv, fc0) in flax_paths(module).items():
+        node = out[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        value = state[key].detach().cpu()
+        value = value.float() if value.dtype == torch.bfloat16 else value
+        node[path[-1]] = _to_flax_value(value.numpy(), path, is_deconv, fc0)
+    return out
 
 
 def _lookup(tree, path):

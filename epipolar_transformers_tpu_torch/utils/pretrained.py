@@ -16,8 +16,11 @@ modeling/model.py:37-54, utils/checkpoint.py:49-70), in the same order
 
 The port's own checkpoints also end in `.pth`; `Checkpointer.is_native`
 tells them apart by content, and they go through the Checkpointer, whose
-`last_checkpoint` tag wins over all of this.  Not ported, raising: a JAX
-`.ckpt` (flax msgpack; ROADMAP A7b).
+`last_checkpoint` tag wins over all of this.  A JAX `.ckpt` (flax msgpack,
+utils/flax_msgpack.py) in cfg.WEIGHTS goes through the Checkpointer too,
+as in the JAX package; a BackboneCatalog directory's `model_final.ckpt` is
+grafted here, its `backbone` subtree by suffix onto each target (JAX
+`_graft_subtree`).
 """
 
 from __future__ import annotations
@@ -31,17 +34,11 @@ import torch
 from ..config import BackboneCatalog, Config
 from .checkpoint import Checkpointer
 from .ext_model_loading import load_external_weights
+from .flax_msgpack import read_checkpoint
 from .torch_import import (import_flax_leaves, load_into_model, load_torch_state_dict,
                            read_torch_file)
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse(path: str) -> None:
-    """Raise on the weight format the port does not read."""
-    if os.path.splitext(path)[1] == ".ckpt":
-        raise NotImplementedError(f"{path!r}: a JAX checkpoint (flax msgpack .ckpt) is "
-                                  "ROADMAP A7b in the port")
 
 
 def resolve_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -78,15 +75,42 @@ def load_single_view_pretrained(cfg: Config, model: torch.nn.Module) -> None:
     if path is None:
         logger.info("pretrained: no single-view checkpoint under %s", ckpt_dir)
         return
-    _refuse(path)
     targets = (["reference"] if cfg.EPIPOLAR.PRETRAINED else []) + \
         (["backbone"] if not cfg.EPIPOLAR.SHARE_WEIGHTS else [])
+    if path.endswith(".ckpt"):
+        params, stats, _ = read_checkpoint(path)
+        for sub in targets:
+            graft_subtree(model, params, stats, "backbone", sub)
+        return
     # keys carry the DataParallel wrapper prefix 'backbone.module.'
     # (reference model.py:42,53)
     sd = load_torch_state_dict(path)
     for sub in targets:
         missing = load_into_model(model, sd, prefix="backbone.module.", submodule=sub)
         logger.info("pretrained: torch import into %s (%d leaves kept init)", sub, len(missing))
+
+
+def _flatten(tree, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def graft_subtree(model: torch.nn.Module, params: dict, stats: dict, src_root: str,
+                  dst_root: str) -> None:
+    """A flax checkpoint's `src_root` subtree (e.g. the single-view
+    'backbone') onto the model's `dst_root` submodule (e.g. 'reference'),
+    leaf by leaf aligned by suffix (JAX utils/pretrained.py:_graft_subtree,
+    reference `load(prefix='backbone.module.')`, modeling/model.py:41-54)."""
+    flat = [_flatten(src.get(src_root, src), dst_root) if src else {}
+            for src in (params, stats)]
+    missing = import_flax_leaves(model, *flat)
+    logger.info("pretrained: grafted %s -> %s (%d parameter leaves kept init)", src_root,
+                dst_root, len(missing))
 
 
 def load_backbone_pretrained(cfg: Config, model: torch.nn.Module) -> None:
@@ -123,12 +147,12 @@ def load_external(cfg: Config, model: torch.nn.Module, path: str) -> None:
 
 def load_cfg_weights(cfg: Config, model: torch.nn.Module) -> bool:
     """Import cfg.WEIGHTS when it is a foreign torch file or TF pickle;
-    returns whether it did.  The port's own checkpoints are left to the
-    Checkpointer."""
+    returns whether it did.  The port's own checkpoints and JAX `.ckpt`
+    files are left to the Checkpointer."""
     path = cfg.WEIGHTS
-    if not path:
+    if not path or path.endswith(".ckpt"):
+        # a JAX .ckpt is the Checkpointer's, as a native one is in JAX
         return False
-    _refuse(path)
     if not os.path.exists(path):
         logger.warning("cfg.WEIGHTS=%r does not exist: proceeding from the initial weights",
                        path)

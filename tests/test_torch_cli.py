@@ -155,7 +155,11 @@ def test_cli_needs_a_gpu_unless_asked_for_the_cpu(yaml_path, tmp_path, monkeypat
     # --multihost is ported: outside torchrun it raises for the missing
     # environment (tests/test_torch_parallel.py runs it under a group)
     (["--multihost"], RuntimeError, "torchrun's environment"),
-    (["VIS.POINTCLOUD", "True"], NotImplementedError, "A13"),
+    # the VIS dispatch is ported: POINTCLOUD without a predictions pickle
+    # raises as the JAX dispatch does (tests/test_torch_vis_cli.py runs the
+    # modes)
+    (["VIS.POINTCLOUD", "True", "DOTRAIN", "False", "DOTEST", "False"], FileNotFoundError,
+     "predictions"),
 ], ids=["multihost", "vis"])
 def test_cli_unported_options_raise(yaml_path, tmp_path, monkeypatch, argv, error, match):
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):

@@ -384,3 +384,22 @@ def test_stop_workers_leaves_no_process():
         assert all(pids)
         pipeline.stop_workers()
         assert not [pid for pid in pids if os.path.exists(f"/proc/{pid}")]
+
+
+def test_multiviewh36m_debug_dump_matches_jax(fake_root, tmp_path):
+    """VIS.MULTIVIEWH36M: each train item also writes its epipolar debug
+    view, as the JAX dataset does; the items stay equal, and the two
+    packages write the same files (the drawing is tests/test_torch_vis.py's
+    raster)."""
+    d = merged(h36m_dict(), VIS={"MULTIVIEWH36M": True})
+    port, ref = pair(fake_root, d, True)
+    port.cfg = port.cfg.replace(OUTPUT_DIR=str(tmp_path / "port"))
+    ref.cfg = ref.cfg.replace(OUTPUT_DIR=str(tmp_path / "jax"))
+    for i in range(2):
+        assert_items_equal(port[i], ref[i])
+    names = sorted(os.listdir(tmp_path / "jax" / "debug_multiview"))
+    assert names == ["00000000.png", "00000001.png"]
+    assert sorted(os.listdir(tmp_path / "port" / "debug_multiview")) == names
+    for n in names:
+        assert (cv2.imread(str(tmp_path / "port" / "debug_multiview" / n)).shape
+                == cv2.imread(str(tmp_path / "jax" / "debug_multiview" / n)).shape == (64, 128, 3))

@@ -23,7 +23,9 @@ command line with DATALOADER.BENCHMARK and 2 worker processes, with
 --trace and tensorboard event files, with VIS.FLOPS), and the command
 line with --multihost on two gloo ranks
 (processes spawned with the same modules blocked; a train step, then rank
-0's eval); no blocked module is loaded at the end.
+0's eval), `test` under VIS.VIDEO with its AVI, a model's weights written
+as a JAX `.ckpt` and loaded through cfg.WEIGHTS, and `graft_entry.entry`;
+no blocked module is loaded at the end.
 """
 
 import os
@@ -155,6 +157,24 @@ with tempfile.TemporaryDirectory() as data_dir:
     assert [s for s, _ in read_scalars(data_dir + "/tb")["train/loss"]] == [1]
     prof = main([*tiny, "VIS.FLOPS", "True"])
     assert prof["flops"] > prof["attention_flops"] > 0, prof
+from epipolar_transformers_tpu_torch.graft_entry import entry
+from epipolar_transformers_tpu_torch.utils.flax_msgpack import write_checkpoint
+from epipolar_transformers_tpu_torch.vis.visualization import read_avi, visualization
+model = build_model(cfg, torch.device("cpu"))
+with tempfile.TemporaryDirectory() as out_dir:
+    video = update_from_dict(cfg, {"VIS": {"VIDEO": True}, "TEST": {"IMS_PER_BATCH": 1}})
+    video = video.replace(OUTPUT_DIR=out_dir)
+    results = test(video, model, max_batches=2)
+    assert math.isfinite(results["EPEmean_global"]), results
+    assert visualization(video, "cpu") == {"video/ds0": 2}
+    assert len(read_avi(out_dir + "/video/ds0.avi")) == 2
+    write_checkpoint(out_dir + "/w.ckpt", model, epoch=1)
+    fresh = build_model(cfg.replace(SEED=1), torch.device("cpu"))
+    assert load_weights(cfg.replace(WEIGHTS=out_dir + "/w.ckpt"), fresh) == {"epoch": 1}
+assert all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
+                                             model.state_dict().values()))
+fn, args = entry("cpu", tiny=True)
+assert fn(*args)[0].shape == (1, 5, 8, 8)
 sys.path.insert(0, "tests")
 from torch_ddp_ranks import run_ranks
 with tempfile.TemporaryDirectory() as tmp:

@@ -15,7 +15,8 @@ must too.
 
 Also: the C6 regression (a reference checkpoint under `module.`, and a bare
 state dict, load through `train`), the port's own checkpoint as cfg.WEIGHTS,
-the `last_checkpoint` tag winning over cfg.WEIGHTS, the formats that raise,
+the `last_checkpoint` tag winning over cfg.WEIGHTS, a `.ckpt` that is no
+flax msgpack raising, the BackboneCatalog `model_final.ckpt` graft,
 and the port's copies of the import helpers against the JAX originals.
 """
 
@@ -256,13 +257,50 @@ def test_read_torch_file_needs_the_full_unpickler_only_for_objects(tmp_path, mon
         assert payload["args"] == extra
 
 
-@pytest.mark.parametrize("name,match", [("w.ckpt", "A7b")])
+@pytest.mark.parametrize("name,match", [("w.ckpt", "not a flax msgpack checkpoint")])
 def test_unported_formats_raise(tmp_path, name, match):
-    """Refused before anything is read or imported."""
+    """A `.ckpt` that holds no flax msgpack is refused, naming the file,
+    before anything is imported."""
     cfg = flagship_cfg(tiny=True).replace(WEIGHTS=str(tmp_path / name))
     (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         load_weights(cfg, torch.nn.Module())
+
+
+def _nest(flat):
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+@pytest.mark.parametrize("share", [True, False], ids=["shared", "unshared"])
+def test_single_view_catalog_ckpt_graft_matches_jax(tmp_path, monkeypatch, init_variables,
+                                                     share):
+    """A BackboneCatalog directory's `model_final.ckpt` (a single-view JAX
+    checkpoint, its trunk under `backbone`) grafted by suffix as JAX
+    `_graft_subtree` does, bit-equal."""
+    from flax import serialization
+
+    monkeypatch.setattr(BackboneCatalog, "OUTS_DIR", str(tmp_path))
+    monkeypatch.setattr(JBackboneCatalog, "OUTS_DIR", str(tmp_path))
+    ckpt_dir = tmp_path / "benchmark" / "keypoint_h36m"
+    ckpt_dir.mkdir(parents=True)
+    params, stats = jimport.convert_state_dict(
+        {k: v.numpy() for k, v in _posenet_sd(6).items()})
+    payload = {"state": {"step": np.int32(7), "params": {"backbone": _nest(params)},
+                         "batch_stats": {"backbone": _nest(stats)}}, "extra": {"epoch": 2}}
+    (ckpt_dir / "model_final.ckpt").write_bytes(serialization.msgpack_serialize(payload))
+    cfg, jcfg = _cfgs(share, EPIPOLAR={"PRETRAINED": True})
+    got, want, changed = _import_both(cfg, jcfg, init_variables[share])
+    _assert_bit_equal(got, want)
+    assert "reference.conv1.weight" in changed and "reference.bn1.running_mean" in changed
+    assert ("backbone.conv1.weight" in changed) == (not share)
+    assert not any("epipolar_sampler" in k for k in changed)
 
 
 def test_copies_match_jax(tmp_path):

@@ -91,9 +91,11 @@ def test_read_png_undoes_every_filter(tmp_path, filters):
 
 
 def test_read_png_refuses_what_it_does_not_read(tmp_path):
-    path = str(tmp_path / "deep.png")
-    cv2.imwrite(path, np.zeros((4, 4), np.uint16))
-    with pytest.raises(ValueError, match="bit depth 16"):
+    """16-bit PNGs are read since the depth maps need them
+    (tests/test_torch_utils_extra.py); a 1-bit one is refused."""
+    path = str(tmp_path / "bilevel.png")
+    cv2.imwrite(path, np.zeros((4, 4), np.uint8), [cv2.IMWRITE_PNG_BILEVEL, 1])
+    with pytest.raises(ValueError, match="bit depth 1,"):
         read_png(path)
 
 

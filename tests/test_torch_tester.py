@@ -22,7 +22,8 @@ that the random net's errors are not all clamped to one value.
 (v)   Double-buffered and serial drives give bit-equal results.
 (vi)  TEST.IMS_PER_BATCH > 1 evaluates the first group of each batch, as
       the JAX tester does.
-(vii) VIS.VIDEO / VIDEO_GT raise.
+(vii) VIS.VIDEO / VIDEO_GT dump the JAX tester's frames (the raster within
+      a pixel).
 
 The JAX eval forward is compiled once (`make_eval_step`) and reused by
 every JAX `test` of the file; JAX `test` with RECOMPUTE_BN is `test` on the
@@ -238,10 +239,42 @@ def test_ims_per_batch_takes_the_first_group(jax_side, model):
     assert got != tester.test(_cfgs()[0], model, max_batches=2)
 
 
-@pytest.mark.parametrize("override,match", [
-    ({"VIS": {"VIDEO": True}}, "A13"),
-    ({"VIS": {"VIDEO_GT": True}}, "A13"),
+@pytest.mark.parametrize("override,subdir", [
+    ({"VIS": {"VIDEO": True}}, "video"),
+    ({"VIS": {"VIDEO_GT": True}}, "video_gt/video"),
 ], ids=["video", "video_gt"])
-def test_unported_eval_modes_raise(model, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tester.test(_cfgs(override)[0], model, max_batches=1)
+def test_unported_eval_modes_raise(jax_side, model, tmp_path, override, subdir):
+    """VIS.VIDEO and VIDEO_GT, which raised before the port had them, now
+    dump the frames the JAX tester dumps: the same files, and in each frame
+    the pixels drawn over the undrawn view (a skeleton in both) lie each
+    within a 1-px dilation of the other's, with every pixel farther from
+    either bit-equal (tests/test_torch_vis.py's raster check); VIDEO_GT runs
+    no model and gives no metrics, VIDEO the metrics of (ii)."""
+    from scipy import ndimage
+
+    from epipolar_transformers_tpu_torch.vis.visualization import read_frame, render_pose_frame
+
+    cfg, jcfg = _cfgs(override)
+    got = tester.test(cfg.replace(OUTPUT_DIR=str(tmp_path / "port")), model, max_batches=GROUPS)
+    want = jax_side.test(jcfg.replace(OUTPUT_DIR=str(tmp_path / "jax")))
+    assert set(got) == set(want)
+    if subdir.startswith("video_gt"):
+        assert got == want == {}
+    root_p, root_j = tmp_path / "port" / subdir / "ds0", tmp_path / "jax" / subdir / "ds0"
+    views = sorted(os.listdir(root_j))
+    assert sorted(os.listdir(root_p)) == views and len(views) == 4
+    groups = [b["img"][0] for _, b in zip(range(GROUPS), make_eval_loaders(cfg)[0])]
+    dilate = np.ones((3, 3), bool)
+    for v, view in enumerate(views):
+        names = sorted(os.listdir(root_j / view))
+        assert sorted(os.listdir(root_p / view)) == names == [f"{i:08d}.png" for i in range(GROUPS)]
+        for i, name in enumerate(names):
+            a, b = read_frame(str(root_p / view / name)), read_frame(str(root_j / view / name))
+            base = render_pose_frame(groups[i][v], np.zeros((0, 2)))
+            assert a.shape == b.shape == base.shape
+            da, db = (a != base).any(-1), (b != base).any(-1)
+            assert da.any() and db.any()
+            assert (da <= ndimage.binary_dilation(db, dilate)).all()
+            assert (db <= ndimage.binary_dilation(da, dilate)).all()
+            far = ~ndimage.binary_dilation(da | db, dilate)
+            np.testing.assert_array_equal(a[far], b[far])
