@@ -33,7 +33,10 @@ run, each printed on its own lines:
      (as the model has them), detached keys and values, bf16, edge-crossing
      locations, all out of range (exactly zero), then priors, priormul and
      softmax off at the smaller shape; and two runs bit-equal (the backward
-     sums in a fixed order);
+     sums in a fixed order).  Every backward tile at the rig takes the tile
+     kernel, every one at the edge-crossing locations the per-query
+     passes; a launch with the union cap lowered to the median union puts
+     tiles on both paths, held to the plain version;
   6. the training slice: `engine.trainer.train` on the flagship config for
      TRAIN_STEPS steps of batch 8 (finite loss every step, one forward and
      one backward kernel launch per step, most forward tiles on the tile
@@ -206,10 +209,12 @@ operations over the f32 rate outside the tensor cores and its bytes (each
 input read once, a tensor passed as keys and values once, each output
 written once) over the memory rate, counted
 from this run's inputs (the operations per distinct live (query, key row)
-pair).  The forward's entry also holds `main_path_tiles`, its tiles on
-each path over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b), 13(c), 14, 15 and 16; the
-backward's, `prior_gradient`, its time with and without the prior's
-gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
+pair).  Each entry also holds `main_path_tiles`, its tiles on each path:
+the forward's over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b),
+13(c), 14, 15 and 16, the backward's over the backwards of phases 6, 8,
+9, 11, 12(b), 13(c), 14 and 15 (most on the tile path, or the script
+fails); the backward's also `prior_gradient`, its time with and without
+the prior's gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
 `lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s,
 `a11d_recipes` [15]'s, `last_modules` [16]'s.  No
 single PyTorch call
@@ -407,8 +412,9 @@ A11D_STAGES = ("setup", "read", "undistort", "warp", "heatmap")
 # the hand kernels a trace of a 96x96 recipe's train steps must name: the
 # forward's grouping, tile and per-query kernels, the backward's passes
 TRACE_KERNELS = ("group_kernel", "tile_forward_kernel", "epipolar_attention_kernel",
-                 "query_backward_kernel", "tile_histogram_kernel", "tile_scan_kernel",
-                 "row_offset_kernel", "fill_kernel", "row_gather_kernel", "row_fixup_kernel")
+                 "tile_backward_kernel", "query_backward_kernel", "tile_histogram_kernel",
+                 "tile_scan_kernel", "row_offset_kernel", "fill_kernel", "row_gather_kernel",
+                 "row_fixup_kernel", "tile_reduce_kernel")
 # the 19 mm recipe's eval, kernel route against plain route: corr_pos as
 # [8] holds it, the 3D of its `epipolar` triangulation per joint
 CORR_POS_TOL = 1e-3
@@ -933,12 +939,24 @@ def slice_phase(cfg, device):
     return launches, tiles, forward, model
 
 
-def check_main_path_tiles(name, tiles, total):
-    """The main path's forwards put most of their tiles (tile path,
-    per-query path) on the tile kernel, and count every tile once."""
+def check_main_path_tiles(name, tiles, total, kind="forward"):
+    """The main path's forwards (or backwards) put most of their tiles
+    (tile path, per-query path) on the tile kernel, and count every tile
+    once."""
     if sum(tiles) != total or tiles[0] <= tiles[1]:
-        raise AssertionError(f"{name}: forward tiles on the tile path / per-query path "
+        raise AssertionError(f"{name}: {kind} tiles on the tile path / per-query path "
                              f"{tiles[0]} / {tiles[1]}, of {total}")
+
+
+# the backward's tiles (tile path, per-query path) over the main path's
+# runs, each added as its counts are read (in this process, or from a
+# child's counts)
+BACKWARD_MAIN_PATH_TILES = [0, 0]
+
+
+def main_path_backward(tiles) -> None:
+    for i in range(2):
+        BACKWARD_MAIN_PATH_TILES[i] += tiles[i]
 
 
 def attention_grads(fn, feats, locs, params, prior=None, need_kv=True):
@@ -1008,9 +1026,17 @@ def backward_phase(cfg, device):
     rig = rig_sample_locs(cfg, B, device)
     rand_locs = torch.rand(B, K, H, W, 2, device=device, generator=gen) * 2.6 - 1.3
     f32 = feats(B, H, W, C, torch.float32)
+    tiles = B * -(-H * W // attn.TILE_QUERIES)
+    attn.BACKWARD_TILE_COUNTS.clear()
     err = check("f32 rig locs, OTHER_GRAD (flagship shape)", f32, rig, flagship)
+    rig_tiles = attn.backward_tile_counts()
+    attn.BACKWARD_TILE_COUNTS.clear()
     got, again = kv_grads(attn.epipolar_attention_batch, f32), \
         kv_grads(attn.epipolar_attention_batch, f32)
+    if attn.backward_tile_counts() != (2 * tiles, 0) or rig_tiles != (tiles, 0):
+        raise AssertionError(f"backward tiles at the flagship rig: {rig_tiles}, then "
+                             f"{attn.backward_tile_counts()} over two runs; every tile must "
+                             f"take the tile path")
     e_kv = close_grads("f32 keys = values one tensor", got,
                        kv_grads(attn.epipolar_attention_plain_batch, f32), **GRAD_F32_TOL)
     err = max(err, e_kv)
@@ -1019,7 +1045,15 @@ def backward_phase(cfg, device):
     log(f"  f32 keys = values one tensor: max abs err {e_kv:.3g}; two runs bit-equal")
     check("f32 detached keys and values", f32, rig, flagship, need_kv=False)
     check("bf16 rig locs", feats(B, H, W, C, torch.bfloat16), rig, flagship, tol=GRAD_BF16_TOL)
+    attn.BACKWARD_TILE_COUNTS.clear()
     check("f32 edge-crossing locs", f32, rand_locs, flagship)
+    rand_tiles = attn.backward_tile_counts()
+    if rand_tiles != (0, tiles):
+        raise AssertionError(f"backward tiles at edge-crossing locations {rand_tiles}")
+    log(f"  backward tiles on the tile path / per-query path: rig {rig_tiles[0]} / "
+        f"{rig_tiles[1]} (and in each keys = values run), edge-crossing {rand_tiles[0]} / "
+        f"{rand_tiles[1]}")
+    small_cap_backward(f32, rig, flagship)
     grads = attention_grads(attn.epipolar_attention_batch, f32, torch.full_like(rig, -9.0),
                             flagship)
     if any(g.abs().max().item() != 0.0 for g in grads):
@@ -1040,6 +1074,43 @@ def backward_phase(cfg, device):
     return err
 
 
+def small_cap_backward(feats, locs, params):
+    """The backward kernel with its union cap lowered to the median union
+    at these locations, so that one launch puts about half of the tiles on
+    each path, held to autograd of the plain version at GRAD_F32_TOL (keys
+    = values one tensor), two such launches bit-equal."""
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    B, K, H, W, _ = locs.shape
+    C = feats[0].shape[-1]
+    flat = locs.reshape(B, K, H * W, 2)
+    _, union = attn._tile_plan(flat, H, W)
+    cap = int(union.sum(-1).median())
+    f1, f2 = (f.reshape(B, H * W, C) for f in feats[:2])
+    dout = torch.randn(B, H * W, C, device=f1.device,
+                       generator=torch.Generator(device=f1.device).manual_seed(SEED + 3))
+    args = (f1, f2, f2, flat, None, dout, H, W, params)
+    kv = dict(need_keys=True, need_values=True, same_kv=True, max_union=cap)
+    attn.BACKWARD_TILE_COUNTS.clear()
+    got = attn._kernel_backward(*args, **kv)
+    tiles = attn.backward_tile_counts()
+    if not (tiles[0] > 0 and tiles[1] > 0 and sum(tiles) == union.shape[0] * union.shape[1]):
+        raise AssertionError(f"backward with the union cap at {cap}: tiles {tiles}")
+    again = attn._kernel_backward(*args, **kv)
+    if not all(torch.equal(a, b) for a, b in zip(got[:2], again[:2])):
+        raise AssertionError("two backward runs with a lowered union cap differ")
+    q, kv_feats = (f.detach().clone().requires_grad_() for f in feats[:2])
+    out = attn.epipolar_attention_plain_batch(q, kv_feats, kv_feats, locs, params)[0]
+    want = torch.autograd.grad(out, (q, kv_feats), dout.reshape(B, H, W, C))
+    err = close_grads(f"union cap {cap}", [got[0], got[1], None],
+                      [w.reshape(B, H * W, C) for w in want] + [None], **GRAD_F32_TOL)
+    log(f"  union cap lowered to {cap} rows (the median): one launch puts {tiles[0]} tiles on the "
+        f"tile path and {tiles[1]} on the per-query path; max abs err {err:.3g} against the "
+        f"plain version, two runs bit-equal")
+
+
 class _Messages(logging.Handler):
     """Collects the formatted messages of one logger and their times."""
 
@@ -1052,17 +1123,20 @@ class _Messages(logging.Handler):
         self.times.append(record.created)
 
 
-def counted_train(name, tcfg, steps, device, per_step=1, terms=()):
+def counted_train(name, tcfg, steps, device, per_step=1, terms=(), main_path=True):
     """`engine.trainer.train` for `steps` steps of `tcfg` (LOG_FREQ 1), the
     main path: the kernels' counters set to 0 just before and read just
     after.  Raises unless every step's loss (and each loss term in `terms`)
     is finite, each step launched the forward and the backward kernel
     `per_step` times (once per fusion layer on the kernel route), the model
-    ran on the card and most forward tiles took the tile kernel.  Returns
-    the model, the optimizer, the forward and backward launches, the tiles
-    on each path, the losses, the wall seconds, and the loop's wall per
-    step after the first in ms: loader, inputs and step, between two of the
-    step log lines, each written after the step's loss reached the host."""
+    ran on the card and most forward and backward tiles took the tile
+    kernels.  Adds the backward's tiles to BACKWARD_MAIN_PATH_TILES where
+    the run counts toward the kernels' line (main_path).  Returns the
+    model, the optimizer, the forward and backward launches, the forward's
+    and the backward's tiles on each path, the losses, the wall seconds,
+    and the loop's wall per step after the first in ms: loader, inputs and
+    step, between two of the step log lines, each written after the step's
+    loss reached the host."""
     import numpy as np
     import torch
 
@@ -1077,12 +1151,13 @@ def counted_train(name, tcfg, steps, device, per_step=1, terms=()):
     try:
         attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
         attn.TILE_COUNTS.clear()
+        attn.BACKWARD_TILE_COUNTS.clear()
         t0 = time.perf_counter()
         model, optimizer = trainer.train(tcfg, max_steps=steps, device=device)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-        tiles = attn.tile_counts()
+        tiles, backward_tiles = attn.tile_counts(), attn.backward_tile_counts()
     finally:
         train_log.removeHandler(messages)
     logged = [(t, float(m)) for t, msg in zip(messages.times, messages.messages)
@@ -1102,10 +1177,15 @@ def counted_train(name, tcfg, steps, device, per_step=1, terms=()):
     if next(model.parameters()).device != device:
         raise AssertionError(f"{name}: the trainer did not run on the card")
     h, w = tcfg.KEYPOINT.HEATMAP_SIZE
+    per_launch = tcfg.SOLVER.IMS_PER_BATCH * -(-h * w // attn.TILE_QUERIES)
     if launches:
-        check_main_path_tiles(f"{name} train", tiles, launches * tcfg.SOLVER.IMS_PER_BATCH
-                              * -(-h * w // attn.TILE_QUERIES))
-    return model, optimizer, launches, backward_launches, tiles, losses, wall, step_ms
+        check_main_path_tiles(f"{name} train", tiles, launches * per_launch)
+        check_main_path_tiles(f"{name} train", backward_tiles, backward_launches * per_launch,
+                              "backward")
+    if main_path:
+        main_path_backward(backward_tiles)
+    return (model, optimizer, launches, backward_launches, tiles, backward_tiles, losses, wall,
+            step_ms)
 
 
 def train_phase(cfg, device):
@@ -1123,13 +1203,14 @@ def train_phase(cfg, device):
     with tempfile.TemporaryDirectory() as out_dir:
         tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
-        model, optimizer, launches, backward_launches, tiles, losses, wall, _ = counted_train(
-            "[6]", tcfg, TRAIN_STEPS, device)
+        (model, optimizer, launches, backward_launches, tiles, backward_tiles, losses, wall,
+         _) = counted_train("[6]", tcfg, TRAIN_STEPS, device)
         log(f"  train: {TRAIN_STEPS} steps of batch {tcfg.SOLVER.IMS_PER_BATCH} in {wall:.1f} s "
             f"(first steps include cuDNN autotuning and the loader's start), loss "
             f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches "
             f"{launches}, backward kernel launches {backward_launches} (one each per step); "
-            f"forward tiles on the tile path / per-query path {tiles[0]} / {tiles[1]}")
+            f"tiles on the tile path / per-query path: forward {tiles[0]} / {tiles[1]}, "
+            f"backward {backward_tiles[0]} / {backward_tiles[1]}")
 
         Checkpointer(out_dir).save("model_000", model, optimizer, epoch=1)
         resumed, resumed_opt = trainer.train(
@@ -1680,12 +1761,13 @@ def hourglass_phase(device):
     with tempfile.TemporaryDirectory() as out_dir:
         tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
-        model, _, launches, backward_launches, train_tiles, losses, wall, _ = counted_train(
-            "[8]", tcfg, HG_TRAIN_STEPS, device)
+        model, _, launches, backward_launches, train_tiles, backward_tiles, losses, wall, _ = \
+            counted_train("[8]", tcfg, HG_TRAIN_STEPS, device)
     log(f"  train (DEVICE_RENDER on): {HG_TRAIN_STEPS} steps of batch {B} in {wall:.1f} s, loss "
         f"{losses[0]:.5g} -> {losses[-1]:.5g}, all finite; forward kernel launches {launches}, "
-        f"backward kernel launches {backward_launches} (one each per step); forward tiles on "
-        f"the tile path / per-query path {train_tiles[0]} / {train_tiles[1]}")
+        f"backward kernel launches {backward_launches} (one each per step); tiles on the tile "
+        f"path / per-query path: forward {train_tiles[0]} / {train_tiles[1]}, backward "
+        f"{backward_tiles[0]} / {backward_tiles[1]}")
 
     step_parity(cfg, device, per_param=True, hourglass=True)
 
@@ -1759,14 +1841,14 @@ def recipe_phase(device):
     with tempfile.TemporaryDirectory() as out_dir:
         tcfg = update_from_dict(cfg, {"OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
-        model, optimizer, launches, backward_launches, tiles, _, _, _ = counted_train(
-            "[9]", tcfg, RECIPE_TRAIN_STEPS, device)
+        model, optimizer, launches, backward_launches, tiles, backward_tiles, _, _, _ = \
+            counted_train("[9]", tcfg, RECIPE_TRAIN_STEPS, device)
         # the loop as a whole, the rig rendered on the card against the host
         loop_ms = {}
         for on in (True, False):
             lcfg = update_from_dict(tcfg, {"DATALOADER": {"DEVICE_RENDER": on}})
             loop_ms[on] = counted_train(f"[9] DEVICE_RENDER {on}", lcfg, RECIPE_LOOP_STEPS,
-                                        device)[-1]
+                                        device, main_path=False)[-1]
 
     step = trainer.make_train_step(cfg, model, optimizer)
     inputs = trainer.model_inputs(light, device, render)
@@ -1780,7 +1862,8 @@ def recipe_phase(device):
         raise AssertionError(f"[9] losses {losses}")
     log(f"  train(): {RECIPE_TRAIN_STEPS} steps of batch {B}, forward kernel launches "
         f"{launches}, backward kernel launches {backward_launches} (one each per step), "
-        f"forward tiles on the tile path / per-query path {tiles[0]} / {tiles[1]}")
+        f"tiles on the tile path / per-query path: forward {tiles[0]} / {tiles[1]}, backward "
+        f"{backward_tiles[0]} / {backward_tiles[1]}")
     log(f"  train step at batch {B} (forward, backward, adam; device-rendered inputs): "
         f"{step_ms:.3f} ms (CUDA events, mean of {RECIPE_TRAIN_STEPS} after 1), peak memory "
         f"{peak:.3f} GiB, losses {', '.join(f'{float(v):.5g}' for v in losses)}")
@@ -2090,8 +2173,8 @@ def prior_phase(cfg, device):
                                       "DATASETS": {"CAMERAS": RIG_CAMERAS},
                                       "OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                       "TENSORBOARD": {"USE": False}})
-        model, _, launches, backward_launches, tiles, losses, wall, _ = counted_train(
-            "[11](b) PRIOR", tcfg, FUSION_TRAIN_STEPS, device)
+        model, _, launches, backward_launches, tiles, backward_tiles, losses, wall, _ = \
+            counted_train("[11](b) PRIOR", tcfg, FUSION_TRAIN_STEPS, device)
     table = model.reference.epipolar_sampler.prior
     if table.grad is None or not torch.isfinite(table.grad).all() or \
             float(table.grad.abs().max()) == 0.0:
@@ -2099,7 +2182,8 @@ def prior_phase(cfg, device):
     log(f"  (b) train() on the flagship with EPIPOLAR.PRIOR True DATASETS.CAMERAS "
         f"{RIG_CAMERAS}: {FUSION_TRAIN_STEPS} steps in {wall:.1f} s, losses "
         f"{', '.join(f'{v:.5g}' for v in losses)}; forward kernel launches {launches}, backward "
-        f"{backward_launches} (one each per step); tiles {tiles[0]} / {tiles[1]}; the table "
+        f"{backward_launches} (one each per step); tiles forward {tiles[0]} / {tiles[1]}, "
+        f"backward {backward_tiles[0]} / {backward_tiles[1]}; the table "
         f"{tuple(table.shape)} got a finite gradient, max |g| {float(table.grad.abs().max()):.3g}")
     step_parity(tcfg, device, per_param=False)
     return dict(launches=launches, backward_launches=backward_launches, tiles=tiles,
@@ -2131,7 +2215,7 @@ def fusion_phase(cfg, device):
         with tempfile.TemporaryDirectory() as out_dir:
             tcfg = update_from_dict(base, {**d, "OUTPUT_DIR": out_dir, "LOG_FREQ": 1,
                                            "TENSORBOARD": {"USE": False}})
-            _, _, launches, backward_launches, tiles, losses, wall, _ = counted_train(
+            _, _, launches, backward_launches, tiles, _, losses, wall, _ = counted_train(
                 f"[11](c) {name}", tcfg, steps, device, per_step=per_step, terms=terms)
         totals["launches"] += launches
         totals["backward_launches"] += backward_launches
@@ -2300,10 +2384,11 @@ def multiview_lifting_phase(cfg, device):
 
     attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
     attn.TILE_COUNTS.clear()
+    attn.BACKWARD_TILE_COUNTS.clear()
     losses = [step(inputs) for _ in range(3)]
     torch.cuda.synchronize()
     launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-    tiles = attn.tile_counts()
+    tiles, backward_tiles = attn.tile_counts(), attn.backward_tile_counts()
     if not launches == backward_launches == 3:
         raise AssertionError(f"[12](b) 3 steps launched the forward kernel {launches} and the "
                              f"backward kernel {backward_launches} times")
@@ -2311,12 +2396,16 @@ def multiview_lifting_phase(cfg, device):
         raise AssertionError(f"[12](b) losses {losses}")
     h, w = mcfg.KEYPOINT.HEATMAP_SIZE
     check_main_path_tiles("[12](b) train", tiles, launches * B * -(-h * w // attn.TILE_QUERIES))
+    check_main_path_tiles("[12](b) train", backward_tiles,
+                          backward_launches * B * -(-h * w // attn.TILE_QUERIES), "backward")
+    main_path_backward(backward_tiles)
     log(f"  (b) multiview_img_lifting_rot (epipolarposeR-50, 256 px, bf16 convolutions, "
         f"{h}x{w}, K={mcfg.EPIPOLAR.SAMPLESIZE}, {J} joints, batch {B}): 3 train steps, losses "
         + ", ".join(f"{float(m['loss']):.5g} (xyz {float(m['xyz_loss']):.4g}, rot "
                     f"{float(m['rot_loss']):.4g})" for m in losses)
         + f"; forward kernel launches {launches}, backward kernel launches {backward_launches} "
-        f"(one each a step); tiles {tiles[0]} / {tiles[1]}")
+        f"(one each a step); tiles forward {tiles[0]} / {tiles[1]}, backward "
+        f"{backward_tiles[0]} / {backward_tiles[1]}")
 
     grads = compare_step_paths("[12](b) bf16 multiview_img_lifting_rot", model, inputs,
                                per_param=False)
@@ -2551,10 +2640,12 @@ def h36m_phase(device):
                     "OUTPUT_DIR", os.path.join(tmp, "out")]
             attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
             attn.TILE_COUNTS.clear()
+            attn.BACKWARD_TILE_COUNTS.clear()
             results, losses, loop_ms, peak, wall = cli_run("[13](c) H36M recipe", argv)
             torch.cuda.synchronize()
             launches, backward_launches = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-            tiles = attn.tile_counts()
+            tiles, backward_tiles = attn.tile_counts(), attn.backward_tile_counts()
+            main_path_backward(backward_tiles)
             if not (launches > 0 and backward_launches > 0):
                 raise AssertionError(f"[13](c) forward kernel launches {launches}, backward "
                                      f"{backward_launches}")
@@ -2584,8 +2675,9 @@ def h36m_phase(device):
                 f"losses {', '.join(f'{v:.5g}' for v in losses)}; EPEmean_global (MPJPE) "
                 f"{results['EPEmean_global']:.4f} mm, JDR {results['JDR']:.4f} over "
                 f"{H36M_EVAL_GROUPS} groups (pymvg), all finite; forward kernel launches "
-                f"{launches}, backward kernel launches {backward_launches}, forward tiles "
-                f"{tiles[0]} / {tiles[1]}; loop wall "
+                f"{launches}, backward kernel launches {backward_launches}, tiles forward "
+                f"{tiles[0]} / {tiles[1]}, backward {backward_tiles[0]} / {backward_tiles[1]}; "
+                f"loop wall "
                 f"{statistics.mean(loop_ms):.1f} ms a step after the first; peak memory "
                 f"{peak:.3f} GiB")
             log(f"  (c) loader, batch {B} ({4 * B} frames), {loader.num_workers} workers: first batch "
@@ -2805,7 +2897,8 @@ def recipe_checked(tag, steps, c, wall, lines) -> dict:
     if sum(line.startswith("RESULTS:") for line in lines) != 1:
         raise AssertionError(f"{tag}: no RESULTS line\n" + "\n".join(lines[-40:]))
     run = dict(results=c["results"], launches=c["launches"], tiles=c["tiles"],
-               backward_launches=c["backward_launches"], trained=c["trained"],
+               backward_launches=c["backward_launches"], backward_tiles=c["backward_tiles"],
+               trained=c["trained"],
                all_reduces=c["all_reduces"], wall=wall, steps=step_log(lines),
                locs=torch.load(c["locs"]))
     run["losses"] = run["steps"]["losses"]
@@ -2861,6 +2954,7 @@ class _Spies:
         self.reduces = 0
         attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
         attn.TILE_COUNTS.clear()
+        attn.BACKWARD_TILE_COUNTS.clear()
         if torch.cuda.is_available():
             torch.cuda.reset_peak_memory_stats()
 
@@ -2895,7 +2989,8 @@ def run_command_line(spies, locs_path, options, argv, profiles=None) -> dict:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     counts = {"launches": attn.LAUNCHES, "backward_launches": attn.BACKWARD_LAUNCHES,
-              "tiles": list(attn.tile_counts()), "results": results,
+              "tiles": list(attn.tile_counts()),
+              "backward_tiles": list(attn.backward_tile_counts()), "results": results,
               "trained": list(spies.trained), "all_reduces": spies.reduces, "error": error,
               "locs": None, "profile": None}
     if spies.kept:
@@ -2966,8 +3061,9 @@ def describe(run) -> str:
             f"{1e3 * st['step_t']:.0f} ms a step, the loader's share "
             f"{st['data_t'] / st['step_t']:.2f}; peak {st['peak_gib'][-1]:.3f} GiB in training; "
             f"forward kernel launches {run['launches']}, backward {run['backward_launches']}; "
-            f"forward tiles on the tile path / per-query path {run['tiles'][0]} / "
-            f"{run['tiles'][1]}")
+            f"tiles on the tile path / per-query path: forward {run['tiles'][0]} / "
+            f"{run['tiles'][1]}, backward {run['backward_tiles'][0]} / "
+            f"{run['backward_tiles'][1]}")
 
 
 def summary(run) -> dict:
@@ -2981,6 +3077,8 @@ def summary(run) -> dict:
             "peak_gib": st["peak_gib"][-1], "launches": run["launches"],
             "backward_launches": run["backward_launches"], "all_reduces": run["all_reduces"],
             "tiles": {"tile_path": run["tiles"][0], "per_query_path": run["tiles"][1]},
+            "backward_tiles": {"tile_path": run["backward_tiles"][0],
+                               "per_query_path": run["backward_tiles"][1]},
             "MPJPE": run["results"]["EPEmean_global"], "JDR": run["results"]["JDR"],
             "seconds": run["wall"]}
 
@@ -3051,7 +3149,11 @@ def attention_at(tag, cfg, locs, device):
         return [torch.cat(g) for g in zip(*gs)]
 
     whole = [slice(0, B)]
+    attn.BACKWARD_TILE_COUNTS.clear()
     got_g = grads(attn.epipolar_attention_batch, whole)
+    backward_tiles = attn.backward_tile_counts()
+    if sum(backward_tiles) != B * -(-H * W // attn.TILE_QUERIES):
+        raise AssertionError(f"{tag} backward tiles {backward_tiles}")
     want_g = grads(attn.epipolar_attention_plain_batch, slices)
     rows_kept = ~tie_rows.reshape(B, H, W)
     bwd_err = close_grads(f"{tag} keys = values one tensor",
@@ -3081,8 +3183,9 @@ def attention_at(tag, cfg, locs, device):
     log(f"  {tag} attention alone at {shape} on the recipe's first batch of sample locations, "
         f"the plain version on slices of {PLAIN_SLICE}: forward max abs err {err:.3g}, corr_pos "
         f"agree {agree:.4f}, backward (keys = values one tensor) max abs err {bwd_err:.3g}{held}; two "
-        f"kernel runs bit-equal each way; forward tiles on the tile path / per-query path "
-        f"{tiles[0]} / {tiles[1]}; times of the batch (CUDA events, 2x20 calls, the forward in "
+        f"kernel runs bit-equal each way; tiles on the tile path / per-query path: forward "
+        f"{tiles[0]} / {tiles[1]}, backward {backward_tiles[0]} / {backward_tiles[1]}; times of "
+        f"the batch (CUDA events, 2x20 calls, the forward in "
         f"turns): forward kernel {fk:.4f} ms, plain {fp:.4f} ms, bound {fwd_bound[0]:.4f} ms "
         f"({fwd_bound[1]}); backward kernel {bk:.4f} ms, plain autograd {bp:.4f} ms, bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
@@ -3093,7 +3196,8 @@ def attention_at(tag, cfg, locs, device):
              "mask_ties": {"queries": int(ties.sum()), "key_rows": int(tie_rows.sum()),
                            "f64_similarities": tie_sims}},
             {"shape": shape, "ms": bk, "plain_ms": bp, "bound_ms": bwd_bound[0],
-             "bound_by": bwd_bound[1], "max_abs_err": bwd_err})
+             "bound_by": bwd_bound[1], "max_abs_err": bwd_err,
+             "tiles": {"tile_path": backward_tiles[0], "per_query_path": backward_tiles[1]}})
 
 
 def mask_ties(tag, f1, f2, locs, depth_k, depth_p):
@@ -3170,6 +3274,7 @@ def gloo_rank_main(rank: int, world: int, port: int, workdir: str) -> int:
                                        trainer.make_optimizer(cfg, model))
         attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
         attn.TILE_COUNTS.clear()
+        attn.BACKWARD_TILE_COUNTS.clear()
         out, ms = {"rank": rank}, []
         for i in range(GLOO_STEPS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3188,7 +3293,8 @@ def gloo_rank_main(rank: int, world: int, port: int, workdir: str) -> int:
                                  if k.endswith(("running_mean", "running_var"))}
         parallel.check_same_on_every_rank(model)
         out.update(same_after_steps=True, ms=ms, launches=attn.LAUNCHES,
-                   backward_launches=attn.BACKWARD_LAUNCHES, tiles=list(attn.tile_counts()))
+                   backward_launches=attn.BACKWARD_LAUNCHES, tiles=list(attn.tile_counts()),
+                   backward_tiles=list(attn.backward_tile_counts()))
         torch.save(out, os.path.join(workdir, f"gloo_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3235,6 +3341,7 @@ def gloo_phase(tmp, device):
     trainer.load_weights(cfg, model)
     attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
     attn.TILE_COUNTS.clear()
+    attn.BACKWARD_TILE_COUNTS.clear()
 
     def loss_and_grads(inputs):
         model.zero_grad(set_to_none=True)
@@ -3247,7 +3354,7 @@ def gloo_phase(tmp, device):
     loss, grads = loss_and_grads(inputs)
     torch.cuda.synchronize()
     one = dict(launches=attn.LAUNCHES, backward_launches=attn.BACKWARD_LAUNCHES,
-               tiles=list(attn.tile_counts()))
+               tiles=list(attn.tile_counts()), backward_tiles=list(attn.backward_tile_counts()))
     bn = {k: v.detach().cpu() for k, v in model.state_dict().items()
           if k.endswith(("running_mean", "running_var"))}
     del model, inputs
@@ -3308,7 +3415,9 @@ def gloo_phase(tmp, device):
             "launches": one["launches"] + sum(r["launches"] for r in ranks),
             "backward_launches": (one["backward_launches"]
                                   + sum(r["backward_launches"] for r in ranks)),
-            "tiles": [one["tiles"][i] + sum(r["tiles"][i] for r in ranks) for i in range(2)]}
+            "tiles": [one["tiles"][i] + sum(r["tiles"][i] for r in ranks) for i in range(2)],
+            "backward_tiles": [one["backward_tiles"][i] + sum(r["backward_tiles"][i] for r in ranks)
+                               for i in range(2)]}
 
 
 def r152_phase(device):
@@ -3400,6 +3509,8 @@ def r152_phase(device):
                                         d.pop("locs"), device))
     out["phase_seconds"] = time.perf_counter() - start
     log(f"  [14] took {out['phase_seconds']:.1f} s")
+    for r in runs + [c]:
+        main_path_backward(r["backward_tiles"])
     return dict(launches=sum(r["launches"] for r in runs) + c["launches"],
                 backward_launches=(sum(r["backward_launches"] for r in runs)
                                    + c["backward_launches"]),
@@ -3502,6 +3613,8 @@ def a11d_numbers(run) -> dict:
     out = {"seconds": run["wall"], "launches": run["launches"],
            "backward_launches": run["backward_launches"],
            "tiles": {"tile_path": run["tiles"][0], "per_query_path": run["tiles"][1]},
+           "backward_tiles": {"tile_path": run["backward_tiles"][0],
+                              "per_query_path": run["backward_tiles"][1]},
            "error": run["error"], "results": run["results"]}
     st = run["steps"]
     if st is None:
@@ -3536,8 +3649,9 @@ def a11d_line(n) -> str:
                          f"{n['params']} parameters; ~{n['step_tflops_per_s']:.2f} TFLOP/s in "
                          f"the step (3x the forward's FLOPs)")
     parts.append(f"forward kernel launches {n['launches']}, backward "
-                 f"{n['backward_launches']}; tiles on the tile path / per-query path "
-                 f"{n['tiles']['tile_path']} / {n['tiles']['per_query_path']}")
+                 f"{n['backward_launches']}; tiles on the tile path / per-query path: forward "
+                 f"{n['tiles']['tile_path']} / {n['tiles']['per_query_path']}, backward "
+                 f"{n['backward_tiles']['tile_path']} / {n['backward_tiles']['per_query_path']}")
     if n["error"]:
         parts.append(f"raised, as in the JAX package: {n['error'][:160]}")
     else:
@@ -3741,6 +3855,8 @@ def a11d_phase(device):
             f"of the logged values (printed to 4 decimals)")
     out["phase_seconds"] = time.perf_counter() - start
     log(f"  [15] took {out['phase_seconds']:.1f} s")
+    for r in runs:
+        main_path_backward(r["backward_tiles"])
     return dict(launches=sum(r["launches"] for r in runs),
                 backward_launches=sum(r["backward_launches"] for r in runs),
                 tiles=[sum(r["tiles"][i] for r in runs) for i in range(2)], numbers=out,
@@ -4190,6 +4306,10 @@ def main() -> int:
         f"graft_entry.entry(), {card}")
     vis = vis_phase(cfg, device)
     extra = [prior, fusion, lifting["multiview_img_lifting_rot"], h36m, r152, a11d, vis]
+    backward_tiles = BACKWARD_MAIN_PATH_TILES
+    if not backward_tiles[0] > backward_tiles[1]:
+        raise AssertionError(f"the main path's backward tiles on the tile path / per-query path "
+                             f"{backward_tiles[0]} / {backward_tiles[1]}")
 
     log(json.dumps({"kernels": [{
         "name": "epipolar_attention", "route": "cuda",
@@ -4213,7 +4333,8 @@ def main() -> int:
         "launches": (backward_launches + hg["backward_launches"] + recipe_backward
                      + sum(e["backward_launches"] for e in extra)),
         "max_abs_err": bwd_err, "ms": kbw_ms, "plain_ms": pbw_ms, "bound_ms": bwd_bound[0],
-        "bound_by": bwd_bound[1], "library_ms": None,
+        "bound_by": bwd_bound[1], "library_ms": None, "main_path_tiles": {
+            "tile_path": backward_tiles[0], "per_query_path": backward_tiles[1]},
         "hourglass_shape": hg["backward_entry"], "r152_shapes": r152["backward_entries"],
         "a11d_shapes": a11d["backward_entries"],
         "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],

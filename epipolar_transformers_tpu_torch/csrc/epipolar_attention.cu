@@ -52,7 +52,8 @@
 //              | g_k p_k            (priormul, softmax on)
 //              | 0                  (priormul, softmax off: the prior is unused)
 //              | g_k                (similarity 'prior')
-//   Each (q, k) belongs to one lane of pass A, which writes it: no atomics.
+//   Each (q, k) belongs to one lane, of the tile kernel or of pass A, which
+//   writes it: no atomics.
 //
 // It recomputes the slot data and the similarities with the forward's rules
 // instead of reading the forward's weights: the zero-sentinel mask and,
@@ -110,22 +111,57 @@
 // The key and value gradients are the transpose of the queries' gathers: a
 // scatter of 2 x 2.1 G adds into corner rows that neighbouring queries
 // share.  Done with float atomics it cost ~10 of 12 ms at the flagship shape
-// on an H100 and summed in a run-dependent order.  Here it is a gather in
-// three passes, with no float atomics and a fixed summation order:
+// on an H100 and summed in a run-dependent order.  The backward runs the
+// forward's grouping and tiles instead, and gathers what the tiles leave,
+// with no float atomics and a fixed summation order:
 //
-//   A (query_backward_kernel): one warp per query, as the forward: the sims,
-//     g, w, ds, and dfeat1 in registers; writes ds and w (B, HW, K).
+//   group_kernel, as the forward: each item's queries in line order.  The
+//     backward recomputes it (~0.03 ms at the flagship) rather than keep
+//     the forward's order, so that EpipolarAttentionFn keeps its inputs
+//     only.
+//   tile_backward_kernel: one CTA of 16 warps per tile of kTileQ queries of
+//     that order.
+//     (a) the union of the tile's live corner rows, as the forward forms it;
+//     (b) Gd_t = dOut_t V_U^T and each query's g from its live-corner
+//     slots; (c) G_t = F1_t K_U^T; (d) one warp per query: the sims from
+//     G_t, then w, ds and dprior by pass A's rules (logit_grads), and
+//     D_t[q, slot] = sum_{k,c} ds_k w_c in place of G_t's row, in the fixed
+//     order the forward forms N_t in; (e) dfeat1 = D_t K_U, each query's row
+//     written once; (f) the keys' partial D_t^T F1_t; (g) N_t[q, slot] =
+//     sum_{k,c} w_k w_c in place of D_t and the values' partial N_t^T
+//     dOut_t, added to the keys' by the thread that wrote them when keys and
+//     values are one tensor.  Five products of 2 C kTileQ U flops a tile,
+//     each key row loaded once a product.  Every product runs on CUDA cores
+//     in f32: f32 differs from the plain version only in summation order
+//     (no TF32); bf16 rows are converted to f32 as they are staged, so its
+//     products are exact and dout, D and N are never rounded (tensor cores
+//     would round dout, D and N to bf16).  f32 key rows are staged with
+//     cp.async (two stages of kBwdCW features for the Gram products, of
+//     kBwdKeyRows rows for dfeat1), bf16 through registers.  The union cap
+//     is the backward's own, kBwdUnion = 320 rows (the caller may lower it
+//     per launch): G_t, D_t and N_t take 64 x 324 floats, and shared memory
+//     (BwdShape, ~168 KB at K=64, C=256) holds one CTA on an SM; every tile
+//     of the 64x64 rig (max union 224) and of the 96x96 rig (max 297, where
+//     the forward's 256 holds 19%) fits.  A tile above the cap, or of an
+//     item without lines, is left to the passes below, counted by tiles.
+//     The partials go to scratch at the tile's place, kBwdUnion rows a
+//     tile (a tile writes its U), with the union's bitmap and prefix.
+//   A (query_backward_kernel): one warp per query the tile kernel left, as
+//     the forward's per-query kernel: the sims, g, w, ds, and dfeat1 in
+//     registers; writes ds and w (B, HW, K).
 //   B (tile_histogram_kernel, tile_scan_kernel, row_offset_kernel,
-//     fill_kernel): a CSR map from each key row r to its entries (q, k, c),
-//     kept only where w_c != 0 (a zero-weight corner may lie off the image).
-//     Queries are cut into tiles of kTile; the entries of each (tile, row)
-//     are counted in shared memory, scanned over tiles and then over rows,
-//     and one warp per tile fills its entries in query order, ranking equal
-//     rows within a warp step with __match_any_sync.  The order of a row's
-//     entries is therefore fixed: by tile, query, and step within the query.
-//     Each entry is one int, (q, k, c) packed: 34 MB at the flagship shape,
-//     which fits L2 (three 4-byte arrays, 100 MB, made the fill ~6x slower
-//     on an H100).
+//     fill_kernel): a CSR map from each key row r to the entries (q, k, c)
+//     of the queries pass A took, kept only where w_c != 0 (a zero-weight
+//     corner may lie off the image).  Queries are cut into tiles of kTile;
+//     a tile with no such query is skipped by all three; the entries of
+//     each other (tile, row) are counted in shared memory, scanned over
+//     tiles and then over rows, and one warp per tile fills its entries in
+//     query order, ranking equal rows within a warp step with
+//     __match_any_sync.  The order of a row's entries is therefore fixed:
+//     by tile, query, and step within the query.  Each entry is one int,
+//     (q, k, c) packed: 34 MB at the flagship shape when every query is
+//     left, which fits L2 (three 4-byte arrays, 100 MB, made the fill ~6x
+//     slower on an H100).
 //   C (row_gather_kernel, row_fixup_kernel): one warp per chunk of kChunk
 //     entries, so a row near an epipole that collects entries from most
 //     queries is spread over many warps.  Each lane decodes one entry and
@@ -138,18 +174,26 @@
 //     inside its chunk once.
 //     A row that crosses chunks leaves one partial sum per chunk (at most two
 //     per chunk, its first and its last row); a warp per such row adds them
-//     in chunk order.  Empty rows are written as zeros there too, so no
-//     output is filled beforehand.  When the keys and the values are one
-//     tensor, dother1 + dother2 is summed into one buffer.
+//     in chunk order.  Without the tile schedule empty rows are written as
+//     zeros there too, so no output is filled beforehand.  When the keys and
+//     the values are one tensor, dother1 + dother2 is summed into one buffer.
+//   tile_reduce_kernel: one warp per key row: the partials of the tiles
+//     whose union holds it (found from their bitmaps), in tile order, then
+//     pass C's sum added; an empty row is written here.
 //
 // At the flagship shape on an H100 (f32, keys = values, the synthetic rig's
-// locations) the backward takes ~2.95 ms: A ~1.65, B ~0.28, C ~0.99 ms,
-// against a bound of ~0.16 ms; ~0.02 ms more with the prior's gradient.
+// locations) the three-pass backward took ~2.95 ms (A ~1.65, B ~0.28, C
+// ~0.99 ms) against a bound of ~0.16 ms; PERF.md has the tile schedule's
+// times.  Items whose samples are random (edge-crossing) take passes A-C
+// as before, and the grouping, the empty tile kernel and the reduction
+// cost ~0.08 ms more there.
 //
-// Two runs on the same inputs give bit-equal gradients.
+// Two runs on the same inputs give bit-equal gradients: the grouping is
+// stable, each tile sums in a fixed order, which path takes a tile depends
+// only on the data, and the reduction adds in tile order.
 //
-// Scratch (the forward's query order and flags; the backward's counts, CSR,
-// entries, partials) comes from the caller, sized by
+// Scratch (the query order and flags of both; the backward's tile partials,
+// counts, CSR, entries, partials) comes from the caller, sized by
 // epipolar_attention_forward_scratch_bytes and
 // epipolar_attention_backward_scratch_bytes.
 //
@@ -295,6 +339,9 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// 128 bytes: with one more pointer here (136) the per-query forward kernel
+// ran ~6% slower on an H100 (1.4497 against 1.3672 ms at edge-crossing
+// locations), so flags a kernel alone needs are passed beside it.
 struct Params {
   const void* f1;      // (B, HW, C) queries
   const void* f2k;     // (B, HW, C) keys
@@ -326,7 +373,10 @@ struct Schedule {
 // The transpose of the backward: the CSR map from key rows to entries, and
 // the key/value gradients it produces.  Rows are numbered g = b * HW + r.
 struct Transpose {
+  const unsigned char* done;  // (B, HW) 1 where the tile path took the query, or null
   int tiles;        // query tiles per item
+  int* tile_live;   // (B, tiles) 1 where the tile holds a query the tile path
+                    // left; the others' tile_rows are neither written nor read
   int* tile_rows;   // (B, tiles, HW): entries of (tile, row), then their
                     // exclusive prefix over the item's tiles
   int* row_ptr;     // (B * HW + 1) entry offsets of the rows
@@ -336,6 +386,7 @@ struct Transpose {
   float* part2;     // (chunks, 2, C) partial row sums of dother2, or null
   float* d1;        // (B * HW, C) dother1 (dother1 + dother2 when fused)
   float* d2;        // (B * HW, C) dother2, or null
+  int reduced;      // the row reduction follows and writes the empty rows
 };
 
 // Slot data of sample k of query q: the base corner and the per-axis weights.
@@ -743,6 +794,108 @@ __device__ __forceinline__ int union_slot(const unsigned* bits, const int* prefi
   return prefix[w] + __popc(bits[w] & ((1u << (row & 31)) - 1u));
 }
 
+// (a) of both tile kernels: the tile's queries (qidx) from the grouping's
+// order, and the union of their live corner rows, as a bitmap over the
+// item's key rows with the exclusive prefix of its words' populations.
+// Returns the union's size on every thread of the CTA (kThreads of them).
+template <int kThreads>
+__device__ __forceinline__ int tile_union(const Params& p, const Schedule& sch, int b, int tile,
+                                          int* qidx, unsigned* bits, int* prefix, int* nunion) {
+  const int HW = p.H * p.W, HWW = (HW + 31) / 32, K = p.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nq = min(kTileQ, HW - tile * kTileQ);
+  if (tid < nq) qidx[tid] = sch.perm[(size_t)b * HW + tile * kTileQ + tid];
+  for (int i = tid; i < HWW; i += kThreads) bits[i] = 0u;
+  __syncthreads();
+  for (int e = tid; e < kTileQ * K; e += kThreads) {
+    const int r = e % kTileQ, k = e / kTileQ;
+    if (r >= nq) continue;
+    const SampleCorners s = sample_corners(p, b, qidx[r], k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (s.wc[c] != 0.f) atomicOr(&bits[s.row[c] >> 5], 1u << (s.row[c] & 31));
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive prefix of the words' populations
+    const int per = (HWW + 31) / 32;
+    const int w0 = min(lane * per, HWW), w1 = min(w0 + per, HWW);
+    int sum = 0;
+    for (int i = w0; i < w1; ++i) sum += __popc(bits[i]);
+    const int incl = warp_inclusive_scan(sum, lane);
+    int run = incl - sum;
+    for (int i = w0; i < w1; ++i) {
+      prefix[i] = run;
+      run += __popc(bits[i]);
+    }
+    if (lane == 31) *nunion = incl;
+  }
+  __syncthreads();
+  return *nunion;
+}
+
+// The union's rows of bitmap word i, in row order, at their slots.
+__device__ __forceinline__ void compact_word(const unsigned* bits, const int* prefix, int* rows,
+                                             int i) {
+  int s = prefix[i];
+  for (unsigned m = bits[i]; m != 0u; m &= m - 1u) rows[s++] = i * 32 + __ffs(m) - 1;
+}
+
+// sum_c w_c row[slot(corner_c)] of a lane's sample group j, over its live
+// corners only (a sample without one stays exactly 0): a tile's similarity
+// (row = G's) or g (row = Gd's).
+__device__ __forceinline__ float corner_sum(const float* row, const Slots& sl, int j,
+                                            const unsigned* bits, const int* prefix, int W) {
+  const float c00 = sl.wy0[j] * sl.wx0[j], c01 = sl.wy0[j] * sl.wx1[j];
+  const float c10 = sl.wy1[j] * sl.wx0[j], c11 = sl.wy1[j] * sl.wx1[j];
+  const int r0 = sl.base[j];
+  float acc = 0.f;
+  if (c00 != 0.f) acc += c00 * row[union_slot(bits, prefix, r0)];
+  if (c01 != 0.f) acc += c01 * row[union_slot(bits, prefix, r0 + 1)];
+  if (c10 != 0.f) acc += c10 * row[union_slot(bits, prefix, r0 + W)];
+  if (c11 != 0.f) acc += c11 * row[union_slot(bits, prefix, r0 + W + 1)];
+  return acc;
+}
+
+// row[slot] = sum over the query's live corners (k, c) at that slot of
+// coef_k w_c, after zeroing the row's first upad entries; in a fixed order
+// (sample group, corner, lane: equal slots within a step are ranked with
+// __match_any_sync and added by their first lane): a tile's N (coef = w)
+// or D (coef = ds).
+__device__ __forceinline__ void scatter_row(float* row, const Slots& sl,
+                                            const float (&coef)[kMaxSlotsPerLane],
+                                            const unsigned* bits, const int* prefix, int upad,
+                                            int W, int K, int lane, float* sc) {
+  const unsigned lower = (1u << lane) - 1u;
+  __syncwarp();
+  for (int u = lane; u < upad; u += 32) row[u] = 0.f;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+    if (32 * j >= K) break;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float wc = ((c & 2) ? sl.wy1[j] : sl.wy0[j]) * ((c & 1) ? sl.wx1[j] : sl.wx0[j]);
+      const bool live = lane + 32 * j < K && wc != 0.f;
+      const unsigned mask = __ballot_sync(kFull, live);
+      if (mask == 0u) continue;  // uniform across the warp
+      unsigned peers = 0u;
+      int slot = 0;
+      if (live) {
+        slot = union_slot(bits, prefix, sl.base[j] + ((c & 2) ? W : 0) + (c & 1));
+        peers = __match_any_sync(mask, slot);
+      }
+      sc[lane] = coef[j] * wc;
+      __syncwarp();
+      if (live && (peers & lower) == 0u) {
+        float sum = row[slot];
+        for (unsigned m = peers; m != 0u; m &= m - 1u) sum += sc[__ffs(m) - 1];
+        row[slot] = sum;
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // Shared memory of the tile kernel, in 4-byte words.  The big region holds
 // either the two stages of the Gram product (the tile's query rows and the
 // union's key rows, CW words of each per stage), or G (then N, in place)
@@ -1002,43 +1155,14 @@ tile_forward_kernel(const Params p, const Schedule sch) {
   int* nunion = reinterpret_cast<int*>(scratch + kTileThreads);
 
   // (a)
-  if (tid < nq) qidx[tid] = sch.perm[item + tile * kTileQ + tid];
-  for (int i = tid; i < HWW; i += kTileThreads) bits[i] = 0u;
-  __syncthreads();
-  for (int e = tid; e < kTileQ * K; e += kTileThreads) {
-    const int r = e % kTileQ, k = e / kTileQ;
-    if (r >= nq) continue;
-    const SampleCorners s = sample_corners(p, b, qidx[r], k);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (s.wc[c] != 0.f) atomicOr(&bits[s.row[c] >> 5], 1u << (s.row[c] & 31));
-  }
-  __syncthreads();
-  if (warp == 0) {  // exclusive prefix of the words' populations
-    const int per = (HWW + 31) / 32;
-    const int w0 = min(lane * per, HWW), w1 = min(w0 + per, HWW);
-    int sum = 0;
-    for (int i = w0; i < w1; ++i) sum += __popc(bits[i]);
-    const int incl = warp_inclusive_scan(sum, lane);
-    int run = incl - sum;
-    for (int i = w0; i < w1; ++i) {
-      prefix[i] = run;
-      run += __popc(bits[i]);
-    }
-    if (lane == 31) *nunion = incl;
-  }
-  __syncthreads();
-  const int U = *nunion;
+  const int U = tile_union<kTileThreads>(p, sch, b, tile, qidx, bits, prefix, nunion);
   if (U > kMaxUnion) {  // uniform across the block
     if (tid == 0) atomicAdd(&sch.tile_counts[1], 1);
     return;
   }
   if (tid == 0) atomicAdd(&sch.tile_counts[0], 1);
   if (tid < nq) sch.done[item + qidx[tid]] = 1;
-  for (int i = tid; i < HWW; i += kTileThreads) {
-    int s = prefix[i];
-    for (unsigned m = bits[i]; m != 0u; m &= m - 1u) rows[s++] = i * 32 + __ffs(m) - 1;
-  }
+  for (int i = tid; i < HWW; i += kTileThreads) compact_word(bits, prefix, rows, i);
   __syncthreads();
 
   const unsigned* f1w = static_cast<const unsigned*>(p.f1);
@@ -1096,7 +1220,6 @@ tile_forward_kernel(const Params p, const Schedule sch) {
 
   // (d)
   float* sc = scratch + warp * 32;
-  const unsigned lower = (1u << lane) - 1u;
   const int first = warp * kRowsPerWarp;
   Slots next;  // the next query's slot data loads while this one's is used
   if (first < nq) load_slots(p, b, qidx[first], lane, next);
@@ -1109,19 +1232,9 @@ tile_forward_kernel(const Params p, const Schedule sch) {
     if (i + 1 < kRowsPerWarp && r + 1 < nq) load_slots(p, b, qidx[r + 1], lane, next);
     float w[kMaxSlotsPerLane];
     if (p.use_sim) {
-      float s[kMaxSlotsPerLane];
+      float s[kMaxSlotsPerLane];  // the weights of k >= K are all 0
 #pragma unroll
-      for (int j = 0; j < kMaxSlotsPerLane; ++j) {
-        const float c00 = sl.wy0[j] * sl.wx0[j], c01 = sl.wy0[j] * sl.wx1[j];
-        const float c10 = sl.wy1[j] * sl.wx0[j], c11 = sl.wy1[j] * sl.wx1[j];
-        const int r0 = sl.base[j];
-        float acc = 0.f;  // only live corners: a sample without one stays exactly 0
-        if (c00 != 0.f) acc += c00 * g[union_slot(bits, prefix, r0)];
-        if (c01 != 0.f) acc += c01 * g[union_slot(bits, prefix, r0 + 1)];
-        if (c10 != 0.f) acc += c10 * g[union_slot(bits, prefix, r0 + W)];
-        if (c11 != 0.f) acc += c11 * g[union_slot(bits, prefix, r0 + W + 1)];
-        s[j] = acc;  // the weights of k >= K are all 0
-      }
+      for (int j = 0; j < kMaxSlotsPerLane; ++j) s[j] = corner_sum(g, sl, j, bits, prefix, W);
       float prob[kMaxSlotsPerLane];
       attention_weights(p, sl, lane, s, prob, w);
     } else {
@@ -1133,34 +1246,7 @@ tile_forward_kernel(const Params p, const Schedule sch) {
       const int k = lane + 32 * j;
       if (k < K) p.depth[((size_t)b * K + k) * HW + q] = w[j];
     }
-    __syncwarp();
-    for (int u = lane; u < upad; u += 32) g[u] = 0.f;
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kMaxSlotsPerLane; ++j) {
-      if (32 * j >= K) break;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float wc = ((c & 2) ? sl.wy1[j] : sl.wy0[j]) * ((c & 1) ? sl.wx1[j] : sl.wx0[j]);
-        const bool live = lane + 32 * j < K && wc != 0.f;
-        const unsigned mask = __ballot_sync(kFull, live);
-        if (mask == 0u) continue;  // uniform across the warp
-        unsigned peers = 0u;
-        int slot = 0;
-        if (live) {
-          slot = union_slot(bits, prefix, sl.base[j] + ((c & 2) ? W : 0) + (c & 1));
-          peers = __match_any_sync(mask, slot);
-        }
-        sc[lane] = w[j] * wc;
-        __syncwarp();
-        if (live && (peers & lower) == 0u) {
-          float sum = g[slot];
-          for (unsigned m = peers; m != 0u; m &= m - 1u) sum += sc[__ffs(m) - 1];
-          g[slot] = sum;
-        }
-        __syncwarp();
-      }
-    }
+    scatter_row(g, sl, w, bits, prefix, upad, W, K, lane, sc);
   }
 
   // (e)
@@ -1172,51 +1258,16 @@ tile_forward_kernel(const Params p, const Schedule sch) {
 
 // ---- backward pass A: per query ------------------------------------------
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-query_backward_kernel(const Params p) {
-  const int lane = threadIdx.x & 31;
-  const int HW = p.H * p.W;
-  const long long gq =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (gq >= (long long)p.B * HW) return;  // uniform across the warp
-  const int b = (int)(gq / HW);
-  const int q = (int)(gq - (long long)b * HW);
-  const int C = 32 * NV;
+// The weights w, the logit gradients ds and (dprior) the prior's gradient
+// of query q from its similarities s and its g = dL/dw, by the header's
+// formulas; each lane holds the samples k = lane + 32 i.
+__device__ __forceinline__ void logit_grads(const Params& p, const Slots& sl, int lane, int b,
+                                            int q, const float (&s)[kMaxSlotsPerLane],
+                                            const float (&g)[kMaxSlotsPerLane],
+                                            float (&w)[kMaxSlotsPerLane],
+                                            float (&ds)[kMaxSlotsPerLane]) {
   const int K = p.K;
-  const int W = p.W;
-
-  Slots sl;
-  load_slots(p, b, q, lane, sl);
-
-  const size_t item = (size_t)b * HW;
-  const size_t row = (item + q) * C + lane * NV;
-  const T* f2k = static_cast<const T*>(p.f2k) + item * C + lane * NV;
-  const T* f2v = static_cast<const T*>(p.f2v) + item * C + lane * NV;
-  float dv[NV];
-  load_row<NV>(p.dout + row, dv);
-  float qv[NV];
-#pragma unroll
-  for (int t = 0; t < NV; ++t) qv[t] = 0.f;
-  if (p.use_sim) load_row<NV>(static_cast<const T*>(p.f1) + row, qv);
-
-  // first sweep: the similarities (as the forward computes them) and g
-  float s[kMaxSlotsPerLane], g[kMaxSlotsPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxSlotsPerLane; ++i) s[i] = g[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxSlotsPerLane; ++i) {
-    if (32 * i >= K) break;
-    for (int j = 0; j < 32 && 32 * i + j < K; ++j) {
-      const Corners c = broadcast_corners(sl, i, j);
-      const float sv = p.use_sim ? corner_dot<T, NV>(f2k, c, W, qv) : 0.f;
-      const float gv = corner_dot<T, NV>(f2v, c, W, dv);
-      if (lane == j) { s[i] = sv; g[i] = gv; }
-    }
-  }
-
-  // the weights and the logit gradient ds
-  float w[kMaxSlotsPerLane], ds[kMaxSlotsPerLane], prob[kMaxSlotsPerLane];
+  float prob[kMaxSlotsPerLane];
   if (p.use_sim) {
     attention_weights(p, sl, lane, s, prob, w);
     // g' rounded once (no fma contraction), so that a one-hot softmax
@@ -1254,9 +1305,59 @@ query_backward_kernel(const Params p) {
       if (!p.use_sim) dp = g[i];
       else if (p.priormul) dp = p.softmax ? g[i] * prob[i] : 0.f;
       else dp = p.softmax ? ds[i] : g[i] / (float)K;
-      p.dprior[((size_t)b * K + k) * HW + q] = dp;
+      p.dprior[((size_t)b * K + k) * p.H * p.W + q] = dp;
     }
   }
+}
+
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+query_backward_kernel(const Params p, const unsigned char* done) {
+  const int lane = threadIdx.x & 31;
+  const int HW = p.H * p.W;
+  const long long gq =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (gq >= (long long)p.B * HW) return;  // uniform across the warp
+  if (done != nullptr && done[gq]) return;  // the tile path wrote it
+  const int b = (int)(gq / HW);
+  const int q = (int)(gq - (long long)b * HW);
+  const int C = 32 * NV;
+  const int K = p.K;
+  const int W = p.W;
+
+  Slots sl;
+  load_slots(p, b, q, lane, sl);
+
+  const size_t item = (size_t)b * HW;
+  const size_t row = (item + q) * C + lane * NV;
+  const T* f2k = static_cast<const T*>(p.f2k) + item * C + lane * NV;
+  const T* f2v = static_cast<const T*>(p.f2v) + item * C + lane * NV;
+  float dv[NV];
+  load_row<NV>(p.dout + row, dv);
+  float qv[NV];
+#pragma unroll
+  for (int t = 0; t < NV; ++t) qv[t] = 0.f;
+  if (p.use_sim) load_row<NV>(static_cast<const T*>(p.f1) + row, qv);
+
+  // first sweep: the similarities (as the forward computes them) and g
+  float s[kMaxSlotsPerLane], g[kMaxSlotsPerLane];
+#pragma unroll
+  for (int i = 0; i < kMaxSlotsPerLane; ++i) s[i] = g[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxSlotsPerLane; ++i) {
+    if (32 * i >= K) break;
+    for (int j = 0; j < 32 && 32 * i + j < K; ++j) {
+      const Corners c = broadcast_corners(sl, i, j);
+      const float sv = p.use_sim ? corner_dot<T, NV>(f2k, c, W, qv) : 0.f;
+      const float gv = corner_dot<T, NV>(f2v, c, W, dv);
+      if (lane == j) { s[i] = sv; g[i] = gv; }
+    }
+  }
+
+  // the weights, the logit gradient ds and the prior's gradient
+  float w[kMaxSlotsPerLane], ds[kMaxSlotsPerLane];
+  logit_grads(p, sl, lane, b, q, s, g, w, ds);
 
   // the coefficients of the key/value gradients, for pass B
   if (p.ds != nullptr) {
@@ -1300,10 +1401,16 @@ tile_histogram_kernel(const Params p, const Transpose t) {
   const int HW = p.H * p.W;
   const int tile = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q1 = min((tile + 1) * kTile, HW);
+  const int mine = tile * kTile + threadIdx.x;
+  const int live =
+      __syncthreads_or(mine < q1 && (t.done == nullptr || !t.done[(size_t)b * HW + mine]));
+  if (threadIdx.x == 0) t.tile_live[b * t.tiles + tile] = live;
+  if (!live) return;  // uniform: the tile path took all its queries
   for (int r = threadIdx.x; r < HW; r += blockDim.x) count[r] = 0;
   __syncthreads();
-  const int q1 = min((tile + 1) * kTile, HW);
   for (int q = tile * kTile + warp; q < q1; q += kWarpsPerBlock) {
+    if (t.done != nullptr && t.done[(size_t)b * HW + q]) continue;  // the tile path's
     for (int k = lane; k < p.K; k += 32) {
       const SampleCorners s = sample_corners(p, b, q, k);
 #pragma unroll
@@ -1330,7 +1437,9 @@ tile_scan_kernel(int B, int HW, const Transpose t) {
     const int b = (int)(g / HW);
     const int r = (int)(g - (long long)b * HW);
     int* col = t.tile_rows + (size_t)b * t.tiles * HW + r;
+    const int* live = t.tile_live + (size_t)b * t.tiles;
     for (int tile = 0; tile < t.tiles; ++tile) {
+      if (!live[tile]) continue;  // no entries
       const int c = col[(size_t)tile * HW];
       col[(size_t)tile * HW] = run;
       run += c;
@@ -1380,6 +1489,7 @@ __global__ void __launch_bounds__(32) fill_kernel(const Params p, const Transpos
   extern __shared__ int cursor[];  // HW
   const int HW = p.H * p.W;
   const int tile = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  if (!t.tile_live[b * t.tiles + tile]) return;  // no entries
   const int* before = t.tile_rows + ((size_t)b * t.tiles + tile) * HW;
   const int* row_ptr = t.row_ptr + (size_t)b * HW;
   for (int r = lane; r < HW; r += 32) cursor[r] = row_ptr[r] + before[r];
@@ -1391,9 +1501,10 @@ __global__ void __launch_bounds__(32) fill_kernel(const Params p, const Transpos
   for (int q = q0; q < q1; ++q) {
     if (q + 1 < q1) load_lane_samples(p, b, q + 1, lane, next);
     const int gq = b * HW + q;
+    const bool left = t.done == nullptr || !t.done[gq];  // not the tile path's
 #pragma unroll
     for (int i = 0; i < kMaxSlotsPerLane; ++i) {
-      if (32 * i >= p.K) break;
+      if (!left || 32 * i >= p.K) break;  // uniform across the warp
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int r = cur[i].row[c];
@@ -1581,8 +1692,514 @@ row_fixup_kernel(int rows, const Transpose t) {
   if (g >= rows) return;
   const int rs = t.row_ptr[g], re = t.row_ptr[g + 1];
   if (re > rs && rs / kChunk == (re - 1) / kChunk) return;  // inside one chunk
+  if (re == rs && t.reduced) return;  // empty: the row reduction writes it
   if (t.d1 != nullptr) fixup_row<NV>(t.part1, t.d1, (int)g, rs, re, lane);
   if (t.d2 != nullptr) fixup_row<NV>(t.part2, t.d2, (int)g, rs, re, lane);
+}
+
+// ---- backward, tile path: one CTA per tile of kTileQ queries --------------
+
+constexpr int kBwdUnion = 320;         // key rows a backward tile may stage
+constexpr int kBwdGS = kBwdUnion + 4;  // row stride of G, D and N (16-byte rows)
+constexpr int kBwdCW = 16;             // features a row per stage of a Gram product
+constexpr int kBwdKeyRows = 16;        // key rows per stage of dfeat1 = D K_U
+// 16 warps: with one CTA on an SM, the per-query steps (d), (g) are
+// latency-bound, and twice the forward's 8 warps took ~11% off the tile
+// kernel at the flagship on an H100 (1.0815-1.0886 ms against
+// 1.2237-1.2241 for the whole backward, one call in turns)
+constexpr int kBwdThreads = 512;
+constexpr int kBwdRows = kTileQ / (kBwdThreads / 32);  // queries a warp owns: 4
+
+// Shared memory of the backward tile kernel, in floats.  The big region
+// holds the two stages of a Gram product (the tile's query-side rows and
+// the union's key rows, kBwdCW features each, QKS floats a row); or the
+// tile's matrix M (G, then D, then N; kTileQ x kBwdGS) and after it either
+// two stages of kBwdKeyRows key rows or the tile's F1 or dOut rows.
+// Everything in shared memory is f32: bf16 rows are converted as they are
+// staged.  Then the per-sample g, later w (kTileQ x K), the union's bitmap,
+// prefix and rows, the queries and the scratch of the row scatter.
+template <int NV>
+struct BwdShape {
+  static constexpr int C = 32 * NV;
+  static constexpr int QKS = kBwdCW + 1;  // odd: a column of 32 rows hits 32 banks
+  static constexpr int kStage = (kTileQ + kBwdUnion) * QKS;
+  static constexpr int kMat = kTileQ * kBwdGS;
+  static constexpr int kKeys = 2 * kBwdKeyRows * C;
+  static constexpr int kRows = kTileQ * C;
+  static constexpr int kAfter = kKeys > kRows ? kKeys : kRows;
+  static constexpr int kBig = 2 * kStage > kMat + kAfter ? 2 * kStage : kMat + kAfter;
+  static size_t bytes(int HW, int K) {
+    const int HWW = (HW + 31) / 32;
+    return (size_t)(kBig + kTileQ * K + 2 * HWW + kBwdUnion + kTileQ + kBwdThreads + 4) * 4;
+  }
+};
+
+// The tile path's share of the key/value gradients, in the caller's scratch.
+struct TileGrads {
+  int tiles;       // tiles per item
+  unsigned* bits;  // (B, tiles, HWW) each tile's union bitmap, 0 off the tile path
+  int* prefix;     // (B, tiles, HWW) the exclusive prefix of its words' populations
+  float* part1;    // (B, tiles, kBwdUnion, C) D^T F1 (+ N^T dOut when fused), or null
+  float* part2;    // (B, tiles, kBwdUnion, C) N^T dOut, or null
+  int fused;       // keys and values one tensor: part1 holds both partials
+  int max_union;   // union rows a tile may hold, at most kBwdUnion
+  const int* item_lines;  // (B) the schedule's: 0 where no tile took the tile path
+};
+
+// Four features of a global row into shared floats: f32 by cp.async, bf16
+// through registers.  The aligned forms need a 16-byte destination.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cp_async4(dst + i, src + i);
+}
+
+__device__ __forceinline__ float4 bf16x4(const __nv_bfloat16* src) {
+  const uint2 t = *reinterpret_cast<const uint2*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src) {
+  const float4 v = bf16x4(src);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+
+__device__ __forceinline__ void copy4_aligned(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+
+__device__ __forceinline__ void copy4_aligned(float* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<float4*>(dst) = bf16x4(src);
+}
+
+// One stage of a Gram product: features [kBwdCW chunk, + kBwdCW) of the
+// tile's query-side rows `a` (stage rows 0..nq) and of the union's key rows
+// `kv` (stage rows kTileQ + u), both from the item's base.
+template <int NV, typename TA, typename TB>
+struct GramStage {
+  const TA* a;
+  const TB* kv;
+  const int* qidx;
+  const int* rows;
+  int nq, U, tid;
+  float* big;
+  __device__ __forceinline__ void operator()(int chunk, int buf) const {
+    constexpr int C = 32 * NV, QKS = BwdShape<NV>::QKS, kUnits = kBwdCW / 4;
+    float* dst = big + buf * BwdShape<NV>::kStage;
+    for (int e = tid; e < (kTileQ + U) * kUnits; e += kBwdThreads) {
+      const int r = e / kUnits, f = 4 * (e - r * kUnits), col = chunk * kBwdCW + f;
+      if (r < kTileQ) {
+        if (r < nq) copy4(dst + r * QKS + f, a + (size_t)qidx[r] * C + col);
+      } else {
+        copy4(dst + r * QKS + f, kv + (size_t)rows[r - kTileQ] * C + col);
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+// One stage of dfeat1 = D K_U: kBwdKeyRows union rows of the keys, zeros
+// past the union.
+template <int NV, typename T>
+struct KeyStage {
+  const T* keys;
+  const int* rows;
+  int U, tid;
+  float* dst;
+  __device__ __forceinline__ void operator()(int chunk, int buf) const {
+    constexpr int C = 32 * NV, kUnits = C / 4;
+    float* d = dst + buf * kBwdKeyRows * C;
+    for (int e = tid; e < kBwdKeyRows * kUnits; e += kBwdThreads) {
+      const int r = e / kUnits, f = 4 * (e - r * kUnits), u = chunk * kBwdKeyRows + r;
+      if (u < U)
+        copy4_aligned(d + r * C + f, keys + (size_t)rows[u] * C + f);
+      else
+        *reinterpret_cast<float4*>(d + r * C + f) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    cp_async_commit();
+  }
+};
+
+// The tile's rows of `src` (F1 or dOut), nq of them, C floats a row.
+template <int NV, typename TS>
+__device__ __forceinline__ void stage_tile_rows(float* dst, const TS* src, const int* qidx,
+                                                int nq, int tid) {
+  constexpr int C = 32 * NV, kUnits = C / 4;
+  for (int e = tid; e < nq * kUnits; e += kBwdThreads) {
+    const int r = e / kUnits, f = 4 * (e - r * kUnits);
+    copy4_aligned(dst + r * C + f, src + (size_t)qidx[r] * C + f);
+  }
+  cp_async_commit();
+}
+
+// M = A_tile B_union^T (kTileQ x 32 NG, NG even) on CUDA cores in f32, as
+// gram_fma: warp w holds query rows kRowsPerWarp (w % 8) + i, lane the
+// columns lane + 32 (w / 8) + 64 n.  Columns past the union read stale
+// stage rows; they are never used.  M lands in the stages' place.
+template <int NV, int NG, typename Stage>
+__device__ __forceinline__ void bwd_gram(float* big, const Stage& stage, int warp, int lane) {
+  using S = BwdShape<NV>;
+  constexpr int QKS = S::QKS, kChunks = S::C / kBwdCW, NH = NG / 2;
+  const int m0 = kRowsPerWarp * (warp & 7), h = warp >> 3;
+  float acc[kRowsPerWarp][NH];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int n = 0; n < NH; ++n) acc[i][n] = 0.f;
+  stage(0, 0);
+  for (int chunk = 0; chunk < kChunks; ++chunk) {
+    if (chunk + 1 < kChunks) {
+      stage(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = big + (chunk & 1) * S::kStage;
+    const float* qs = st + m0 * QKS;
+    const float* ks = st + (kTileQ + lane + 32 * h) * QKS;
+#pragma unroll 4
+    for (int w = 0; w < kBwdCW; ++w) {
+      float qv[kRowsPerWarp], kv[NH];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) qv[i] = qs[i * QKS + w];
+#pragma unroll
+      for (int n = 0; n < NH; ++n) kv[n] = ks[n * 64 * QKS + w];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+        for (int n = 0; n < NH; ++n) acc[i][n] = fmaf(qv[i], kv[n], acc[i][n]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+      big[(m0 + i) * kBwdGS + lane + 32 * h + 64 * n] = acc[i][n];
+  __syncthreads();  // the rows are read by other warps next
+}
+
+// The 64-column pairs the union needs.
+template <int NV, typename Stage>
+__device__ __forceinline__ void bwd_gram_u(float* big, const Stage& stage, int U, int warp,
+                                           int lane) {
+  if (U <= 64)
+    bwd_gram<NV, 2>(big, stage, warp, lane);
+  else if (U <= 128)
+    bwd_gram<NV, 4>(big, stage, warp, lane);
+  else if (U <= 192)
+    bwd_gram<NV, 6>(big, stage, warp, lane);
+  else if (U <= 256)
+    bwd_gram<NV, 8>(big, stage, warp, lane);
+  else
+    bwd_gram<NV, 10>(big, stage, warp, lane);
+}
+
+// dfeat1 = D K_U on CUDA cores, as out_fma: warp w holds query rows
+// kBwdRows w + i, lane the channels lane + 32 n; the first stage was
+// issued by the caller.
+template <int NV, typename Stage>
+__device__ __forceinline__ void dfeat1_fma(const float* D, const float* kstages,
+                                           const Stage& stage, int chunks, const int* qidx,
+                                           int nq, float* out, int warp, int lane) {
+  constexpr int C = 32 * NV;
+  float acc[kBwdRows][NV];
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i)
+#pragma unroll
+    for (int n = 0; n < NV; ++n) acc[i][n] = 0.f;
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    if (chunk + 1 < chunks) {
+      stage(chunk + 1, (chunk + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* vs = kstages + (chunk & 1) * kBwdKeyRows * C;
+    const float* drow = D + warp * kBwdRows * kBwdGS + chunk * kBwdKeyRows;
+#pragma unroll 4
+    for (int r = 0; r < kBwdKeyRows; ++r) {
+      float dv[kBwdRows], v[NV];
+#pragma unroll
+      for (int i = 0; i < kBwdRows; ++i) dv[i] = drow[i * kBwdGS + r];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) v[n] = vs[r * C + lane + 32 * n];
+#pragma unroll
+      for (int i = 0; i < kBwdRows; ++i)
+#pragma unroll
+        for (int n = 0; n < NV; ++n) acc[i][n] = fmaf(dv[i], v[n], acc[i][n]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int r = warp * kBwdRows + i;
+    if (r >= nq) break;
+    float* o = out + (size_t)qidx[r] * C + lane;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) o[32 * n] = acc[i][n];
+  }
+}
+
+// out[u] = sum_q M[q, u] X[q] (+ out[u] when add) for the union rows u < U
+// on CUDA cores: warp w takes the groups of 8 rows from 8 w in steps of 64,
+// lane the channels lane + 32 n; M is D or N (rows padded with zeros to a
+// multiple of 16 columns), X the tile's staged rows.  A thread adds to
+// what it wrote itself.
+template <int NV>
+__device__ __forceinline__ void partial_fma(const float* M, const float* X, int nq, int U,
+                                            float* out, bool add, int warp, int lane) {
+  constexpr int C = 32 * NV;
+  for (int u0 = 8 * warp; u0 < U; u0 += 8 * kBwdThreads / 32) {
+    float acc[8][NV];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < NV; ++n) acc[i][n] = 0.f;
+#pragma unroll 2
+    for (int q = 0; q < nq; ++q) {
+      const float4 m0 = *reinterpret_cast<const float4*>(M + q * kBwdGS + u0);
+      const float4 m1 = *reinterpret_cast<const float4*>(M + q * kBwdGS + u0 + 4);
+      const float m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+      float x[NV];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) x[n] = X[q * C + lane + 32 * n];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int n = 0; n < NV; ++n) acc[i][n] = fmaf(m[i], x[n], acc[i][n]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (u0 + i >= U) break;
+      float* o = out + (size_t)(u0 + i) * C + lane;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) o[32 * n] = add ? o[32 * n] + acc[i][n] : acc[i][n];
+    }
+  }
+}
+
+// (a) the union of the tile's live corner rows, as the forward's tile
+// kernel forms it; a tile whose union exceeds tg.max_union, or of an item
+// without lines, is left to the per-query passes.  (b) Gd = dOut_tile
+// V_U^T and each query's g from its live-corner slots; (c) G = F1_tile
+// K_U^T; (d) per query (one warp per query, in turn): sims from G, w, ds
+// and dprior by the per-query rules, then D's row in place of G's; (e)
+// dfeat1 = D K_U; (f) the keys' partial D^T F1_tile; (g) N's rows in place
+// of D's and the values' partial N^T dOut_tile, added to the keys' when
+// keys and values are one tensor.  The partials go to the tile's place in
+// scratch, its union's bitmap and prefix beside them, for the row
+// reduction.  Shared memory (BwdShape) holds one CTA of kBwdThreads on an
+// SM; warp w owns the queries kBwdRows w + i in (b), (d) and (g).
+template <typename T, int NV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+tile_backward_kernel(const Params p, const Schedule sch, const TileGrads tg) {
+  using S = BwdShape<NV>;
+  constexpr int C = 32 * NV, GS = kBwdGS;
+  const int HW = p.H * p.W, HWW = (HW + 31) / 32, K = p.K, W = p.W;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nq = min(kTileQ, HW - tile * kTileQ);
+  const size_t item = (size_t)b * HW;
+  const size_t at = (size_t)b * tg.tiles + tile;
+  unsigned* gbits = tg.bits == nullptr ? nullptr : tg.bits + at * HWW;
+  if (!sch.item_lines[b]) {  // uniform: no lines to group by
+    if (tid == 0) atomicAdd(&sch.tile_counts[1], 1);
+    if (gbits != nullptr)
+      for (int i = tid; i < HWW; i += kBwdThreads) gbits[i] = 0u;
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* big = reinterpret_cast<float*>(bwd_smem);
+  float* wk = big + S::kBig;  // (kTileQ, K): g, then w
+  unsigned* bits = reinterpret_cast<unsigned*>(wk + kTileQ * K);
+  int* prefix = reinterpret_cast<int*>(bits + HWW);
+  int* rows = prefix + HWW;
+  int* qidx = rows + kBwdUnion;
+  float* scratch = reinterpret_cast<float*>(qidx + kTileQ);
+  int* nunion = reinterpret_cast<int*>(scratch + kBwdThreads);
+
+  // (a)
+  const int U = tile_union<kBwdThreads>(p, sch, b, tile, qidx, bits, prefix, nunion);
+  if (U > tg.max_union) {  // uniform across the block
+    if (tid == 0) atomicAdd(&sch.tile_counts[1], 1);
+    if (gbits != nullptr)
+      for (int i = tid; i < HWW; i += kBwdThreads) gbits[i] = 0u;
+    return;
+  }
+  if (tid == 0) atomicAdd(&sch.tile_counts[0], 1);
+  if (tid < nq) sch.done[item + qidx[tid]] = 1;
+  for (int i = tid; i < HWW; i += kBwdThreads) {
+    compact_word(bits, prefix, rows, i);
+    if (gbits != nullptr) {
+      gbits[i] = bits[i];
+      tg.prefix[at * HWW + i] = prefix[i];
+    }
+  }
+  __syncthreads();
+
+  const T* f1 = static_cast<const T*>(p.f1) + item * C;
+  const T* f2k = static_cast<const T*>(p.f2k) + item * C;
+  const T* f2v = static_cast<const T*>(p.f2v) + item * C;
+  const float* dout = p.dout + item * C;
+  float* M = big;                   // (kTileQ, GS): Gd, then G, D and N
+  float* after = big + S::kMat;     // key stages, or the tile's F1 or dOut rows
+  float* sc = scratch + warp * 32;
+  const int upad = (U + kBwdKeyRows - 1) / kBwdKeyRows * kBwdKeyRows;
+  const int first = warp * kBwdRows;
+
+  // (b)
+  bwd_gram_u<NV>(big, GramStage<NV, float, T>{dout, f2v, qidx, rows, nq, U, tid, big}, U, warp,
+                 lane);
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int r = first + i;
+    if (r >= nq) break;  // uniform across the warp
+    Slots sl;
+    load_slots(p, b, qidx[r], lane, sl);
+#pragma unroll
+    for (int j = 0; j < kMaxSlotsPerLane; ++j)
+      if (lane + 32 * j < K) wk[r * K + lane + 32 * j] = corner_sum(M + r * GS, sl, j, bits, prefix, W);
+  }
+
+  // (c)
+  if (p.use_sim) {  // uniform across the block
+    __syncthreads();
+    bwd_gram_u<NV>(big, GramStage<NV, T, T>{f1, f2k, qidx, rows, nq, U, tid, big}, U, warp, lane);
+  }
+
+  // the first key rows of (e) load while D is formed
+  const KeyStage<NV, T> stage_k{f2k, rows, U, tid, after};
+  const int kchunks = upad / kBwdKeyRows;
+  if (kchunks > 0) stage_k(0, 0);
+
+  // (d)
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int r = first + i;
+    if (r >= nq) break;  // uniform across the warp
+    const int q = qidx[r];
+    float* row = M + r * GS;
+    Slots sl;
+    load_slots(p, b, q, lane, sl);
+    float s[kMaxSlotsPerLane], g[kMaxSlotsPerLane], w[kMaxSlotsPerLane], ds[kMaxSlotsPerLane];
+#pragma unroll
+    for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+      const int k = lane + 32 * j;
+      g[j] = k < K ? wk[r * K + k] : 0.f;
+      s[j] = p.use_sim ? corner_sum(row, sl, j, bits, prefix, W) : 0.f;
+    }
+    logit_grads(p, sl, lane, b, q, s, g, w, ds);
+#pragma unroll
+    for (int j = 0; j < kMaxSlotsPerLane; ++j)
+      if (lane + 32 * j < K) wk[r * K + lane + 32 * j] = w[j];
+    scatter_row(row, sl, ds, bits, prefix, upad, W, K, lane, sc);
+  }
+
+  // (e)
+  dfeat1_fma<NV>(M, after, stage_k, kchunks, qidx, nq, p.dfeat1 + item * C, warp, lane);
+
+  // (f)
+  const size_t part = at * kBwdUnion * C;
+  if (tg.part1 != nullptr) {  // uniform across the block
+    __syncthreads();
+    stage_tile_rows<NV>(after, f1, qidx, nq, tid);
+    cp_async_wait<0>();
+    __syncthreads();
+    partial_fma<NV>(M, after, nq, U, tg.part1 + part, false, warp, lane);
+  }
+
+  // (g)
+  if (tg.part2 != nullptr || tg.fused) {  // uniform across the block
+    __syncthreads();
+    stage_tile_rows<NV>(after, dout, qidx, nq, tid);
+    for (int i = 0; i < kBwdRows; ++i) {
+      const int r = first + i;
+      if (r >= nq) break;  // uniform across the warp
+      Slots sl;
+      load_slots(p, b, qidx[r], lane, sl);
+      float w[kMaxSlotsPerLane];
+#pragma unroll
+      for (int j = 0; j < kMaxSlotsPerLane; ++j) {
+        const int k = lane + 32 * j;
+        w[j] = k < K ? wk[r * K + k] : 0.f;
+      }
+      scatter_row(M + r * GS, sl, w, bits, prefix, upad, W, K, lane, sc);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    partial_fma<NV>(M, after, nq, U, (tg.fused ? tg.part1 : tg.part2) + part, tg.fused != 0,
+                    warp, lane);
+  }
+}
+
+// One warp per key row: its partials from the tiles whose union holds it,
+// summed in tile order, then the sum of the CSR passes over the queries
+// the tile path left (in d1 / d2 already where the row has entries) added;
+// part1 feeds d1, part2 d2.  An empty row is written here (zeros where no
+// tile holds it).
+template <int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+tile_reduce_kernel(int rows, int HW, const TileGrads tg, const Transpose t) {
+  constexpr int C = 32 * NV;
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (g >= rows) return;  // uniform across the warp
+  const int b = (int)(g / HW), r = (int)(g - (long long)b * HW);
+  const int HWW = (HW + 31) / 32, word = r >> 5;
+  const unsigned below = (1u << (r & 31)) - 1u;
+  const size_t first = (size_t)b * tg.tiles;
+  const bool csr = t.row_ptr[g + 1] != t.row_ptr[g];
+  if (!tg.item_lines[b] && csr) return;  // uniform: no tile holds the row
+  float acc1[NV], acc2[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc1[v] = acc2[v] = 0.f;
+  for (int t0 = 0; tg.item_lines[b] && t0 < tg.tiles; t0 += 32) {
+    unsigned bw = 0u;
+    int slot = 0;
+    if (t0 + lane < tg.tiles) {
+      const size_t w = (first + t0 + lane) * HWW + word;
+      bw = tg.bits[w];
+      slot = tg.prefix[w] + __popc(bw & below);
+    }
+    const unsigned hit = __ballot_sync(kFull, (bw >> (r & 31)) & 1u);
+    for (unsigned m = hit; m != 0u; m &= m - 1u) {  // tile order
+      const int src = __ffs(m) - 1;
+      const int s = __shfl_sync(kFull, slot, src);
+      const size_t at = ((first + t0 + src) * kBwdUnion + s) * C + lane * NV;
+      float v[NV];
+      if (t.d1 != nullptr) {
+        load_row<NV>(tg.part1 + at, v);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc1[i] += v[i];
+      }
+      if (t.d2 != nullptr) {
+        load_row<NV>(tg.part2 + at, v);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc2[i] += v[i];
+      }
+    }
+  }
+  const size_t out = (size_t)g * C + lane * NV;
+  float v[NV];
+  if (t.d1 != nullptr) {
+    if (csr) {
+      load_row<NV>(t.d1 + out, v);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc1[i] += v[i];
+    }
+    store_row<NV>(t.d1 + out, acc1);
+  }
+  if (t.d2 != nullptr) {
+    if (csr) {
+      load_row<NV>(t.d2 + out, v);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc2[i] += v[i];
+    }
+    store_row<NV>(t.d2 + out, acc2);
+  }
 }
 
 // ---- launches ------------------------------------------------------------
@@ -1608,15 +2225,16 @@ size_t carve(char* base, int B, int H, int W, int K, int C, int partials,
   const size_t pieces[] = {
       rows * K * sizeof(float),                            // ds
       rows * K * sizeof(float),                            // w
+      (size_t)B * tiles_per_item(H, W) * sizeof(int),      // tile_live
       (size_t)B * tiles_per_item(H, W) * H * W * sizeof(int),  // tile_rows
       (rows + 1) * sizeof(int),                            // row_ptr
       (rows + kScanThreads - 1) / kScanThreads * sizeof(int),  // block_total
       entries * sizeof(int),                               // entry
       (size_t)max_chunks(B, H, W, K) * 2 * C * sizeof(float) * partials,
   };
-  size_t off[7];
+  size_t off[8];
   size_t used = 0;
-  for (int i = 0; i < 7; ++i) {
+  for (int i = 0; i < 8; ++i) {
     off[i] = used;
     used += align_up(pieces[i]);
   }
@@ -1624,12 +2242,13 @@ size_t carve(char* base, int B, int H, int W, int K, int C, int partials,
     p->ds = reinterpret_cast<float*>(base + off[0]);
     p->w = reinterpret_cast<float*>(base + off[1]);
     t->tiles = tiles_per_item(H, W);
-    t->tile_rows = reinterpret_cast<int*>(base + off[2]);
-    t->row_ptr = reinterpret_cast<int*>(base + off[3]);
-    t->block_total = reinterpret_cast<int*>(base + off[4]);
-    t->entry = reinterpret_cast<int*>(base + off[5]);
+    t->tile_live = reinterpret_cast<int*>(base + off[2]);
+    t->tile_rows = reinterpret_cast<int*>(base + off[3]);
+    t->row_ptr = reinterpret_cast<int*>(base + off[4]);
+    t->block_total = reinterpret_cast<int*>(base + off[5]);
+    t->entry = reinterpret_cast<int*>(base + off[6]);
     // one set of partials serves whichever single output is wanted
-    float* part = reinterpret_cast<float*>(base + off[6]);
+    float* part = reinterpret_cast<float*>(base + off[7]);
     t->part1 = t->d1 != nullptr ? part : nullptr;
     t->part2 = t->d2 == nullptr ? nullptr
                : t->d1 != nullptr ? part + (size_t)max_chunks(B, H, W, K) * 2 * C : part;
@@ -1669,6 +2288,58 @@ size_t carve_forward(char* base, int B, int H, int W, Schedule* sch) {
   return used;
 }
 
+// The grouping: each item's queries in line order, the path counts zeroed.
+cudaError_t launch_group(const Params& p, const Schedule& sch, cudaStream_t stream) {
+  const size_t gsmem = (size_t)(2 * p.H * p.W + 1) * sizeof(int);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)gsmem)) != cudaSuccess)
+    return err;
+  group_kernel<<<p.B, kGroupThreads, gsmem, stream>>>(p, sch);
+  return cudaGetLastError();
+}
+
+// The backward's scratch: with the tile schedule, the forward's pieces
+// (the path counts first) and, with key/value gradients, each tile's union
+// bitmap and prefix and its `partials` sets of partials, kBwdUnion rows a
+// tile (B x tiles x 320 x C x 4 bytes each: 168 MB at B=8 64x64 C=256,
+// 1.5 GB at B=32 96x96; a tile writes its U rows); then, with key/value
+// gradients, the transpose (carve).  Returns the bytes used; with `base`,
+// points p, t, sch and tg (whose `fused` the caller sets) into it.
+size_t carve_backward(char* base, int B, int H, int W, int K, int C, int partials, bool tiles,
+                      Params* p, Transpose* t, Schedule* sch, TileGrads* tg) {
+  size_t used = 0;
+  if (tiles) {
+    used = carve_forward(base, B, H, W, sch);
+    const int ntiles = (H * W + kTileQ - 1) / kTileQ;
+    const size_t words = (size_t)B * ntiles * ((H * W + 31) / 32);
+    const size_t part = (size_t)B * ntiles * kBwdUnion * C;
+    const size_t pieces[] = {
+        partials ? words * sizeof(unsigned) : 0,  // bits
+        partials ? words * sizeof(int) : 0,       // prefix
+        part * sizeof(float) * partials,          // part1, part2
+    };
+    size_t off[3];
+    for (int i = 0; i < 3; ++i) {
+      off[i] = used;
+      used += align_up(pieces[i]);
+    }
+    if (base != nullptr) {
+      tg->tiles = ntiles;
+      tg->item_lines = sch->item_lines;
+      if (partials) {
+        tg->bits = reinterpret_cast<unsigned*>(base + off[0]);
+        tg->prefix = reinterpret_cast<int*>(base + off[1]);
+        float* part0 = reinterpret_cast<float*>(base + off[2]);
+        tg->part1 = t->d1 != nullptr ? part0 : nullptr;
+        tg->part2 = t->d2 == nullptr ? nullptr : t->d1 != nullptr ? part0 + part : part0;
+      }
+    }
+  }
+  if (partials) used += carve(base == nullptr ? nullptr : base + used, B, H, W, K, C, partials, p, t);
+  return used;
+}
+
 // With the tile schedule: grouping, the tile kernel, then the per-query
 // kernel over the queries it left.  Without: the per-query kernel over all.
 template <typename T, int NV>
@@ -1676,13 +2347,7 @@ cudaError_t launch_forward_nv(const Params& p, const Schedule* sch, cudaStream_t
   const int HW = p.H * p.W;
   cudaError_t err;
   if (sch != nullptr) {
-    const size_t gsmem = (size_t)(2 * HW + 1) * sizeof(int);
-    if ((err = cudaFuncSetAttribute(group_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)gsmem)) != cudaSuccess)
-      return err;
-    group_kernel<<<p.B, kGroupThreads, gsmem, stream>>>(p, *sch);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_group(p, *sch, stream)) != cudaSuccess) return err;
     const size_t tsmem = TileShape<T, NV>::bytes(HW);
     if ((err = cudaFuncSetAttribute(tile_forward_kernel<T, NV>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1699,11 +2364,28 @@ cudaError_t launch_forward_nv(const Params& p, const Schedule* sch, cudaStream_t
   return cudaGetLastError();
 }
 
+// With the tile schedule: grouping, the tile kernel, then pass A over the
+// queries it left (sch->done).  Without: pass A over all.
 template <typename T, int NV>
-cudaError_t launch_backward_nv(const Params& p, cudaStream_t stream) {
-  const long long queries = (long long)p.B * p.H * p.W;
+cudaError_t launch_backward_nv(const Params& p, const Schedule* sch, const TileGrads& tg,
+                               cudaStream_t stream) {
+  const int HW = p.H * p.W;
+  cudaError_t err;
+  if (sch != nullptr) {
+    if ((err = launch_group(p, *sch, stream)) != cudaSuccess) return err;
+    const size_t tsmem = BwdShape<NV>::bytes(HW, p.K);
+    if ((err = cudaFuncSetAttribute(tile_backward_kernel<T, NV>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)tsmem)) != cudaSuccess)
+      return err;
+    tile_backward_kernel<T, NV><<<dim3((unsigned)tg.tiles, (unsigned)p.B), kBwdThreads, tsmem,
+                                  stream>>>(p, *sch, tg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const long long queries = (long long)p.B * HW;
   const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  query_backward_kernel<T, NV><<<grid, kWarpsPerBlock * 32, 0, stream>>>(p);
+  query_backward_kernel<T, NV><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      p, sch == nullptr ? nullptr : sch->done);
   return cudaGetLastError();
 }
 
@@ -1719,14 +2401,31 @@ cudaError_t launch_forward(const Params& p, const Schedule* sch, int C, cudaStre
 }
 
 template <typename T>
-cudaError_t launch_backward(const Params& p, int C, cudaStream_t stream) {
+cudaError_t launch_backward(const Params& p, const Schedule* sch, const TileGrads& tg, int C,
+                            cudaStream_t stream) {
   switch (C) {
-    case 32: return launch_backward_nv<T, 1>(p, stream);
-    case 64: return launch_backward_nv<T, 2>(p, stream);
-    case 128: return launch_backward_nv<T, 4>(p, stream);
-    case 256: return launch_backward_nv<T, 8>(p, stream);
+    case 32: return launch_backward_nv<T, 1>(p, sch, tg, stream);
+    case 64: return launch_backward_nv<T, 2>(p, sch, tg, stream);
+    case 128: return launch_backward_nv<T, 4>(p, sch, tg, stream);
+    case 256: return launch_backward_nv<T, 8>(p, sch, tg, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The row reduction of the tile path's partials into the CSR passes' sums.
+cudaError_t launch_reduce(const Params& p, const TileGrads& tg, const Transpose& t, int C,
+                          cudaStream_t stream) {
+  const int rows = p.B * p.H * p.W, HW = p.H * p.W;
+  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 block(kWarpsPerBlock * 32);
+  switch (C) {
+    case 32: tile_reduce_kernel<1><<<grid, block, 0, stream>>>(rows, HW, tg, t); break;
+    case 64: tile_reduce_kernel<2><<<grid, block, 0, stream>>>(rows, HW, tg, t); break;
+    case 128: tile_reduce_kernel<4><<<grid, block, 0, stream>>>(rows, HW, tg, t); break;
+    case 256: tile_reduce_kernel<8><<<grid, block, 0, stream>>>(rows, HW, tg, t); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, int NV>
@@ -1846,30 +2545,44 @@ extern "C" int epipolar_attention_forward(
                        : launch_forward<float>(p, tiles, C, s));
 }
 
-// Bytes of scratch the backward needs: 0 without key/value gradients, else
-// the transpose and `partials` (1 when only one of dother1/dother2 is wanted
-// or both go to one buffer, 2 when both are wanted apart) sets of partials.
+// Bytes of scratch the backward needs: the tile schedule's where it takes
+// the shape, and with key/value gradients the tile path's and the
+// transpose's `partials` (1 when only one of dother1/dother2 is wanted or
+// both go to one buffer, 2 when both are wanted apart) sets of partials; 0
+// where neither applies.
 extern "C" long long epipolar_attention_backward_scratch_bytes(
     int B, int H, int W, int K, int C, int partials) {
-  if (partials == 0) return 0;
-  return (long long)carve(nullptr, B, H, W, K, C, partials, nullptr, nullptr);
+  return (long long)carve_backward(nullptr, B, H, W, K, C, partials, tile_shape(B, H, W),
+                                   nullptr, nullptr, nullptr, nullptr);
+}
+
+// Whether the tile schedules take the shape (then both scratches begin with
+// the tiles on the tile path and on the per-query path, two ints).
+extern "C" int epipolar_attention_tile_shape(int B, int H, int W) {
+  return tile_shape(B, H, W) ? 1 : 0;
 }
 
 // dother1 / dother2 may be null (no gradient wanted); when they are the same
 // buffer it receives dother1 + dother2.  dprior (B, K, HW) may be null; it
 // needs a prior.  Every row of every buffer given is written.  `scratch`
-// holds epipolar_attention_backward_scratch_bytes.
+// holds epipolar_attention_backward_scratch_bytes; where the tile schedule
+// takes the shape, its first two ints receive the tiles that took the tile
+// path and the per-query path.  A tile whose union exceeds max_union rows
+// (at most epipolar_attention_backward_max_union()) takes the per-query
+// passes.
 extern "C" int epipolar_attention_backward(
     const void* f1, const void* f2k, const void* f2v, const void* locs,
     const void* prior, const void* dout, void* dfeat1, void* dother1,
     void* dother2, void* dprior, void* scratch, int B, int H, int W, int K, int C,
-    int is_bf16, float scale, int use_sim, int softmax, int priormul,
+    int is_bf16, float scale, int use_sim, int softmax, int priormul, int max_union,
     void* stream) {
-  if (!valid_shape(B, H, W, K)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, H, W, K) || max_union < 0 || max_union > kBwdUnion)
+    return (int)cudaErrorInvalidValue;
   const bool fused = dother1 != nullptr && dother1 == dother2;
   const bool kv = dother1 != nullptr || dother2 != nullptr;
-  if (kv && (scratch == nullptr || !valid_transpose_shape(B, H, W, K)))
-    return (int)cudaErrorInvalidValue;
+  const bool tiles = tile_shape(B, H, W);
+  if (kv && !valid_transpose_shape(B, H, W, K)) return (int)cudaErrorInvalidValue;
+  if ((kv || tiles) && scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (dprior != nullptr && prior == nullptr) return (int)cudaErrorInvalidValue;
   Params p = make_params(f1, f2k, f2v, locs, prior, B, H, W, K, scale,
                          use_sim, softmax, priormul);
@@ -1877,19 +2590,26 @@ extern "C" int epipolar_attention_backward(
   p.dfeat1 = static_cast<float*>(dfeat1);
   p.dprior = static_cast<float*>(dprior);
   Transpose t = {};
-  if (kv) {
-    t.d1 = static_cast<float*>(dother1);
-    t.d2 = fused ? nullptr : static_cast<float*>(dother2);
-    const int partials = (t.d1 != nullptr && t.d2 != nullptr) ? 2 : 1;
-    carve(static_cast<char*>(scratch), B, H, W, K, C, partials, &p, &t);
-  }
+  Schedule sch = {};
+  TileGrads tg = {};
+  t.d1 = static_cast<float*>(dother1);
+  t.d2 = fused ? nullptr : static_cast<float*>(dother2);
+  const int partials = !kv ? 0 : (t.d1 != nullptr && t.d2 != nullptr) ? 2 : 1;
+  carve_backward(static_cast<char*>(scratch), B, H, W, K, C, partials, tiles, &p, &t, &sch, &tg);
+  tg.fused = fused;
+  tg.max_union = max_union;
+  t.reduced = tiles;
+  if (tiles) t.done = sch.done;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch_backward<__nv_bfloat16>(p, C, s)
-                            : launch_backward<float>(p, C, s);
+  const Schedule* plan = tiles ? &sch : nullptr;
+  cudaError_t err = is_bf16 ? launch_backward<__nv_bfloat16>(p, plan, tg, C, s)
+                            : launch_backward<float>(p, plan, tg, C, s);
   if (err != cudaSuccess || !kv) return (int)err;
   if ((err = launch_transpose(p, t, s)) != cudaSuccess) return (int)err;
-  return (int)(is_bf16 ? launch_gather<__nv_bfloat16>(p, t, C, fused, s)
-                       : launch_gather<float>(p, t, C, fused, s));
+  err = is_bf16 ? launch_gather<__nv_bfloat16>(p, t, C, fused, s)
+                : launch_gather<float>(p, t, C, fused, s);
+  if (err != cudaSuccess || !tiles) return (int)err;
+  return (int)launch_reduce(p, tg, t, C, s);
 }
 
 extern "C" int epipolar_attention_max_samples() { return 32 * kMaxSlotsPerLane; }
@@ -1899,3 +2619,5 @@ extern "C" int epipolar_attention_max_key_rows() { return kMaxKeyRows; }
 extern "C" int epipolar_attention_tile_queries() { return kTileQ; }
 
 extern "C" int epipolar_attention_max_union() { return kMaxUnion; }
+
+extern "C" int epipolar_attention_backward_max_union() { return kBwdUnion; }

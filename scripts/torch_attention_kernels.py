@@ -6,25 +6,31 @@
 Needs one CUDA device and `nvcc`.  Prints the card's name and power limit;
 then, for epipolar_transformers_tpu_torch/csrc/epipolar_attention.cu and
 each other source given (e.g. an earlier revision of it), the registers,
-spills and shared memory that `nvcc -Xptxas -v` reports for every kernel;
-then torch.profiler's device time per kernel over 10 calls at the flagship
-attention shape (B=8, 64x64, K=64, C=256), at the synthetic rig's sample
-locations (as chip_smoke.py times the kernels) and at random ones in
+spills, shared memory and stack that `nvcc -Xptxas -v` reports for every
+kernel; then torch.profiler's device time per kernel over 10 calls at the
+flagship attention shape (B=8, 64x64, K=64, C=256), at the synthetic rig's
+sample locations (as chip_smoke.py times the kernels) and at random ones in
 (-1.3, 1.3), so the kernels of one call can be told apart:
 
   - the forward, f32 at both sets of locations and bf16 at the rig's: the
     grouping, the tile kernel and the per-query kernel, with the tiles that
     took each path;
-  - the backward, f32, gradients to the queries and to keys = values.
+  - the backward, gradients to the queries and to keys = values: f32 at
+    both sets of locations, bf16 at the rig's, and f32 at the rig's 96x96
+    lines (B=8, the 384 px recipes' heatmaps): the grouping, the tile
+    kernel, the per-query and CSR passes and the row reduction, with the
+    tiles that took each path.
 
     python3 scripts/torch_attention_kernels.py --time-forward [--tree DIR]
+    python3 scripts/torch_attention_kernels.py --time-backward [--tree DIR]
 
-instead times the forward alone with CUDA events (mean of 2 x 20 calls
-after warm-up) through `epipolar_attention_batch` of the package in DIR (a
-checkout of another commit inside this one, e.g. unpacked with `git
-archive` into a directory .gitignore lists; default this one): f32 at the
-rig's and at random locations, bf16 at the rig's.  Run it on two trees in
-turns (A, B, B, A) to compare them on one card.
+instead time the forward (or the backward, keys = values) alone with CUDA
+events (mean of 2 x 20 calls after warm-up) through
+`epipolar_attention_batch` of the package in DIR (a checkout of another
+commit inside this one, e.g. unpacked with `git archive` into a directory
+.gitignore lists; default this one): f32 at the rig's and at random
+locations, bf16 at the rig's, and (backward) f32 at the rig's 96x96 lines.
+Run it on two trees in turns (A, B, B, A) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -56,26 +62,33 @@ def ptxas_report(src: Path) -> None:
         if m:
             kernel = subprocess.run(["c++filt", m.group(1)], capture_output=True,
                                     text=True).stdout.strip() or m.group(1)
-        elif kernel and ("registers" in line or "spill" in line):
+        elif kernel and ("registers" in line or "spill" in line or "stack" in line):
             print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 def flagship_inputs(where: str, dtype):
+    """B=8, K=64, C=256 features and locations: "rig" and "random" at
+    64x64, "rig96" the rig's lines at 96x96."""
     import torch
 
     from chip_smoke import rig_sample_locs
-    from epipolar_transformers_tpu_torch.config import flagship_cfg
+    from epipolar_transformers_tpu_torch.config import flagship_cfg, update_from_dict
     from epipolar_transformers_tpu_torch.ops.epipolar_attention import AttentionParams
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     B, H, W, K, C = 8, 64, 64, 64, 256
+    cfg = flagship_cfg()
+    if where == "rig96":
+        H = W = 96
+        cfg = update_from_dict(cfg, {"DATASETS": {"IMAGE_SIZE": (384, 384)},
+                                     "KEYPOINT": {"HEATMAP_SIZE": (96, 96)}})
     f1 = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
     f2 = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
-    if where == "rig":
-        locs = rig_sample_locs(flagship_cfg(), B, dev)
-    else:
+    if where == "random":
         locs = torch.rand(B, K, H, W, 2, device=dev, generator=g) * 2.6 - 1.3
+    else:
+        locs = rig_sample_locs(cfg, B, dev)
     return f1, f2, locs, AttentionParams(softmax_scale=K ** -0.5)
 
 
@@ -118,18 +131,47 @@ def profile_forward(where: str, dtype) -> None:
                 f"{per_query} per-query path)")
 
 
-def profile_backward(where: str) -> None:
+def backward_call(where: str, dtype):
+    """A call of the backward alone (keys = values, as the model has them)
+    on a graph built once."""
     import torch
 
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 
-    f1, f2, locs, params = flagship_inputs(where, torch.float32)
+    f1, f2, locs, params = flagship_inputs(where, dtype)
     f1.requires_grad_()
     f2.requires_grad_()
     out = attn.epipolar_attention_batch(f1, f2, f2, locs, params)[0]
     r = torch.randn_like(out)
-    profile(lambda: torch.autograd.grad(out, (f1, f2), r, retain_graph=True),
-            f"backward f32 at {where} locations")
+    return lambda: torch.autograd.grad(out, (f1, f2), r, retain_graph=True)
+
+
+def profile_backward(where: str, dtype) -> None:
+    import torch
+
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
+
+    run = backward_call(where, dtype)
+    attn.BACKWARD_TILE_COUNTS.clear()
+    run()
+    tile, per_query = attn.backward_tile_counts()
+    name = "f32" if dtype == torch.float32 else "bf16"
+    profile(run, f"backward {name} at {where} locations (tiles: {tile} tile path, "
+                 f"{per_query} per-query path)")
+
+
+def time_backward(tree: Path) -> None:
+    import torch
+
+    from chip_smoke import cuda_ms
+
+    for where, dtype in (("rig", torch.float32), ("random", torch.float32),
+                         ("rig", torch.bfloat16), ("rig96", torch.float32)):
+        run = backward_call(where, dtype)
+        ms = [cuda_ms(run) for _ in range(2)]
+        name = "f32" if dtype == torch.float32 else "bf16"
+        print(f"  backward {name} at {where} locations, tree {tree}: "
+              f"{sum(ms) / 2:.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})")
 
 
 def time_forward(tree: Path) -> None:
@@ -155,8 +197,10 @@ def main() -> int:
                     help="other .cu sources to report registers for")
     ap.add_argument("--time-forward", action="store_true",
                     help="only time the forward of the package in --tree")
+    ap.add_argument("--time-backward", action="store_true",
+                    help="only time the backward of the package in --tree")
     ap.add_argument("--tree", type=Path, default=ROOT,
-                    help="checkout inside this one whose package --time-forward imports")
+                    help="checkout inside this one whose package --time-* imports")
     args = ap.parse_args()
     tree = args.tree.resolve()
     if not tree.is_relative_to(ROOT):
@@ -171,8 +215,11 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if args.time_forward:
-        time_forward(tree)
+    if args.time_forward or args.time_backward:
+        if args.time_forward:
+            time_forward(tree)
+        if args.time_backward:
+            time_backward(tree)
         return 0
     for src in [SOURCE, *args.ptxas]:
         print(f"ptxas -v, {src.relative_to(ROOT) if src.is_relative_to(ROOT) else src}:")
@@ -180,8 +227,9 @@ def main() -> int:
     for where, dtype in (("rig", torch.float32), ("random", torch.float32),
                          ("rig", torch.bfloat16)):
         profile_forward(where, dtype)
-    for where in ("rig", "random"):
-        profile_backward(where)
+    for where, dtype in (("rig", torch.float32), ("random", torch.float32),
+                         ("rig", torch.bfloat16), ("rig96", torch.float32)):
+        profile_backward(where, dtype)
     return 0
 
 

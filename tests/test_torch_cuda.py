@@ -14,9 +14,11 @@ plain version: f32 rtol 1e-4 / atol 1e-5 x the gradient's max (summation
 order); bf16 rtol 5e-2 / atol 5e-2 x max; the learned prior's gradient in
 each of its five modes the same way.  Both kernels sum in a fixed
 order, so two runs on the same inputs are bit-equal.  Most locations are
-random in (-1.3, 1.3), so lines cross the image edges and the forward runs
-its per-query kernel; the synthetic rig's epipolar lines (64x64) drive the
-forward's tile path, with the tiles on each path read by `tile_counts()`.
+random in (-1.3, 1.3), so lines cross the image edges and both kernels run
+their per-query paths; the synthetic rig's epipolar lines (64x64) drive the
+tile paths, with the tiles on each path read by `tile_counts()` and
+`backward_tile_counts()`; a lowered backward union cap puts both of the
+backward's paths in one launch.
 """
 
 import pytest
@@ -416,3 +418,109 @@ def test_hourglass_shape_backward_matches_plain(device, dt):
     again = grads(attn.epipolar_attention_batch)
     _assert_grads_close(got, grads(attn.epipolar_attention_plain_batch), dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _backward_counted(fn, *args, **kw):
+    """`fn`'s result and the backward tiles it put on each path."""
+    attn.BACKWARD_TILE_COUNTS.clear()
+    got = fn(*args, **kw)
+    return got, attn.backward_tile_counts()
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("K", [1, 33, 128])
+@pytest.mark.parametrize("dt,name,kw,use_prior", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_backward_tile_path_matches_plain(device, C, K, dt, name, kw, use_prior):
+    """The rig's 64x64 lines: the backward's tile path, keys and values
+    apart, held to autograd of the plain version."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    feats, _, _ = _inputs(device, 2, 64, 64, 1, C, dtype)
+    locs = _rig_locs(device, 2, K)
+    prior = torch.rand(locs.shape[:-1], device=device,
+                       generator=torch.Generator(device).manual_seed(3)) * 0.1
+    params = AttentionParams(softmax_scale=K ** -0.5, **kw)
+    prior = prior if use_prior else None
+    got, (tile, per_query) = _backward_counted(_grads, attn.epipolar_attention_batch, feats,
+                                               locs, params, prior)
+    assert tile + per_query == 2 * 64 * 64 // attn.TILE_QUERIES
+    if K > 1:
+        assert tile > per_query
+    want = _grads(attn.epipolar_attention_plain_batch, feats, locs, params, prior)
+    _assert_grads_close(got, want, dtype)
+
+
+def _flat_inputs(device, dtype, B=8, C=256, K=64, seed=5):
+    """(B, HW, C) queries and keys = values one tensor, the rig's (B, K, HW,
+    2) locations and a cotangent, as `_kernel_backward` takes them."""
+    feats, _, _ = _inputs(device, B, 64, 64, 1, C, dtype, seed=seed)
+    locs = _rig_locs(device, B, K).reshape(B, K, 64 * 64, 2)
+    f1, f2 = (f.reshape(B, 64 * 64, C) for f in feats[:2])
+    dout = torch.randn(B, 64 * 64, C, device=device,
+                       generator=torch.Generator(device).manual_seed(seed + 1))
+    return f1, f2, locs, dout
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_backward_small_cap_runs_both_paths(device, dt):
+    """A union cap at the rig's median puts about half of the tiles on each
+    of the backward's paths in one launch; every gradient stays held to
+    the plain version's, and to the launch with the full cap."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    f1, f2, locs, dout = _flat_inputs(device, dtype, B=4)
+    params = AttentionParams(softmax_scale=0.125)
+    _, union = attn._tile_plan(locs, 64, 64)
+    cap = int(union.sum(-1).median())
+    args = (f1, f2, f2, locs, None, dout, 64, 64, params)
+    kv = dict(need_keys=True, need_values=True, same_kv=True)
+    small, (tile, per_query) = _backward_counted(attn._kernel_backward, *args, **kv,
+                                                 max_union=cap)
+    assert tile > 0 and per_query > 0 and tile + per_query == 4 * 64
+    full, (tile, per_query) = _backward_counted(attn._kernel_backward, *args, **kv)
+    assert per_query == 0
+    B, HW, C = f1.shape
+    want = attn.epipolar_attention_backward_plain(
+        *(t.reshape(B, 64, 64, C) for t in (f1, f2, f2)), locs.reshape(B, -1, 64, 64, 2),
+        params, dout.reshape(B, 64, 64, C))
+    want = [want[0].reshape(B, HW, C), (want[1] + want[2]).reshape(B, HW, C), None]
+    _assert_grads_close(small[:3], want, dtype)
+    _assert_grads_close(full[:3], want, dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_backward_tile_path_two_runs_bit_equal(device, dt):
+    """The flagship shape at the rig: every tile on the tile path, two
+    runs bit-equal, also with a cap that splits the paths."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    f1, f2, locs, dout = _flat_inputs(device, dtype)
+    args = (f1, f2, f2, locs, None, dout, 64, 64, AttentionParams(softmax_scale=0.125))
+    kv = dict(need_keys=True, need_values=True, same_kv=True)
+    first, counts = _backward_counted(attn._kernel_backward, *args, **kv)
+    assert counts == (8 * 64, 0)
+    second = attn._kernel_backward(*args, **kv)
+    assert all(torch.equal(a, b) for a, b in zip(first[:2], second[:2]))
+    first = attn._kernel_backward(*args, **kv, max_union=190)
+    second = attn._kernel_backward(*args, **kv, max_union=190)
+    assert all(torch.equal(a, b) for a, b in zip(first[:2], second[:2]))
+
+
+def test_backward_counts_match_the_plain_plan(device):
+    """The backward's tiles on each path at the rig, against the plain
+    twin's grouping and unions (a bin may move by an atan2 ulp, so within
+    2), with the full and a lowered cap."""
+    f1, f2, locs, dout = _flat_inputs(device, torch.float32, C=64)
+    args = (f1, f2, f2, locs, None, dout, 64, 64, AttentionParams(softmax_scale=0.125))
+    _, union = attn._tile_plan(locs, 64, 64)
+    sizes = union.sum(-1)
+    for cap in (attn.BACKWARD_MAX_UNION, int(sizes.median())):
+        _, (tile, per_query) = _backward_counted(
+            attn._kernel_backward, *args, need_keys=False, need_values=False, same_kv=True,
+            max_union=cap)
+        assert abs(tile - int((sizes <= cap).sum())) <= 2 and tile + per_query == sizes.numel()
+
+
+def test_backward_tile_constants_match_the_plain_twin(device):
+    from epipolar_transformers_tpu_torch.ops._build import load_library
+
+    lib = load_library("epipolar_attention")
+    assert lib.epipolar_attention_backward_max_union() == attn.BACKWARD_MAX_UNION
+    assert lib.epipolar_attention_tile_shape(8, 64, 64) == 1
