@@ -55,6 +55,7 @@ from ..geometry.body import HumanBody, compute_limb_length
 from ..geometry.host import triangulate_epipolar_np, triangulate_pymvg_np, triangulate_ransac_np
 from ..geometry.pictorial import rpsm
 from ..metrics.metrics2d import calculate_err, jdr
+from ..utils import tracing
 from ..utils.file_utils import pred_pickle_path
 from ..utils.metric_logger import MetricLogger
 from ..vis.visualization import dump_eval_frames
@@ -103,12 +104,17 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 def make_eval_step(cfg: Config, model: torch.nn.Module, device,
                    train_bn: bool = False) -> Callable:
     """Eval-mode forward over one view group (V views as the batch); with
-    `train_bn`, BatchNorm on batch statistics (TEST.TRAIN_BN)."""
+    `train_bn`, BatchNorm on batch statistics (TEST.TRAIN_BN).  Spans
+    (utils/tracing.py): `eval_step` (one id a group), `eval.upload`,
+    `eval.forward`."""
     model.eval()
 
     def eval_step(group: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            return model(to_model_inputs(group, device), bn_train=train_bn)
+        with tracing.step("eval_step"), torch.inference_mode():
+            with tracing.span("eval.upload"):
+                inputs = to_model_inputs(group, device)
+            with tracing.span("eval.forward"):
+                return model(inputs, bn_train=train_bn)
 
     return eval_step
 
@@ -217,50 +223,52 @@ def process_group(cfg: Config, group: Dict[str, np.ndarray], out: Dict[str, np.n
     out: host arrays in the port's layout, batch_locs (V, J, 2), score_pred
     (V, J), heatmap_pred (V, J, h, w) where JDR or RPSM need it, corr_pos
     (V, h, w, 2) where the epipolar modes or SAVE_PRED need it.  device:
-    where RPSM's unary term runs.  Returns the group's metrics."""
-    locs = np.asarray(out["batch_locs"], dtype=np.float64)  # (V, J, 2)
-    scores = np.asarray(out["score_pred"], dtype=np.float64)  # (V, J)
+    where RPSM's unary term runs.  Returns the group's metrics.  Runs in the
+    `eval.process_group` span (utils/tracing.py)."""
+    with tracing.span("eval.process_group"):
+        locs = np.asarray(out["batch_locs"], dtype=np.float64)  # (V, J, 2)
+        scores = np.asarray(out["score_pred"], dtype=np.float64)  # (V, J)
 
-    metric_dict: Dict[str, float] = {}
-    pred3d = None
-    if cfg.KEYPOINT.TRIANGULATION and "points-3d" in group:
-        pred3d = _triangulate(cfg, group, locs, scores, out, device)
-        target3d = np.asarray(group["points-3d"], dtype=np.float64)
-        if target3d.ndim == 3:
-            target3d = target3d[0]
-        err = np.linalg.norm(pred3d - target3d, axis=-1)
-        err = np.minimum(err, cfg.TEST.EPEMEAN_MAX_DIST)
-        mpjpe = float(err.mean())
-        metric_dict["EPEmean_global"] = mpjpe
-        act = int(np.asarray(group["action"]).reshape(-1)[0])
-        metric_dict[f"MPJPE@{action_name(act, cfg)}"] = mpjpe
+        metric_dict: Dict[str, float] = {}
+        pred3d = None
+        if cfg.KEYPOINT.TRIANGULATION and "points-3d" in group:
+            pred3d = _triangulate(cfg, group, locs, scores, out, device)
+            target3d = np.asarray(group["points-3d"], dtype=np.float64)
+            if target3d.ndim == 3:
+                target3d = target3d[0]
+            err = np.linalg.norm(pred3d - target3d, axis=-1)
+            err = np.minimum(err, cfg.TEST.EPEMEAN_MAX_DIST)
+            mpjpe = float(err.mean())
+            metric_dict["EPEmean_global"] = mpjpe
+            act = int(np.asarray(group["action"]).reshape(-1)[0])
+            metric_dict[f"MPJPE@{action_name(act, cfg)}"] = mpjpe
 
-    if cfg.TEST.PCK and "heatmap" in group:
-        hm_gt = np.asarray(group["heatmap"]).transpose(0, 3, 1, 2)
-        _, avg_jdr, _, _ = jdr(np.asarray(out["heatmap_pred"]), hm_gt)
-        metric_dict["JDR"] = float(avg_jdr)
-        pcks, err_joints, total_joints = calculate_err(
-            locs.transpose(0, 2, 1),
-            np.asarray(group["points-2d"]).transpose(0, 2, 1),
-            np.asarray(group["visibility"]),
-            cfg.TEST.THRESHOLDS,
-            cfg.TEST.MAX_TH,
-        )
-        metric_dict.update(pcks)
-        record.err_joints.append(err_joints)
-        record.total_joints.append(total_joints)
+        if cfg.TEST.PCK and "heatmap" in group:
+            hm_gt = np.asarray(group["heatmap"]).transpose(0, 3, 1, 2)
+            _, avg_jdr, _, _ = jdr(np.asarray(out["heatmap_pred"]), hm_gt)
+            metric_dict["JDR"] = float(avg_jdr)
+            pcks, err_joints, total_joints = calculate_err(
+                locs.transpose(0, 2, 1),
+                np.asarray(group["points-2d"]).transpose(0, 2, 1),
+                np.asarray(group["visibility"]),
+                cfg.TEST.THRESHOLDS,
+                cfg.TEST.MAX_TH,
+            )
+            metric_dict.update(pcks)
+            record.err_joints.append(err_joints)
+            record.total_joints.append(total_joints)
 
-    record.meters.update(**metric_dict)
+        record.meters.update(**metric_dict)
 
-    if cfg.VIS.SAVE_PRED and ib % cfg.VIS.SAVE_PRED_FREQ == 0:
-        if cfg.VIS.SAVE_PRED_LIMIT < 0 or len(record.predictions) < cfg.VIS.SAVE_PRED_LIMIT:
-            record.predictions.append({
-                "batch_locs": locs, "score_pred": scores,
-                "pred3d": pred3d,
-                "gt3d": np.asarray(group.get("points-3d")),
-                "corr_pos": np.asarray(out["corr_pos"]) if "corr_pos" in out else None,
-            })
-    return metric_dict
+        if cfg.VIS.SAVE_PRED and ib % cfg.VIS.SAVE_PRED_FREQ == 0:
+            if cfg.VIS.SAVE_PRED_LIMIT < 0 or len(record.predictions) < cfg.VIS.SAVE_PRED_LIMIT:
+                record.predictions.append({
+                    "batch_locs": locs, "score_pred": scores,
+                    "pred3d": pred3d,
+                    "gt3d": np.asarray(group.get("points-3d")),
+                    "corr_pos": np.asarray(out["corr_pos"]) if "corr_pos" in out else None,
+                })
+        return metric_dict
 
 
 def host_output_keys(cfg: Config, group) -> List[str]:
@@ -278,21 +286,23 @@ def fetch_outputs(out: Dict[str, torch.Tensor], keys):
     """Queue the copies of `out[keys]` (floats as float32) to the host.
     From a CUDA device they go into pinned buffers, non_blocking, with one
     event recorded behind them; returns the host tensors and that event
-    (None when nothing came from a CUDA device)."""
-    host, on_cuda = {}, False
-    for k in keys:
-        if k not in out:
-            continue
-        t = out[k].float() if out[k].is_floating_point() else out[k]
-        if t.is_cuda:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t, non_blocking=True)
-            t, on_cuda = buf, True
-        host[k] = t
-    event = None
-    if on_cuda:
-        event = torch.cuda.Event()
-        event.record()
+    (None when nothing came from a CUDA device).  Runs in the `eval.fetch`
+    span (utils/tracing.py)."""
+    with tracing.span("eval.fetch"):
+        host, on_cuda = {}, False
+        for k in keys:
+            if k not in out:
+                continue
+            t = out[k].float() if out[k].is_floating_point() else out[k]
+            if t.is_cuda:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                t, on_cuda = buf, True
+            host[k] = t
+        event = None
+        if on_cuda:
+            event = torch.cuda.Event()
+            event.record()
     return host, event
 
 

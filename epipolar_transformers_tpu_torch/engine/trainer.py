@@ -23,7 +23,8 @@ ops/synthetic_render.py renders the images and heatmaps.  Every LOG_FREQ
 steps the step's values go into the windowed meters, whose median and
 global average the log line shows, and into the tensorboard event files
 under `train/` (OUTPUT_DIR, or OUTPUT_DIR/<TENSORBOARD.COMMENT>-<time>),
-as the JAX loop does; each step runs inside a `train_step` profiler span.
+as the JAX loop does; each step runs inside the `train_step` span
+(utils/tracing.py), a profiler range under `main.py --trace`.
 DATALOADER.BENCHMARK runs the loader alone (`benchmark_loader`) and trains
 nothing.
 
@@ -58,6 +59,7 @@ from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
 from ..utils.metric_logger import MetricLogger, TensorboardWriter
 from ..utils.pretrained import apply_pretrained
+from ..utils import tracing
 from ..utils.profiling import DATALOADER_STAGES
 from .solver import Optimizer, make_optimizer
 from .tester import MODEL_KEYS, to_model_inputs
@@ -121,15 +123,22 @@ def model_inputs(batch, device: torch.device, render: Callable) -> Dict[str, tor
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     optimizer: Optimizer) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """(model inputs) -> {loss terms and metrics, as detached tensors}: one
-    forward, backward and optimizer step, the model in train mode."""
+    forward, backward and optimizer step, the model in train mode, each in
+    its span (utils/tracing.py: `train_step`, `train.forward`,
+    `train.backward`, and `train.optimizer` around zero_grad and step)."""
 
     def train_step(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model.train()
-        loss_dict, metric_dict, _ = model(inputs)
-        optimizer.zero_grad(set_to_none=True)
-        loss_dict["loss"].backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
+        with tracing.step("train_step"):
+            model.train()
+            with tracing.span("train.forward"):
+                loss_dict, metric_dict, _ = model(inputs)
+            with tracing.span("train.optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.backward"):
+                loss_dict["loss"].backward()
+            with tracing.span("train.optimizer"):
+                optimizer.step()
+            return {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
 
     return train_step
 
@@ -241,7 +250,7 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None,
             for batch in loader:
                 inputs = model_inputs(batch, device, render)
                 t_data += time.time() - t0
-                with timer, torch.profiler.record_function("train_step"):
+                with timer:
                     metrics = train_step(inputs)
                 step += 1
                 t_step += time.time() - t0

@@ -26,7 +26,9 @@ VIS.FLOPS prints the model's parameters and eval-forward FLOPs as
 `PROFILE: {...}` and stops (utils/profiling.py).  `--trace DIR` runs the
 train/test dispatch under `torch.profiler` (the host's ops and, on the
 card, its kernels) and writes a Chrome/Perfetto trace, DIR/trace.json, or
-DIR/trace_rank<r>.json for each rank under --multihost.
+DIR/trace_rank<r>.json for each rank under --multihost; the port's spans
+(utils/tracing.py) are ranges of that trace, and each span's calls, host
+ms, self ms, device ms and host syncs are logged after it.
 
 Under VIS.DOVIS, a VIS mode (POINTCLOUD, AUC, VIDEO, EPIPOLAR_LINE,
 CURSOR) runs the visualization dispatch (vis/visualization.py) after the
@@ -49,6 +51,7 @@ from .config import load_config
 from .data.pipeline import stop_workers
 from .engine import test, train
 from .engine.trainer import build_model, load_weights, resolve_device
+from .utils import tracing
 from .utils.profiling import profile_model
 from .vis.visualization import visualization
 
@@ -124,10 +127,20 @@ def run(cfg, args, device):
     os.makedirs(args.trace, exist_ok=True)
     path = os.path.join(args.trace, f"trace_rank{parallel.rank()}.json" if args.multihost
                         else "trace.json")
-    with torch.profiler.profile(activities=activities) as prof:
-        results = dispatch(cfg, args, device)
+    tracing.enable(annotate=True)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            results = dispatch(cfg, args, device)
+    finally:
+        tracing.disable()
     prof.export_chrome_trace(path)
     logger.info("profiler trace -> %s", path)
+    spans, counters = tracing.drain()
+    for name, row in tracing.summary(spans, counters).items():
+        logger.info("span %s: %s", name, {k: round(v, 3) for k, v in row.items()})
+    for (index, name), n in counters.items():
+        if index < 0:
+            logger.info("counter %s: %d", name, n)
     return results
 
 

@@ -61,6 +61,7 @@ from ..config import Config
 from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
 from ..metrics.metrics3d import epe_mean, epe_mean_multiview_gt
 from ..ops.epipolar_reproject import gt_grid, reproject_consistency, reprojection_loss
+from ..utils import tracing
 from .layers import BatchNorm2d
 from .lifting import LiftingNet
 from .registry import build_backbone
@@ -148,7 +149,8 @@ class ModelBuilder(nn.Module):
         a PoseResNet's trunk (its deconv output), an hourglass's
         per-merge-point tuple from its forward."""
         sibling = self.sibling
-        with torch.set_grad_enabled(bool(grad) and torch.is_grad_enabled()):
+        with tracing.span("model.other_trunk"), \
+                torch.set_grad_enabled(bool(grad) and torch.is_grad_enabled()):
             if hasattr(sibling, "trunk_features"):
                 return sibling.trunk_features(other_img)
             return sibling(other_img, decode_peaks=False).features
@@ -168,13 +170,14 @@ class ModelBuilder(nn.Module):
     def _heatmap_loss(self, heatmaps, scoremap, vis) -> Dict[str, torch.Tensor]:
         """The loss keyed by KEYPOINT.LOSS (JAX builder `_heatmap_loss`)."""
         k = self.cfg.KEYPOINT
-        if k.LOSS == "joint":
-            return {"stage_loss0": joints_mse_loss(heatmaps[0], scoremap, vis,
-                                                   per_joint_sum=k.LOSS_PER_JOINT)}
-        if k.LOSS == "smoothmse":
-            return {"stage_loss0": keypoints_mse_smooth_loss(heatmaps[0], scoremap, vis)}
-        _, stage_losses = compute_stage_loss(heatmaps, scoremap)
-        return {f"stage_loss{i}": v for i, v in enumerate(stage_losses)}
+        with tracing.span("model.loss"):
+            if k.LOSS == "joint":
+                return {"stage_loss0": joints_mse_loss(heatmaps[0], scoremap, vis,
+                                                       per_joint_sum=k.LOSS_PER_JOINT)}
+            if k.LOSS == "smoothmse":
+                return {"stage_loss0": keypoints_mse_smooth_loss(heatmaps[0], scoremap, vis)}
+            _, stage_losses = compute_stage_loss(heatmaps, scoremap)
+            return {f"stage_loss{i}": v for i, v in enumerate(stage_losses)}
 
     def _reproject_loss(self, bb, other_features, inputs) -> torch.Tensor:
         """EPIPOLAR.REPROJECT_LOSS_WEIGHT x the masked MSE of the attention's
@@ -197,11 +200,12 @@ class ModelBuilder(nn.Module):
 
     def _reference(self, inputs, other_features, decode_peaks: bool):
         """The reference backbone on the target view, fused with the other's."""
-        return self.reference(inputs["img"], other_features=other_features,
-                              other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
-                              camera=inputs.get("camera"),
-                              other_camera=inputs.get("other_camera"),
-                              other_img=inputs["other_img"], decode_peaks=decode_peaks)
+        with tracing.span("model.reference"):
+            return self.reference(inputs["img"], other_features=other_features,
+                                  other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
+                                  camera=inputs.get("camera"),
+                                  other_camera=inputs.get("other_camera"),
+                                  other_img=inputs["other_img"], decode_peaks=decode_peaks)
 
     def _train_forward(self, inputs: Dict[str, torch.Tensor]):
         c = self.cfg
@@ -371,12 +375,14 @@ class ModelBuilder(nn.Module):
     def _eval_forward(self, inputs: Dict[str, torch.Tensor], bn_train: bool):
         c = self.cfg
         if self._can_fuse_trunks(bn_train):
-            both = torch.cat([inputs["img"], inputs["other_img"]], dim=0)
-            feat_ref, other_features = self.reference.trunk_features(both).chunk(2, dim=0)
-            bb = self.reference.head_from_features(
-                feat_ref, other_features=other_features,
-                other_KRT=inputs["other_KRT"], KRT=inputs["KRT"], camera=inputs.get("camera"),
-                other_camera=inputs.get("other_camera"))
+            with tracing.span("model.trunks"):
+                both = torch.cat([inputs["img"], inputs["other_img"]], dim=0)
+                feat_ref, other_features = self.reference.trunk_features(both).chunk(2, dim=0)
+            with tracing.span("model.reference"):
+                bb = self.reference.head_from_features(
+                    feat_ref, other_features=other_features,
+                    other_KRT=inputs["other_KRT"], KRT=inputs["KRT"],
+                    camera=inputs.get("camera"), other_camera=inputs.get("other_camera"))
         else:
             bb = self._reference(inputs, self._other_features(inputs["other_img"], False),
                                  decode_peaks=True)

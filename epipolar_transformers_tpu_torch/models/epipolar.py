@@ -53,6 +53,7 @@ from ..ops.epipolar_attention_cuda import (KERNEL_CHANNELS, epipolar_attention_b
                                            supports_fused_attention)
 from ..ops.epipolar_attention_pooled import epipolar_attention_pooled, supports_pooled_attention
 from ..ops.epipolar_sampling import EpipolarGeometry, epipolar_sample_locs
+from ..utils import tracing
 from .layers import Conv2d, ZeroInitBatchNorm, bn_momentum, compute_dtype
 
 IMPLS = ("auto", "pallas", "matmul", "pooled", "streaming", "reference")
@@ -257,48 +258,50 @@ class Epipolar(nn.Module):
         Returns:
             (fused (N, C, H, W), corr_pos (N, H, W, 2), depth (N, K', H, W)
              or the (N, 1, H, W) placeholder, sample_locs (N, K, H, W, 2))
+        Runs in the `epipolar.fusion` span (utils/tracing.py).
         """
-        e = self.cfg.EPIPOLAR
-        if self.training:
-            self._check_trainable()
-        # key/value selection + detach semantics (reference epipolar.py:134-157)
-        if e.FIND_CORR == "rgb":
-            if ref1 is None or ref2 is None:
-                raise ValueError("EPIPOLAR.FIND_CORR='rgb' needs the downsampled images")
-            keys, query = ref2.detach(), ref1
-        else:
-            keys = feat2 if "other1" in e.OTHER_GRAD else feat2.detach()
-            if hasattr(self, "phi"):
-                keys = self.phi(keys)
-            query = self.theta(feat1) if hasattr(self, "theta") else feat1
-        values = feat2 if "other2" in e.OTHER_GRAD else feat2.detach()
-        if hasattr(self, "g"):
-            values = self.g(values)
-        if self.shared_kv:
-            # one object: the kernel backward sums both gradients into one buffer
-            values = keys
+        with tracing.span("epipolar.fusion"):
+            e = self.cfg.EPIPOLAR
+            if self.training:
+                self._check_trainable()
+            # key/value selection + detach semantics (reference epipolar.py:134-157)
+            if e.FIND_CORR == "rgb":
+                if ref1 is None or ref2 is None:
+                    raise ValueError("EPIPOLAR.FIND_CORR='rgb' needs the downsampled images")
+                keys, query = ref2.detach(), ref1
+            else:
+                keys = feat2 if "other1" in e.OTHER_GRAD else feat2.detach()
+                if hasattr(self, "phi"):
+                    keys = self.phi(keys)
+                query = self.theta(feat1) if hasattr(self, "theta") else feat1
+            values = feat2 if "other2" in e.OTHER_GRAD else feat2.detach()
+            if hasattr(self, "g"):
+                values = self.g(values)
+            if self.shared_kv:
+                # one object: the kernel backward sums both gradients into one buffer
+                values = keys
 
-        # geometry, in float32 even under bfloat16 compute
-        sample_locs = epipolar_sample_locs(P1, P2, self.geometry).detach()
-        prior = None
-        if e.PRIOR:
-            if camera is None or other_camera is None:
-                raise ValueError("EPIPOLAR.PRIOR needs the camera and other_camera ids")
-            prior = self.pair_prior(camera, other_camera)
+            # geometry, in float32 even under bfloat16 compute
+            sample_locs = epipolar_sample_locs(P1, P2, self.geometry).detach()
+            prior = None
+            if e.PRIOR:
+                if camera is None or other_camera is None:
+                    raise ValueError("EPIPOLAR.PRIOR needs the camera and other_camera ids")
+                prior = self.pair_prior(camera, other_camera)
 
-        def nhwc(t):
-            return t.permute(0, 2, 3, 1)
+            def nhwc(t):
+                return t.permute(0, 2, 3, 1)
 
-        q, k = nhwc(query), nhwc(keys)
-        v = k if values is keys else nhwc(values)
-        out, corr_pos, depth = self.attend(q, k, v, sample_locs, prior)
-        out = out.permute(0, 3, 1, 2)
+            q, k = nhwc(query), nhwc(keys)
+            v = k if values is keys else nhwc(values)
+            out, corr_pos, depth = self.attend(q, k, v, sample_locs, prior)
+            out = out.permute(0, 3, 1, 2)
 
-        # z projection + zero-init BN (+ residual)   epipolar.py:249-255
-        if hasattr(self, "z"):
-            finalout = self.bn(self.z(out))
-            if e.ZRESIDUAL:
-                finalout = finalout + out
-        else:
-            finalout = out
-        return finalout, corr_pos.detach(), depth, sample_locs
+            # z projection + zero-init BN (+ residual)   epipolar.py:249-255
+            if hasattr(self, "z"):
+                finalout = self.bn(self.z(out))
+                if e.ZRESIDUAL:
+                    finalout = finalout + out
+            else:
+                finalout = out
+            return finalout, corr_pos.detach(), depth, sample_locs

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera import denormalize_pixel
+from ..utils import tracing
 from .epipolar_attention import AttentionParams, epipolar_similarity_weights
 from .quad_gather import corner_data
 
@@ -59,6 +60,11 @@ BACKWARD_LAUNCHES = 0
 # launches' tiles
 TILE_COUNTS: dict = {}
 BACKWARD_TILE_COUNTS: dict = {}
+# tracing (utils/tracing.py) clears them when it turns on and sums them at drain
+tracing.register_device_counts(TILE_COUNTS, ("attn.forward_tiles.tile_path",
+                                             "attn.forward_tiles.per_query_path"))
+tracing.register_device_counts(BACKWARD_TILE_COUNTS, ("attn.backward_tiles.tile_path",
+                                                      "attn.backward_tiles.per_query_path"))
 
 KERNEL_CHANNELS = (32, 64, 128, 256)
 
@@ -496,28 +502,32 @@ def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
     current stream: the grouping, the tile kernel and the per-query kernel
     for the tiles it leaves, or the per-query kernel alone where the tile
     schedule does not take the shape.  `TILE_COUNTS` receives the tiles on
-    each path, on the device."""
+    each path, on the device.  The arguments, scratch and launch run in the
+    `epipolar.attention` span (utils/tracing.py), whose CUDA events bracket
+    the launch."""
     global LAUNCHES
-    lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
-    B, K, HW, _ = locs.shape
-    C = f1.shape[-1]
-    out = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
-    depth = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device)
-    size = lib.epipolar_attention_forward_scratch_bytes
-    size.argtypes = [ctypes.c_int] * 3
-    size.restype = ctypes.c_longlong
-    nbytes = size(B, H, W)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
-    fn = lib.epipolar_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*pointers, out.data_ptr(), depth.data_ptr(),
-             None if scratch is None else scratch.data_ptr(),
-             B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
-             torch.cuda.current_stream(f1.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"epipolar_attention_forward failed: CUDA error {err}")
+    with tracing.span("epipolar.attention", device=True):
+        lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
+        B, K, HW, _ = locs.shape
+        C = f1.shape[-1]
+        out = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
+        depth = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device)
+        size = lib.epipolar_attention_forward_scratch_bytes
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+        nbytes = size(B, H, W)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
+        fn = lib.epipolar_attention_forward
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tracing.launching()
+        err = fn(*pointers, out.data_ptr(), depth.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
+                 torch.cuda.current_stream(f1.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"epipolar_attention_forward failed: CUDA error {err}")
     LAUNCHES += 1
     _count_tiles(scratch, f1.device, B * -(-HW // TILE_QUERIES))
     return out, depth
@@ -537,45 +547,51 @@ def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
     the kernels; their scratch comes from here.  A tile whose union exceeds
     max_union rows takes the per-query passes (a check may lower it to put
     both paths in one launch).  `BACKWARD_TILE_COUNTS` receives the tiles
-    on each path, on the device."""
+    on each path, on the device.  The arguments, scratch and launch run in
+    the `epipolar.attention_backward` span (utils/tracing.py), whose CUDA
+    events bracket the launch."""
     global BACKWARD_LAUNCHES
-    lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
-    B, K, HW, _ = locs.shape
-    C = f1.shape[-1]
-    if need_keys or need_values:
-        # one shared-memory cursor per key row; int32 entry offsets; the
-        # query index in an entry's upper 23 bits
-        rows = lib.epipolar_attention_max_key_rows()
-        if HW > rows or B * HW * K * 4 >= 2 ** 31 or B * HW >= 2 ** 23:
-            raise ValueError(f"the CUDA backward of the key/value gradients takes H*W <= "
-                             f"{rows}, B*H*W*K*4 < 2**31 and B*H*W < 2**23, got B={B}, "
-                             f"H*W={HW}, K={K}")
-    tiled = bool(lib.epipolar_attention_tile_shape(B, H, W))
-    dout = dout.to(torch.float32).contiguous()
-    dfeat1 = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
-    fused = same_kv and need_keys and need_values
-    dother1 = torch.empty_like(dfeat1) if need_keys else None
-    dother2 = None if fused else torch.empty_like(dfeat1) if need_values else None
-    dprior = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device) if need_prior else None
-    partials = 0 if dother1 is None and dother2 is None else \
-        2 if dother1 is not None and dother2 is not None else 1
-    size = lib.epipolar_attention_backward_scratch_bytes
-    size.argtypes = [ctypes.c_int] * 6
-    size.restype = ctypes.c_longlong
-    nbytes = size(B, H, W, K, C, partials)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
-    fn = lib.epipolar_attention_backward
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, dprior, scratch)]
-    if fused:
-        ptr[1] = ptr[0]
-    err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
-             B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags, max_union,
-             torch.cuda.current_stream(f1.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"epipolar_attention_backward failed: CUDA error {err}")
+    with tracing.span("epipolar.attention_backward", device=True):
+        lib, pointers, flags = _kernel_args(f1, f2k, f2v, locs, prior, params)
+        B, K, HW, _ = locs.shape
+        C = f1.shape[-1]
+        if need_keys or need_values:
+            # one shared-memory cursor per key row; int32 entry offsets; the
+            # query index in an entry's upper 23 bits
+            rows = lib.epipolar_attention_max_key_rows()
+            if HW > rows or B * HW * K * 4 >= 2 ** 31 or B * HW >= 2 ** 23:
+                raise ValueError(f"the CUDA backward of the key/value gradients takes H*W <= "
+                                 f"{rows}, B*H*W*K*4 < 2**31 and B*H*W < 2**23, got B={B}, "
+                                 f"H*W={HW}, K={K}")
+        tiled = bool(lib.epipolar_attention_tile_shape(B, H, W))
+        dout = dout.to(torch.float32).contiguous()
+        dfeat1 = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
+        fused = same_kv and need_keys and need_values
+        dother1 = torch.empty_like(dfeat1) if need_keys else None
+        dother2 = None if fused else torch.empty_like(dfeat1) if need_values else None
+        dprior = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device) \
+            if need_prior else None
+        partials = 0 if dother1 is None and dother2 is None else \
+            2 if dother1 is not None and dother2 is not None else 1
+        size = lib.epipolar_attention_backward_scratch_bytes
+        size.argtypes = [ctypes.c_int] * 6
+        size.restype = ctypes.c_longlong
+        nbytes = size(B, H, W, K, C, partials)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
+        fn = lib.epipolar_attention_backward
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, dprior, scratch)]
+        if fused:
+            ptr[1] = ptr[0]
+        tracing.launching()
+        err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
+                 B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags, max_union,
+                 torch.cuda.current_stream(f1.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"epipolar_attention_backward failed: CUDA error {err}")
     BACKWARD_LAUNCHES += 1
     _count_tiles(scratch if tiled else None, f1.device, B * -(-HW // TILE_QUERIES),
                  BACKWARD_TILE_COUNTS)
