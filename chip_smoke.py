@@ -45,8 +45,9 @@ run, each printed on its own lines:
      weights: under bf16 convolutions the loss and the whole-model gradient
      are compared, under f32 convolutions every parameter's gradient;
   4. (continued) times as above: the attention backward alone (with and
-     without the key/value gradients) and the train step at batch 8, and
-     the peak memory of a train step on each path;
+     without the key/value gradients) and the train step at batch 8 (a
+     CUDA graph of each path, as training runs it), and the peak memory
+     of an eager train step on each path;
   7. the eval engine on [3]'s model: (a) `engine.tester.test` (pymvg) over
      ENGINE_GROUPS synthetic view groups, finite EPEmean_global,
      MPJPE@action0, JDR and PCK@*, one forward launch per group, most tiles
@@ -1229,9 +1230,14 @@ def train_phase(cfg, device):
     step_parity(cfg.replace(DTYPE="float32"), device, per_param=True)
 
     optimizer = make_optimizer(cfg, model)
-    step = trainer.make_train_step(cfg, model, optimizer)
+    steps = {plain: trainer.make_train_step(cfg, model, optimizer) for plain in (False, True)}
 
-    def train_step(plain: bool):
+    def train_step(plain: bool, eager: bool = False):
+        """One train step on the kernel or the plain path: each path's own
+        step, a CUDA graph of that path from its second call on, as training
+        runs it; or, where `eager`, a fresh step, whose one call runs
+        eagerly."""
+        step = trainer.make_train_step(cfg, model, optimizer) if eager else steps[plain]
         with attention_path(model, plain):
             step(batch)
 
@@ -1856,7 +1862,7 @@ def recipe_phase(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: losses.append(step(inputs)["loss"]), iters=RECIPE_TRAIN_STEPS,
-                      warmup=1)
+                      warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(torch.isfinite(v) for v in losses):
         raise AssertionError(f"[9] losses {losses}")
@@ -1865,7 +1871,8 @@ def recipe_phase(device):
         f"tiles on the tile path / per-query path: forward {tiles[0]} / {tiles[1]}, backward "
         f"{backward_tiles[0]} / {backward_tiles[1]}")
     log(f"  train step at batch {B} (forward, backward, adam; device-rendered inputs): "
-        f"{step_ms:.3f} ms (CUDA events, mean of {RECIPE_TRAIN_STEPS} after 1), peak memory "
+        f"{step_ms:.3f} ms (CUDA events, mean of {RECIPE_TRAIN_STEPS} after 2: an eager step "
+        f"and the capture), peak memory "
         f"{peak:.3f} GiB, losses {', '.join(f'{float(v):.5g}' for v in losses)}")
     log(f"  train() loop wall per step after the first ({RECIPE_LOOP_STEPS} steps a run; loader, "
         f"upload, render and step): DEVICE_RENDER on {statistics.mean(loop_ms[True]):.3f} ms "
@@ -2061,7 +2068,7 @@ def param_recipe_phase(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: step_losses.append(step(batch)["loss"]), iters=PARAM_TRAIN_STEPS,
-                      warmup=1)
+                      warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(torch.isfinite(v) for v in step_losses):
         raise AssertionError(f"(a) losses {step_losses}")
@@ -2083,7 +2090,8 @@ def param_recipe_phase(device):
 
     fb_ms = cuda_ms(forward_backward, iters=10)
     log(f"  (a) train step at batch {B} (forward, backward, adam; host-rendered inputs): "
-        f"{step_ms:.3f} ms (CUDA events, mean of {PARAM_TRAIN_STEPS} after 1), peak memory "
+        f"{step_ms:.3f} ms (CUDA events, mean of {PARAM_TRAIN_STEPS} after 2: an eager step "
+        f"and the capture), peak memory "
         f"{peak:.3f} GiB; the pooled attention alone, B={B} {H}x{W} "
         f"K={cfg.EPIPOLAR.SAMPLESIZE}->{cfg.EPIPOLAR.SAMPLESIZE // 2} C={C} f32, keys and values "
         f"apart: forward {fwd_ms:.3f} ms, forward and backward {fb_ms:.3f} ms")
@@ -2262,12 +2270,13 @@ def cli_run(name, argv):
 
 def device_step_ms(cfg, inputs, device, steps: int = 3) -> float:
     """CUDA-event ms per train step (forward, backward, optimizer) of a
-    fresh model of `cfg` on `inputs`, after one warm-up step."""
+    fresh model of `cfg` on `inputs`, after two warm-up steps: an eager
+    one and the one that captures the step's CUDA graph."""
     from epipolar_transformers_tpu_torch.engine import trainer
 
     model = trainer.build_model(cfg, device)
     step = trainer.make_train_step(cfg, model, trainer.make_optimizer(cfg, model))
-    return cuda_ms(lambda: step(inputs), iters=steps, warmup=1)
+    return cuda_ms(lambda: step(inputs), iters=steps, warmup=2)
 
 
 def rhd_recipes_phase(device):
@@ -4163,12 +4172,13 @@ def bound(feats, locs, backward: bool, distinct: bool = True, prior: bool = Fals
 
 
 def peak_step_memory(train_step, plain: bool) -> float:
-    """Peak device memory of one train step, GiB."""
+    """Peak device memory of one eager train step, GiB (a graph's replay
+    calls no allocator)."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    train_step(plain)
+    train_step(plain, eager=True)
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -4254,7 +4264,7 @@ def main() -> int:
     log(f"    train step (forward, backward, adam), batch {BENCH_BATCH}: kernel path "
         f"{tk_ms:.3f} ms, plain path {tp_ms:.3f} ms")
     mem_k, mem_p = peak_step_memory(train_step, False), peak_step_memory(train_step, True)
-    log(f"    train step peak memory (max_memory_allocated): kernel path {mem_k:.3f} GiB, "
+    log(f"    eager train step peak memory (max_memory_allocated): kernel path {mem_k:.3f} GiB, "
         f"plain path {mem_p:.3f} GiB")
 
     log("[7] eval engine: engine.tester.test and the command line on the flagship config")

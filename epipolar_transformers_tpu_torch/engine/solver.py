@@ -22,6 +22,12 @@ updates.  Written here, where torch differs from optax:
     exactly as under optax.MultiSteps.
 The update count and the accumulated mean are part of the optimizer's state
 dict, as in optax, so a checkpoint of the optimizer carries the schedule.
+
+On CUDA parameters adam is torch's capturable form: its step counts stay
+on the device and it computes the bias corrections there, in float32,
+where the default form reads the counts on the host every update, so a
+CUDA graph can hold the update (engine/trainer.py).  The CPU keeps the
+default form.
 """
 
 from __future__ import annotations
@@ -89,13 +95,15 @@ class Optimizer:
         if batch_mul < 1:
             raise ValueError(f"SOLVER.BATCH_MUL must be >= 1, got {batch_mul}")
         self.params = list(params)
+        self.capturable = bool(self.params) and all(p.is_cuda for p in self.params)
         lr = schedule(0)
         if kind == "sgd":
             self.inner = torch.optim.SGD(self.params, lr, momentum=momentum,
                                          weight_decay=weight_decay, foreach=True)
         elif kind == "adam":
             self.inner = torch.optim.Adam(self.params, lr, betas=(ADAM_B1, ADAM_B2),
-                                          eps=ADAM_EPS, weight_decay=weight_decay, foreach=True)
+                                          eps=ADAM_EPS, weight_decay=weight_decay, foreach=True,
+                                          capturable=self.capturable)
         elif kind == "rmsprop":
             self.inner = RMSprop(self.params, lr, weight_decay=weight_decay)
         else:
@@ -123,10 +131,17 @@ class Optimizer:
             for p, a in zip(self.params, self.acc):
                 p.grad = a
             self.acc = [torch.zeros_like(p) for p in self.params]
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
+        self.set_lr()
         self.inner.step()
         self.count += 1
+
+    def set_lr(self) -> float:
+        """Set the schedule's rate for the next update on every group, and
+        return it."""
+        lr = self.schedule(self.count)
+        for group in self.inner.param_groups:
+            group["lr"] = lr
+        return lr
 
     def state_dict(self) -> dict:
         return {"inner": self.inner.state_dict(), "count": self.count,
@@ -134,6 +149,11 @@ class Optimizer:
 
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state["inner"])
+        if isinstance(self.inner, torch.optim.Adam):  # the saved form may be the other one
+            for group in self.inner.param_groups:
+                group["capturable"] = self.capturable
+            for p, s in self.inner.state.items():
+                s["step"] = s["step"].to(p.device)
         self.count, self.mini_step = state["count"], state["mini_step"]
         self.acc = [a.to(p) for a, p in zip(state["acc"], self.params)]
 

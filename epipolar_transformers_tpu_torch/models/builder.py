@@ -60,7 +60,7 @@ from torch import nn
 from ..config import Config
 from ..losses.heatmap_loss import compute_stage_loss, joints_mse_loss, keypoints_mse_smooth_loss
 from ..metrics.metrics3d import epe_mean, epe_mean_multiview_gt
-from ..ops.epipolar_reproject import gt_grid, reproject_consistency, reprojection_loss
+from ..ops.epipolar_reproject import gt_grid_on, reproject_consistency, reprojection_loss
 from ..utils import tracing
 from .layers import BatchNorm2d
 from .lifting import LiftingNet
@@ -194,9 +194,8 @@ class ModelBuilder(nn.Module):
         reproj, mask = reproject_consistency(
             nhwc(bb.features), nhwc(other_features), bb.sample_locs, bb.depth,
             inputs["KRT"].float(), inputs["other_KRT"].float(), geom, sampler.attention_params)
-        grid = torch.as_tensor(gt_grid(geom), device=reproj.device)
-        return self.cfg.EPIPOLAR.REPROJECT_LOSS_WEIGHT * reprojection_loss(reproj, grid[None],
-                                                                           mask)
+        return self.cfg.EPIPOLAR.REPROJECT_LOSS_WEIGHT * reprojection_loss(
+            reproj, gt_grid_on(geom, reproj.device)[None], mask)
 
     def _reference(self, inputs, other_features, decode_peaks: bool):
         """The reference backbone on the target view, fused with the other's."""

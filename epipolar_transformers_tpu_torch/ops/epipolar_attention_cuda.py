@@ -60,7 +60,7 @@ BACKWARD_LAUNCHES = 0
 # launches' tiles
 TILE_COUNTS: dict = {}
 BACKWARD_TILE_COUNTS: dict = {}
-# tracing (utils/tracing.py) clears them when it turns on and sums them at drain
+# tracing (utils/tracing.py) zeroes them when it turns on and sums them at drain
 tracing.register_device_counts(TILE_COUNTS, ("attn.forward_tiles.tile_path",
                                              "attn.forward_tiles.per_query_path"))
 tracing.register_device_counts(BACKWARD_TILE_COUNTS, ("attn.backward_tiles.tile_path",

@@ -14,6 +14,8 @@ loss's mask count is taken over the global batch under a process group
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -69,6 +71,15 @@ def gt_grid(geom: EpipolarGeometry) -> np.ndarray:
         gx = -1.0 + 2.0 * (xs + 0.5) / W
         gy = -1.0 + 2.0 * (ys + 0.5) / H
     return np.stack([gx, gy], axis=-1).astype(np.float32)
+
+
+@functools.cache
+def gt_grid_on(geom: EpipolarGeometry, device: torch.device) -> torch.Tensor:
+    """`gt_grid(geom)` on `device`, uploaded once (an upload waits for the
+    host and cannot be held in a CUDA graph); a normal tensor even under
+    inference_mode."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(gt_grid(geom), device=device)
 
 
 def reprojection_loss(reproj: torch.Tensor, grid: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

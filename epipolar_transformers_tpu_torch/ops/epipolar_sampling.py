@@ -8,10 +8,14 @@ and emit K evenly spaced samples between the first two valid
 intersections, normalized to (-1, 1).  Lines that miss the rectangle get
 far-out-of-range locations, which sample to exact zeros and are masked by
 the attention.  Computed in float32 (in float64 for a float64 `grid`).
+The constants of a geometry (its pixel grid, the far-out location and the
+K fractions along a segment) go to the device once, not on every call: an
+upload waits for the host and cannot be held in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +60,20 @@ class EpipolarGeometry(NamedTuple):
         return np.stack([gx, gy, np.ones_like(gx)]).reshape(3, -1).astype(dtype)
 
 
+@functools.cache
+def _constants(geom: EpipolarGeometry, device: torch.device, dtype: torch.dtype):
+    """(geom.grid() (3, HW) float32, the far-out location (2,) in `dtype`,
+    the K fractions along a segment, float32) on `device`; normal tensors
+    even under inference_mode, so that training may use them too."""
+    with torch.inference_mode(False):
+        grid = torch.as_tensor(geom.grid(), device=device)
+        outrange = torch.tensor([geom.xmin - 10000.0, geom.ymin - 10000.0], dtype=dtype,
+                                device=device)
+        steps = torch.as_tensor(np.linspace(0.0, 1.0, geom.sample_size, dtype=np.float32),
+                                device=device)
+    return grid, outrange, steps
+
+
 def _stable_div(num, den):
     # reference epipolar.py:369-373: sign(den) * max(|den|, eps)
     sign = torch.where(den >= 0, 1.0, -1.0).to(den.dtype)
@@ -78,9 +96,10 @@ def epipolar_sample_locs(P1: torch.Tensor, P2: torch.Tensor, geom: EpipolarGeome
         a float64 grid.
     """
     H, W, K = geom.feat_h, geom.feat_w, geom.sample_size
+    dtype = torch.float32 if grid is None else torch.promote_types(grid.dtype, torch.float32)
+    pixels, outrange, steps = _constants(geom, P1.device, dtype)
     if grid is None:
-        grid = torch.as_tensor(geom.grid(), device=P1.device)  # (3, HW)
-    dtype = torch.promote_types(grid.dtype, torch.float32)
+        grid = pixels  # (3, HW)
     P1 = P1.to(dtype)
     P2 = P2.to(dtype)
     grid = grid.to(dtype)
@@ -122,13 +141,10 @@ def epipolar_sample_locs(P1: torch.Tensor, P2: torch.Tensor, geom: EpipolarGeome
     # the valid ones first, in their original order)
     order = torch.argsort((~mask).to(torch.int32), dim=-1, stable=True)[..., :2]
     picked = torch.gather(cand, 2, order[..., None].expand(N, H * W, 2, 2))
-    outrange = torch.tensor([xmin - 10000.0, ymin - 10000.0], dtype=picked.dtype,
-                            device=picked.device)
     picked = torch.where(has_line[..., None, None], picked, outrange)
 
     start = picked[:, :, 0]  # (N, HW, 2)
     vec = picked[:, :, 1] - start
-    steps = torch.as_tensor(np.linspace(0.0, 1.0, K, dtype=np.float32), device=P1.device)
     locs = start[:, None] + vec[:, None] * steps[None, :, None, None]  # (N, K, HW, 2)
 
     # back to feature-pixel space, then (-1, 1)   (epipolar.py:410-414)

@@ -35,8 +35,10 @@ the span around it.
 
 Device counts: a module registers a dict of per-device int64 (2,) tensors
 (`register_device_counts`, the attention's tiles on each path); enable()
-clears it and the first drain() after it sums it (that syncs), as two
-counters under no span (index -1), and leaves it for its other readers.
+zeroes each tensor in place (a CUDA graph that adds into one keeps adding
+into it) and the first drain() after it sums them (that syncs), as two
+counters under no span (index -1), and leaves them for their other
+readers.
 """
 
 from __future__ import annotations
@@ -175,7 +177,7 @@ def launching() -> None:
 
 
 def register_device_counts(counts: dict, names: Tuple[str, str]) -> None:
-    """Clear `counts` ({device: int64 (2,) tensor}) when tracing turns on,
+    """Zero `counts` ({device: int64 (2,) tensor}) when tracing turns on,
     and sum it into the counters `names` at the first drain after that."""
     _device_counts.append((counts, names))
 
@@ -193,13 +195,14 @@ def _count_sync(message, category, filename, lineno, file=None, line=None):
 
 
 def enable(annotate: bool = False) -> None:
-    """Start a new recording: empty the buffers and the registered device
+    """Start a new recording: empty the buffers, zero the registered device
     counts, count host syncs on a CUDA machine, and turn the spans on."""
     global _on, _annotate, _follows_profiler, _step, _restore, _counts_due
     disable()
     _take()
     for counts, _ in _device_counts:
-        counts.clear()
+        for pair in counts.values():
+            pair.zero_()
     _counts_due = True
     if torch.cuda.is_available():
         caught = warnings.catch_warnings()
@@ -259,8 +262,8 @@ def drain() -> Tuple[List[Span], Dict[Tuple[int, str], int]]:
         key = (keep.get(index, -1), name)
         out[key] = out.get(key, 0) + n
     for counts, names in _device_counts if _counts_due else ():
-        if counts:
-            total = sum(t.to("cpu") for t in counts.values()).tolist()
+        total = sum(t.to("cpu") for t in counts.values()).tolist() if counts else [0]
+        if any(total):  # no launch since enable(): no counters
             for name, n in zip(names, total):
                 out[(-1, name)] = int(n)
     _counts_due = False

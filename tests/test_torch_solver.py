@@ -98,3 +98,28 @@ def test_optimizer_state_round_trips(rng):
         p.grad = g.clone()
         o.step()
     torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
+
+
+def test_a_checkpoint_of_the_other_adam_form_resumes(rng):
+    """Adam is capturable on CUDA and not on the CPU; a checkpoint keeps the
+    form it was saved in, and loading puts back the loader's form (a
+    capturable state on CPU parameters would raise at the step)."""
+    make = lambda p: Optimizer(p, "adam", make_lr_schedule(_cfg(OPTIMIZER="adam"), 1))  # noqa: E731
+    a = [torch.nn.Parameter(torch.zeros(4))]
+    opt = make(a)
+    a[0].grad = torch.from_numpy(rng.randn(4).astype(np.float32))
+    opt.step()
+    buf = io.BytesIO()
+    torch.save(opt.state_dict(), buf)
+    buf.seek(0)
+    state = torch.load(buf, weights_only=True)
+    state["inner"]["param_groups"][0]["capturable"] = True  # as saved on the card
+    b = [torch.nn.Parameter(a[0].detach().clone())]
+    resumed = make(b)
+    resumed.load_state_dict(state)
+    assert resumed.inner.param_groups[0]["capturable"] is False
+    g = torch.from_numpy(rng.randn(4).astype(np.float32))
+    for p, o in ((a[0], opt), (b[0], resumed)):
+        p.grad = g.clone()
+        o.step()
+    torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
