@@ -16,6 +16,13 @@ For each seed it prints one JSON line of the cell's numbers for:
   precision (bfloat16 convolutions, or TF32 for float32), against the
   float32 reference: what rounding alone gives, beside the program's.
 A state left unchanged reads 1 on `change_gap` by the measure itself.
+A cell over several ranks adds two faults of data parallelism:
+- `local_moments`: the reference with each BatchNorm on one rank's rows
+  alone and the gradients averaged over the ranks (DDP without the BN
+  exchange), rank 0's rows and running statistics compared;
+- `a_rank_skips_a_step`: `rank_gap` of a rank whose second update is
+  undone: each leaf's change in the reference's second step over the leaf
+  after the third.
 """
 
 import argparse
@@ -24,6 +31,67 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def local_moment_steps(cell, state, batches, device, lr: float, ranks: int, states=None):
+    """The float32 reference's three steps with each BN on one rank's rows
+    (of `ranks` equal shares) and the ranks' gradients averaged: a
+    `compare.TrainReading` of rank 0's rows and statistics.  With `states`,
+    append the floating state after each step."""
+    import torch
+
+    from h100_bench.harness import compare
+    from h100_bench.reference import geometry as refgeo
+    from h100_bench.reference import model as refmodel
+
+    z = cell.sizes
+    model = refmodel.build(z.depth, z.joints, "float32", state, device).train()
+    params = dict(model.named_parameters())
+    adam = refmodel.Adam(list(params.values()), lr)
+    out = compare.TrainReading()
+    for i, b in enumerate(batches[:3]):
+        n = len(b["img"]) // ranks
+        for p in params.values():
+            p.grad = None
+        losses, kept = [], {}
+        for r in range(ranks):
+            part = {k: v[r * n:(r + 1) * n] for k, v in b.items()}
+            locs = refgeo.sample_locations(part["KRT"], part["other_KRT"], z.heatmap_hw,
+                                           z.samples, z.stride)
+            heat = model(part["img"].float(), part["other_img"].float(), locs)
+            loss = refmodel.joints_mse(heat, part["heatmap"].float(),
+                                       part["visibility"].float())
+            (loss / ranks).backward()
+            losses.append(float(loss.detach()))
+            if r == 0:  # rank 0's running statistics
+                kept = {k: v.clone() for k, v in model.named_buffers()}
+                if i == 0:
+                    out.heatmaps1 = heat.detach().float().cpu()
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(kept[k])
+        if i == 0:
+            out.grad_norms = {k: float(p.grad.norm()) for k, p in params.items()}
+        adam.step()
+        out.losses.append(sum(losses) / ranks)
+        if states is not None:
+            states.append({k: v.detach().clone() for k, v in model.state_dict().items()
+                           if v.is_floating_point()})
+    with torch.no_grad():
+        now = model.state_dict()
+        out.change_norms = {k: float((now[k] - state[k]).norm()) for k in state
+                            if state[k].is_floating_point()}
+    del model, adam, params
+    return out
+
+
+def skipped_step_gap(cell, state, batches, device, lr: float) -> float:
+    """`rank_gap` of a rank whose second update is undone: the largest over
+    the leaves of ||change in step 2|| / ||leaf after step 3||."""
+    states = []
+    local_moment_steps(cell, state, batches, device, lr, 1, states)
+    s1, s2, s3 = states
+    return max(float((s2[k] - s1[k]).norm() / s3[k].norm().clamp(min=1e-30)) for k in s3)
 
 
 def main(argv=None) -> int:
@@ -64,6 +132,11 @@ def main(argv=None) -> int:
             line["control"] = compare.train_numbers(ctl, ref)
             line["half_batch"] = compare.train_numbers(half, ref)
             line["own_precision"] = compare.train_numbers(own, ref)
+            if cell.chips > 1:
+                local = local_moment_steps(cell, state, batches, device, lr, cell.chips)
+                line["local_moments"] = compare.train_numbers(local, ref)
+                line["a_rank_skips_a_step"] = {
+                    "rank_gap": skipped_step_gap(cell, state, batches, device, lr)}
         else:
             groups = inputs.infer_groups(rig, traffic["groups"])[:traffic["checked_groups"]]
             ref = compare.infer_reference_heatmaps(cell, state, groups, device, "float32")

@@ -22,7 +22,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     """One run of `cell`: the result line's keys, in order, with the checks last."""
     from . import compare, infer, train
 
-    driver = {"train": train, "infer": infer}[cell.traffic["kind"]]
+    if cell.chips > 1:  # one rank of several (harness/ranks.py)
+        from . import rank_train as driver
+    else:
+        driver = {"train": train, "infer": infer}[cell.traffic["kind"]]
     record, checks, attempted, failed, peak = driver.run(cell, seed, seconds, trace, device,
                                                          t_start)
     wanted = cell.per_layer if trace else cell.end_to_end

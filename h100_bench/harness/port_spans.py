@@ -45,12 +45,6 @@ class PortSpans:
         """Host milliseconds inside the spans named `name` (inclusive)."""
         return 1e3 * sum(s[1] - s[0] for s in self.spans if s[2] == name)
 
-    def device_ms(self, names: Sequence[str]) -> Optional[float]:
-        """The CUDA events' milliseconds of the device spans named in
-        `names`; None where none of them has device time."""
-        times = [s[4] for s in self.spans if s[2] in names and s[4] is not None]
-        return sum(times) if times else None
-
     def roots(self) -> List[int]:
         """Each span's outermost ancestor (itself at the top)."""
         out: List[int] = []

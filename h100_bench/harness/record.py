@@ -27,3 +27,4 @@ class RunRecord:
     untraced_s: float = 0.0  # their host seconds from the window's start
     # the least seconds of the attention calls the traced window made
     attention_bound_s: Dict[str, float] = field(default_factory=dict)
+    cards: int = 1  # that the step runs on, one rank each

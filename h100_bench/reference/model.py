@@ -34,6 +34,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 # depth -> (block, blocks per stage)
@@ -42,6 +43,9 @@ BLOCKS = {18: ("basic", (2, 2, 2, 2)), 34: ("basic", (3, 4, 6, 3)),
           152: ("bottleneck", (3, 8, 36, 3))}
 FP8_MAX = 448.0  # largest float8 e4m3 value
 NEG_INF = -1e10  # logit of a sample outside the image
+# cuDNN's grid sampler refuses an output of 2**31 elements or more: the
+# (N, C, K, HW) samples of 32 items at 96x96, K=64, C=256 hold 4.8e9
+SAMPLE_ELEMENTS = 2 ** 31 - 1
 
 
 def round_to(t: torch.Tensor, precision: str) -> torch.Tensor:
@@ -78,6 +82,34 @@ class Conv(nn.Module):
         return y.float()
 
 
+class _TrainBN(torch.autograd.Function):
+    """BatchNorm on the batch's moments, y = (x - mean) rsqrt(var + eps) w
+    + b over (N, H, W), that saves its input alone for the backward and
+    takes the textbook gradient there; it also returns the batch's mean and
+    biased variance.  Autograd of the same expression would hold x - mean
+    as well, which does not fit beside R-152's activations at 384 px and
+    batch 32 on one card."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, w, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return (x - mean[:, None, None]) * (inv * w)[:, None, None] + b[:, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, w, mean, inv = ctx.saved_tensors
+        m = x.numel() // x.shape[1]
+        xhat = (x - mean[:, None, None]) * inv[:, None, None]
+        gb = gy.sum(dim=(0, 2, 3))
+        gw = (gy * xhat).sum(dim=(0, 2, 3))
+        gx = (gy - (gb / m)[:, None, None] - xhat * (gw / m)[:, None, None]) \
+            * (inv * w)[:, None, None]
+        return gx, gw, gb, None
+
+
 class BN(nn.Module):
     """BatchNorm in float32 (eps 1e-5, momentum 0.1): batch moments and a
     biased-variance running update in training, running statistics else."""
@@ -93,12 +125,12 @@ class BN(nn.Module):
     def forward(self, x):
         x = x.float()
         if self.training:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            y, mean, var = _TrainBN.apply(x, self.weight, self.bias, 1e-5)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
-        else:
-            mean, var = self.running_mean, self.running_var
+            return y
+        mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + 1e-5)
         return (x - mean[:, None, None]) * (inv * self.weight)[:, None, None] \
             + self.bias[:, None, None]
@@ -153,7 +185,17 @@ class EpipolarFusion(nn.Module):
         self.bn = BN(c)
 
     def attend(self, feat, other, locs):
-        """feat, other (N, C, H, W); locs (N, K, H, W, 2) -> (N, C, H, W)."""
+        """feat, other (N, C, H, W); locs (N, K, H, W, 2) -> (N, C, H, W).
+        Each item attends alone, so a batch whose samples would pass
+        `SAMPLE_ELEMENTS` attends item by item, each item recomputed in the
+        backward, so that one item's samples are held at a time."""
+        N, C, H, W = feat.shape
+        if N * C * locs.shape[1] * H * W <= SAMPLE_ELEMENTS:
+            return self._attend(feat, other, locs)
+        return torch.cat([checkpoint(self._attend, feat[i:i + 1], other[i:i + 1],
+                                     locs[i:i + 1], use_reentrant=False) for i in range(N)])
+
+    def _attend(self, feat, other, locs):
         N, C, H, W = feat.shape
         K = locs.shape[1]
         samples = F.grid_sample(other, locs.reshape(N, K, H * W, 2), mode="bilinear",

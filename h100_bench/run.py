@@ -11,8 +11,10 @@ output; each compared number beside its limit goes last on standard error
 too.  With `--trace 0` the line holds the cell's end-to-end metrics, with
 `--trace 1` its per-layer metrics from a profiler trace of the window.  It
 exits non-zero, printing no result, where torch sees no card or fewer
-cards than the cell asks for, and where a JAX module is loaded.  Build
-caches stay in `build/` inside the checkout.
+cards than the cell asks for, and where a JAX module is loaded.  A cell on
+several cards runs one process a card (`harness/ranks.py`), prints rank
+0's result once every rank has ended, and exits non-zero where any rank
+fails.  Build caches stay in `build/` inside the checkout.
 """
 
 import time
@@ -67,10 +69,17 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T_START)
-    result["device"] = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                        "count": cell.chips, **result["device"]}
+    if cell.chips > 1:  # a process a card, rank 0's result (harness/ranks.py)
+        from h100_bench.harness import ranks
+
+        result = ranks.launch(cell, args.seed, args.seconds, bool(args.trace), T_START)
+        if result is None:
+            return 4
+    else:
+        device = torch.device("cuda", 0)
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T_START)
+        result["device"] = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                            "count": cell.chips, **result["device"]}
     found = forbidden_modules()
     if found:
         print(f"h100_bench: the run loaded {found}", file=sys.stderr)

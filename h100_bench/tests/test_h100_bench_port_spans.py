@@ -1,4 +1,4 @@
-"""The readers of the port's own spans (harness/port_spans.py and the nine
+"""The readers of the port's own spans (harness/port_spans.py and the eight
 `program_span` metrics that read it): each reads a synthetic RunRecord and
 returns None without its data; the drain keeps the traced window's spans;
 idle gaps are named by the innermost span that holds their middle, nested
@@ -16,7 +16,7 @@ from h100_bench.harness.trace import Trace
 NEW = {  # metric -> its value on the synthetic records below
     "forward_host_ms.train": 30.0, "backward_host_ms.train": 20.0,
     "optimizer_host_ms.train": 6.0, "host_syncs_per_step.train": 3.5,
-    "attn_device_ms.train": 3.0, "attn_tile_path_share.train": 75.0,
+    "attn_tile_path_share.train": 75.0,
     "upload_ms.infer": 2.0, "forward_host_ms.infer": 10.0, "host_syncs_per_group.infer": 1.5,
 }
 
@@ -89,14 +89,11 @@ def test_each_new_reader_returns_none_without_its_data(name):
     assert reader.read(empty) is None
 
 
-@pytest.mark.parametrize("name", ["host_syncs_per_step.train", "host_syncs_per_group.infer",
-                                  "attn_device_ms.train"])
+@pytest.mark.parametrize("name", ["host_syncs_per_step.train", "host_syncs_per_group.infer"])
 def test_cuda_only_readers_return_none_on_a_cpu_record(name):
     kind = "train" if name.endswith(".train") else "infer"
     run = _record(kind, cuda=False)
     spans = _train_spans() if kind == "train" else _infer_spans()
-    if name == "attn_device_ms.train":  # no CUDA events on the CPU
-        spans.spans = [s[:4] + (None,) for s in spans.spans]
     port_spans.attach(run, spans)
     assert spec.reader(name).read(run) is None
 

@@ -135,3 +135,40 @@ def _cell():
                            stride=4, channels=256, sigma=2.0)
 
     return Tiny()
+
+
+def test_the_attention_item_by_item_is_the_same(monkeypatch):
+    """A batch whose samples pass SAMPLE_ELEMENTS attends item by item (each
+    recomputed in the backward): the same output and gradients."""
+    fusion = refmodel.EpipolarFusion(8, "float32")
+    g = torch.Generator().manual_seed(0)
+    feat = torch.randn(5, 8, 6, 6, generator=g, requires_grad=True)
+    other = torch.randn(5, 8, 6, 6, generator=g, requires_grad=True)
+    locs = torch.rand(5, 4, 6, 6, 2, generator=g) * 2.2 - 1.1
+    seen = []
+    for elements in (refmodel.SAMPLE_ELEMENTS, 8 * 4 * 36):  # whole; item by item
+        monkeypatch.setattr(refmodel, "SAMPLE_ELEMENTS", elements)
+        out = fusion.attend(feat, other, locs)
+        grads = torch.autograd.grad((out * out).sum(), (feat, other))
+        seen.append((out.detach(), *grads))
+    for a, b in zip(*seen):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_the_train_batchnorm_gradient_is_autograds():
+    """The reference's training BN (its own backward, which saves the input
+    alone) against autograd of the same expression, in float64."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 3, 5, 5, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(3, generator=g, dtype=torch.float64, requires_grad=True)
+    b = torch.randn(3, generator=g, dtype=torch.float64, requires_grad=True)
+    up = torch.randn(4, 3, 5, 5, generator=g, dtype=torch.float64)
+    y, mean, var = refmodel._TrainBN.apply(x, w, b, 1e-5)
+    got = torch.autograd.grad((y * up).sum(), (x, w, b))
+    v, m = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    plain = (x - m[:, None, None]) * (torch.rsqrt(v + 1e-5) * w)[:, None, None] + b[:, None, None]
+    want = torch.autograd.grad((plain * up).sum(), (x, w, b))
+    torch.testing.assert_close(y, plain, rtol=0, atol=0)
+    torch.testing.assert_close((mean, var), (m, v), rtol=0, atol=0)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-10, atol=1e-12)

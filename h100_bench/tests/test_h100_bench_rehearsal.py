@@ -81,6 +81,8 @@ def test_cell_resolves_to_its_files(cell):
         assert m["moves"] in e2e, (cell, m["name"])
     for number, entry in c.limits.items():
         assert math.isfinite(entry["limit"]) and entry["limit"] >= 0, number
+    if c.chips > 1:  # one rank a card, the deployment the configuration states
+        assert c.config["ranks"] == c.chips and "rank_gap" in c.limits
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
@@ -137,6 +139,8 @@ def test_a_short_run_on_the_card(cell):
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    if torch.cuda.device_count() < spec.load_cell(cell).chips:
+        pytest.skip(f"{cell} needs {spec.load_cell(cell).chips} GPUs")
     out = subprocess.run([sys.executable, "h100_bench/run.py", "--workload", cell, "--seed",
                           "2147483677", "--seconds", "2", "--trace", "0"], cwd=ROOT,
                          capture_output=True, text=True, timeout=900)
