@@ -42,12 +42,12 @@ def local_moment_steps(cell, state, batches, device, lr: float, ranks: int, stat
 
     from h100_bench.harness import compare
     from h100_bench.reference import geometry as refgeo
-    from h100_bench.reference import model as refmodel
+    from h100_bench.reference.model import Adam
 
-    z = cell.sizes
-    model = refmodel.build(z.depth, z.joints, "float32", state, device).train()
+    z, ref = cell.sizes, cell.reference
+    model = ref.build(cell.recipe, "float32", state, device).train()
     params = dict(model.named_parameters())
-    adam = refmodel.Adam(list(params.values()), lr)
+    adam = Adam(list(params.values()), lr)
     out = compare.TrainReading()
     for i, b in enumerate(batches[:3]):
         n = len(b["img"]) // ranks
@@ -59,8 +59,7 @@ def local_moment_steps(cell, state, batches, device, lr: float, ranks: int, stat
             locs = refgeo.sample_locations(part["KRT"], part["other_KRT"], z.heatmap_hw,
                                            z.samples, z.stride)
             heat = model(part["img"].float(), part["other_img"].float(), locs)
-            loss = refmodel.joints_mse(heat, part["heatmap"].float(),
-                                       part["visibility"].float())
+            loss = ref.loss(heat, part)
             (loss / ranks).backward()
             losses.append(float(loss.detach()))
             if r == 0:  # rank 0's running statistics

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..reference import geometry as refgeo
-from ..reference import model as refmodel
+from ..reference.model import Adam
 
 B1 = 0.9  # adam's first-moment decay, in the program and the reference
 PREFIX = "reference."  # the program's name of the reference's module
@@ -77,10 +77,10 @@ def reference_steps(cell, state, batches, device, precision: str, lr: float,
                     batch_slice=None) -> TrainReading:
     """The reference's three steps from `state` on `batches[:3]` (optionally
     each cut to `batch_slice`)."""
-    z = cell.sizes
-    model = refmodel.build(z.depth, z.joints, precision, state, device).train()
+    z, ref = cell.sizes, cell.reference
+    model = ref.build(cell.recipe, precision, state, device).train()
     params = dict(model.named_parameters())
-    adam = refmodel.Adam(list(params.values()), lr)
+    adam = Adam(list(params.values()), lr)
     out = TrainReading()
     for i, b in enumerate(batches[:3]):
         if batch_slice is not None:
@@ -88,7 +88,7 @@ def reference_steps(cell, state, batches, device, precision: str, lr: float,
         locs = refgeo.sample_locations(b["KRT"], b["other_KRT"], z.heatmap_hw, z.samples,
                                        z.stride)
         heat = model(b["img"].float(), b["other_img"].float(), locs)
-        loss = refmodel.joints_mse(heat, b["heatmap"].float(), b["visibility"].float())
+        loss = ref.loss(heat, b)
         for p in params.values():
             p.grad = None
         loss.backward()
@@ -125,7 +125,7 @@ def train_numbers(program: TrainReading, reference: TrainReading) -> Dict[str, f
 def infer_reference_heatmaps(cell, state, groups: List[Dict], device, precision: str):
     """The reference's eval heatmaps (V, J, h, w) of each group, float32."""
     z = cell.sizes
-    model = refmodel.build(z.depth, z.joints, precision, state, device).eval()
+    model = cell.reference.build(cell.recipe, precision, state, device).eval()
     out = []
     with torch.no_grad():
         for g in groups:

@@ -25,7 +25,6 @@ from epipolar_transformers_tpu_torch.engine.tester import (EvalRecord, fetch_out
                                                           host_output_keys, make_eval_step,
                                                           process_group)
 
-from ..reference import model as refmodel
 from . import compare, inputs, work
 from .record import RunRecord
 from .train import build_program, reference_state
@@ -141,7 +140,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
         peak_window_bytes=window_peak,
         # the reference's count is per item of two views; a group is V views
         # and their V others, the forward at batch V
-        forward_flops_per_item=refmodel.forward_flops(cell.sizes),
+        forward_flops_per_item=cell.reference.forward_flops(cell.recipe),
         peak_flops=work.PEAK_FLOPS[cell.config["precision"]],
         latencies_s=loop.latencies,
         eval_forward_ms=[a.elapsed_time(b) for a, b in loop.forward_events],

@@ -43,7 +43,6 @@ from . import compare, inputs, work
 from .record import RunRecord
 from .train import WARMUP_STEPS, build_program, reference_state
 from .window import TRACE_SECONDS, Window, warm_profiler
-from ..reference import model as refmodel
 
 PACE_STEPS = 3  # timed by rank 0 after the warm-up, to fix the window's steps
 
@@ -168,7 +167,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
     record = RunRecord(
         kind="train", setup_s=setup_s, window_s=window_s, steps=n, items_per_step=batch,
         peak_window_bytes=window_peak,
-        forward_flops_per_item=refmodel.forward_flops(cell.sizes),
+        forward_flops_per_item=cell.reference.forward_flops(cell.recipe),
         peak_flops=work.PEAK_FLOPS[cell.config["precision"]],
         trace=traced,
         traced_steps=n - window.traced_from,

@@ -6,15 +6,20 @@
   and the driver of its `kind`);
 - `metrics/<metric>.py`: one reader per metric, `read(run) -> float | None`;
 - `limits/<cell>.json`: each number the cell compares, with its limit and
-  the readings it was set from.
+  the readings it was set from;
+- `reference/<reference>.py`: the plain reference module that the
+  configuration's `"reference"` key names (`model` without the key), whose
+  contract `reference/__init__.py` states.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, NamedTuple, Tuple
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -22,26 +27,21 @@ ROOT = BENCH_DIR.parent
 
 
 class Sizes(NamedTuple):
-    """The sizes of a recipe that the harness and the reference use."""
+    """The sizes of a recipe that the harness's geometry and decode use; the
+    model's own (trunk, joints, widths) are its reference module's."""
 
-    depth: int  # of the ResNet trunk
-    joints: int
     samples: int  # K, along each epipolar line
     image_hw: Tuple[int, int]
     heatmap_hw: Tuple[int, int]
     stride: int  # of the heatmaps in image pixels
-    channels: int  # of the features the attention is handed
     sigma: float  # of the target heatmaps and the decode window
 
 
 def sizes(recipe: Dict) -> Sizes:
-    return Sizes(depth=int(recipe["BACKBONE"]["BODY"].split("-")[-1]),
-                 joints=int(recipe["KEYPOINT"]["NUM_PTS"]),
-                 samples=int(recipe["EPIPOLAR"]["SAMPLESIZE"]),
+    return Sizes(samples=int(recipe["EPIPOLAR"]["SAMPLESIZE"]),
                  image_hw=tuple(recipe["DATASETS"]["IMAGE_SIZE"]),
                  heatmap_hw=tuple(recipe["KEYPOINT"]["HEATMAP_SIZE"]),
                  stride=int(recipe["BACKBONE"].get("DOWNSAMPLE", 4)),
-                 channels=int(recipe["KEYPOINT"].get("NFEATS", 256)),
                  sigma=float(recipe["KEYPOINT"]["SIGMA"]))
 
 
@@ -62,6 +62,20 @@ class Cell:
     @property
     def sizes(self) -> Sizes:
         return sizes(self.recipe)
+
+    @property
+    def reference(self) -> ModuleType:
+        """The plain reference module that the configuration names."""
+        return reference_module(self.config.get("reference", "model"))
+
+
+def reference_module(name: str) -> ModuleType:
+    """The module `reference/<name>.py`."""
+    if not re.fullmatch(r"[A-Za-z][A-Za-z0-9_]*", name) or \
+            not (BENCH_DIR / "reference" / f"{name}.py").is_file():
+        raise ValueError(f"the configuration names the reference {name!r}: there is no "
+                         f"reference/{name}.py")
+    return importlib.import_module(f"..reference.{name}", __package__)
 
 
 def _json(path: Path) -> Dict:

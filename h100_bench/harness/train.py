@@ -22,7 +22,6 @@ from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
 from epipolar_transformers_tpu_torch.engine.trainer import make_train_step
 from epipolar_transformers_tpu_torch.models import ModelBuilder
 
-from ..reference import model as refmodel
 from . import compare, inputs, weights, work
 from .record import RunRecord
 from .window import Window, warm_profiler
@@ -49,8 +48,9 @@ def build_program(recipe: Dict, state: Dict[str, torch.Tensor], device
 
 def reference_state(cell, seed: int, device) -> Dict[str, torch.Tensor]:
     """The seed's weights for the cell's model, on `device`."""
-    return weights.make_state(refmodel.state_shapes(cell.sizes.depth, cell.sizes.joints), seed,
-                              device)
+    ref = cell.reference
+    return weights.make_state(ref.state_shapes(cell.recipe), seed, device,
+                              **getattr(ref, "weight_rules", {}))
 
 
 def _sync(device) -> None:
@@ -114,7 +114,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
     record = RunRecord(
         kind="train", setup_s=setup_s, window_s=window_s, steps=n, items_per_step=batch,
         peak_window_bytes=window_peak,
-        forward_flops_per_item=refmodel.forward_flops(cell.sizes),
+        forward_flops_per_item=cell.reference.forward_flops(cell.recipe),
         peak_flops=work.PEAK_FLOPS[cell.config["precision"]],
         trace=traced,
         traced_steps=n - window.traced_from,

@@ -1,6 +1,7 @@
 """The benchmark's own work arithmetic: the chip's published peaks, the
-least time of the epipolar attention (its roofline), and the step's
-FLOPs for the `mfu` metrics.
+least time of the epipolar attention (its roofline) and of the attention
+calls of a window.  A reference module's `attention_bound` bounds one call
+of its model; the `model` reference's is `attention_bound` here.
 
 Peaks: one NVIDIA H100 SXM, NVIDIA's data sheet, dense: 989 TFLOP/s for
 bf16 and fp16 inputs, 495 TFLOP/s for float32 inputs (TF32 on the tensor
@@ -55,8 +56,9 @@ def attention_bound(locs: torch.Tensor, channels: int, dtype: str,
                     backward: bool) -> Dict[str, float]:
     """The least seconds of one attention call at these locations, with C
     channels handed to the kernel in `dtype`: {"seconds", "flops", "bytes",
-    "bound_by"}.  The keys are the values (both configurations share their
-    weights).  The forward reads queries, keys and locations and writes the output and the (B, K, HW) float32 weights; the
+    "bound_by"}.  The keys are the values (the hand kernel's fusion, with
+    shared key and value weights).  The forward reads queries, keys and
+    locations and writes the output and the (B, K, HW) float32 weights; the
     backward reads queries, keys, locations and the output's gradient and
     writes the queries' and the keys' gradients."""
     B, K, H, W, _ = locs.shape
@@ -75,11 +77,12 @@ def attention_bound(locs: torch.Tensor, channels: int, dtype: str,
 def window_bounds(cell, cameras, first: int, end: int, backward: bool) -> Dict[str, float]:
     """The least seconds of the attention calls of window calls `first` to
     `end`, where call k runs on `cameras[k % len(cameras)]` (its (KRT,
-    other_KRT) pair), at the reference's locations: {"forward"} and, with
-    `backward`, {"backward"}."""
+    other_KRT) pair), at the reference's locations, each call's as the
+    cell's reference module bounds it: {"forward"} and, with `backward`,
+    {"backward"}."""
     from ..reference.geometry import sample_locations
 
-    z = cell.sizes
+    z, ref = cell.sizes, cell.reference
     dtype = cell.config["attention_dtype"]
     out = {"forward": 0.0, **({"backward": 0.0} if backward else {})}
     for i, (krt, other) in enumerate(cameras):
@@ -88,6 +91,6 @@ def window_bounds(cell, cameras, first: int, end: int, backward: bool) -> Dict[s
             continue
         locs = sample_locations(krt, other, z.heatmap_hw, z.samples, z.stride)
         for phase in out:
-            out[phase] += uses * attention_bound(locs, z.channels, dtype,
-                                                 backward=phase == "backward")["seconds"]
+            out[phase] += uses * ref.attention_bound(locs, cell.recipe, dtype,
+                                                     backward=phase == "backward")["seconds"]
     return out

@@ -1,5 +1,6 @@
 """The benchmark's plain reference of the epipolar PoseResNet, its loss and
-adam, in plain torch.
+adam, in plain torch: the reference module of every configuration file
+that names no other (the contract is in `reference/__init__.py`).
 
 Follows the published model (He et al., "Epipolar Transformers", CVPR
 2020, and its reference code's PoseResNet, epipolar layer and
@@ -29,12 +30,14 @@ nothing of the program under test.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..harness import spec, work
 
 
 # depth -> (block, blocks per stage)
@@ -212,7 +215,12 @@ class EpipolarFusion(nn.Module):
 
 
 class PoseResNet(nn.Module):
-    def __init__(self, depth: int, joints: int, precision: str = "float32"):
+    """The trunk, the deconv head, `fusion` (the module `epipolar_sampler`,
+    called as fusion(feat, other, locs); `EpipolarFusion` by default) and the
+    heatmap head on the fused features plus the reference view's."""
+
+    def __init__(self, depth: int, joints: int, precision: str = "float32",
+                 fusion: Optional[nn.Module] = None):
         super().__init__()
         p = precision
         self.conv1 = Conv(3, 64, 7, 2, 3, precision=p)
@@ -234,7 +242,7 @@ class PoseResNet(nn.Module):
             cin = 256
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = Conv(256, joints, 1, bias=True, precision=p)
-        self.epipolar_sampler = EpipolarFusion(256, p)
+        self.epipolar_sampler = EpipolarFusion(256, p) if fusion is None else fusion
 
     def features(self, x):
         h = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
@@ -281,36 +289,58 @@ class Adam:
             p.sub_(self.lr / c1 * m / ((v / c2).sqrt() + self.eps))
 
 
-def build(depth: int, joints: int, precision: str, state: Dict[str, torch.Tensor],
-          device) -> PoseResNet:
-    """The reference on `device` with `state` (names as `state_names` gives)."""
+def dims(recipe: Dict) -> Tuple[int, int]:
+    """The trunk's depth and the joints of `recipe`'s PoseResNet."""
+    return int(recipe["BACKBONE"]["BODY"].split("-")[-1]), int(recipe["KEYPOINT"]["NUM_PTS"])
+
+
+def build(recipe: Dict, precision: str, state: Dict[str, torch.Tensor], device) -> PoseResNet:
+    """The reference on `device` with `state` (names as `state_shapes` gives)."""
     with torch.device(device):
-        model = PoseResNet(depth, joints, precision)
+        model = PoseResNet(*dims(recipe), precision)
     model.load_state_dict(state, strict=True)
     return model
 
 
-def state_shapes(depth: int, joints: int) -> Dict[str, tuple]:
+def state_shapes(recipe: Dict) -> Dict[str, tuple]:
     """Every parameter's and buffer's name and shape, without allocating."""
     with torch.device("meta"):
-        model = PoseResNet(depth, joints)
+        model = PoseResNet(*dims(recipe))
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def forward_flops(sizes) -> int:
-    """The reference forward's FLOPs on one item (two views), as
-    FlopCounterMode counts them on meta tensors: 2 per multiply-add of every
-    convolution, transposed ones included, and of the attention's two
-    einsums (2 HW K C each); nothing elementwise.  `sizes` has the recipe's
-    depth, joints, image and heatmap sizes and samples."""
+def loss(heatmaps: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return joints_mse(heatmaps, batch["heatmap"].float(), batch["visibility"].float())
+
+
+def count_forward_flops(model: nn.Module, recipe: Dict) -> int:
+    """FLOPs of `model` (built on the meta device) on one item (two views)
+    of `recipe`'s sizes, as FlopCounterMode counts them on meta tensors: 2
+    per multiply-add of every convolution, transposed ones included, and of
+    every matrix product and einsum; nothing elementwise."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    z = spec.sizes(recipe)
     with torch.device("meta"):
-        model = PoseResNet(sizes.depth, sizes.joints)
-        img = torch.empty(1, 3, *sizes.image_hw)
-        locs = torch.empty(1, sizes.samples, *sizes.heatmap_hw, 2)
+        img = torch.empty(1, 3, *z.image_hw)
+        locs = torch.empty(1, z.samples, *z.heatmap_hw, 2)
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
         model(img, img, locs)
     return int(counter.get_total_flops())
 
+
+def forward_flops(recipe: Dict) -> int:
+    """The forward's FLOPs on one item: the convolutions and the
+    attention's two einsums (2 HW K C each)."""
+    with torch.device("meta"):
+        model = PoseResNet(*dims(recipe))
+    return count_forward_flops(model, recipe)
+
+
+def attention_bound(locs: torch.Tensor, recipe: Dict, dtype: str,
+                    backward: bool) -> Dict[str, float]:
+    """The hand kernel's least time (`work.attention_bound`): keys equal to
+    values, as wide as the recipe's features (NFEATS, 256 by default)."""
+    return work.attention_bound(locs, int(recipe["KEYPOINT"].get("NFEATS", 256)), dtype,
+                                backward)

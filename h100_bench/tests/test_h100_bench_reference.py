@@ -25,14 +25,16 @@ RIG = {"geometry_seed": 5, "rig": {"views": 4, "radius_mm": 4000.0, "target_mm":
                "focal_px": 128.0, "height_mm": 1200.0, "height_step_mm": 100.0, "angle0": 0.3},
        "skeleton": {"centre_mm": [0.0, 0.0, 1000.0], "jitter_mm": [80.0, 80.0, 80.0],
                     "extent_mm": [200.0, 200.0, 200.0]}}
-RECIPE = {"DATASETS": {"IMAGE_SIZE": [32, 32]}, "BACKBONE": {"DOWNSAMPLE": 4},
-          "KEYPOINT": {"HEATMAP_SIZE": [8, 8], "SIGMA": 2.0, "NUM_PTS": 5}}
+RECIPE = {"DATASETS": {"IMAGE_SIZE": [32, 32]},
+          "BACKBONE": {"BODY": "epipolarposeR-18", "DOWNSAMPLE": 4},
+          "KEYPOINT": {"HEATMAP_SIZE": [8, 8], "SIGMA": 2.0, "NUM_PTS": 5},
+          "EPIPOLAR": {"SAMPLESIZE": 4}}
 
 
 @pytest.fixture
 def shared():
     cfg = flagship_cfg(tiny=True)
-    state = weights.make_state(refmodel.state_shapes(18, 5), 3, "cpu")
+    state = weights.make_state(refmodel.state_shapes(RECIPE), 3, "cpu")
     with torch.device("cpu"):
         port = ModelBuilder(cfg)
     missing, unexpected = port.load_state_dict({"reference." + k: v.clone()
@@ -81,7 +83,7 @@ def test_eval_heatmaps_match_the_port(shared):
     cfg, state, port, batches = shared
     port.eval()
     b = batches[0]
-    ref = refmodel.build(18, 5, "float32", state, "cpu").eval()
+    ref = refmodel.build(RECIPE, "float32", state, "cpu").eval()
     with torch.no_grad():
         got = port({k: b[k] for k in ("img", "other_img", "KRT", "other_KRT")})["heatmap_pred"]
         locs = refgeo.sample_locations(b["KRT"], b["other_KRT"], (8, 8), 4, 4)
@@ -129,12 +131,8 @@ def test_pymvg_matches_the_port():
 
 def _cell():
     """A stand-in cell of the tiny flagship's sizes."""
-
-    class Tiny:
-        sizes = spec.Sizes(depth=18, joints=5, samples=4, image_hw=(32, 32), heatmap_hw=(8, 8),
-                           stride=4, channels=256, sigma=2.0)
-
-    return Tiny()
+    return spec.Cell(name="tiny", config={"recipe": RECIPE}, traffic={}, chips=1,
+                     end_to_end=[], per_layer=[], limits={})
 
 
 def test_the_attention_item_by_item_is_the_same(monkeypatch):

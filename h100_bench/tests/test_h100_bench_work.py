@@ -10,7 +10,6 @@ from epipolar_transformers_tpu_torch.utils.profiling import profile_model
 import h100_bench.tests.bench_tiny  # noqa: F401  (two torch threads)
 from h100_bench.harness import spec, work
 from h100_bench.harness.trace import Trace
-from h100_bench.reference import model as refmodel
 
 
 def _locs(points, H=5, W=5):
@@ -57,7 +56,8 @@ def test_peaks_are_the_published_ones():
 def test_reference_flops_match_the_port_count():
     """The reference's count of the flagship at 256 px against the port's
     own (FlopCounterMode on its eval forward, the attention by formula)."""
-    ours = refmodel.forward_flops(spec.load_cell("r50_256.train_b16").sizes)
+    cell = spec.load_cell("r50_256.train_b16")
+    ours = cell.reference.forward_flops(cell.recipe)
     cfg = update_from_dict(flagship_cfg(), {"DTYPE": "float32"})  # the count is the same
     theirs = profile_model(cfg, 1, device="cpu")["flops"]
     # the port's eval forward also decodes the peaks: two small matmuls a
