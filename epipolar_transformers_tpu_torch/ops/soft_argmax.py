@@ -12,6 +12,8 @@ Also `get_max_preds` (basic_batch.py:67-95), in numpy.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -31,6 +33,18 @@ def _axis_profile(center: torch.Tensor, offsets: torch.Tensor, size: int) -> tor
             + torch.where(i == b + 1, w1[..., None], zero))
 
 
+@functools.cache
+def _offsets(radius: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The window's (2r+1,) offsets on `device`, made once (a host copy,
+    which a CUDA graph's capture cannot hold); a normal tensor even under
+    inference_mode, so that training may use it too."""
+    iradius = int(radius + 0.5)
+    # torch.arange(-radius, radius + 1e-4, radius / Iradius): 2*Iradius+1 steps
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.arange(-radius, radius + 1e-4, radius * 1.0 / iradius),
+                               dtype=dtype, device=device)
+
+
 def find_tensor_peak_batch(heatmaps: torch.Tensor, radius: float, downsample: int,
                            threshold: float = 1e-6):
     """Decode (..., H, W) heatmaps -> ((..., 2) xy image coords, (...) scores)."""
@@ -41,11 +55,7 @@ def find_tensor_peak_batch(heatmaps: torch.Tensor, radius: float, downsample: in
     index_w = (index % W).to(heatmaps.dtype)
     index_h = torch.div(index, W, rounding_mode="floor").to(heatmaps.dtype)
 
-    iradius = int(radius + 0.5)
-    # torch.arange(-radius, radius + 1e-4, radius / Iradius): 2*Iradius+1 steps
-    offsets = torch.as_tensor(
-        np.arange(-radius, radius + 1e-4, radius * 1.0 / iradius),
-        dtype=heatmaps.dtype, device=heatmaps.device)
+    offsets = _offsets(float(radius), heatmaps.dtype, heatmaps.device)
     py = _axis_profile(index_h, offsets, H)  # (..., R, H)
     px = _axis_profile(index_w, offsets, W)  # (..., R, W)
     sub = py @ heatmaps @ px.transpose(-1, -2)  # (..., R, R) rows y, cols x
