@@ -41,6 +41,7 @@ engine/tester.py:213-221,243-248, reference tester.py:100-166).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import pickle
@@ -48,21 +49,18 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
-from torch.nn.parallel import DistributedDataParallel
 
-from .. import parallel
 from ..config import Config
 from ..data.pipeline import make_eval_loaders
 from ..geometry.body import HumanBody, compute_limb_length
 from ..geometry.host import triangulate_epipolar_np, triangulate_pymvg_np, triangulate_ransac_np
 from ..geometry.pictorial import rpsm
 from ..metrics.metrics2d import calculate_err, jdr
-from ..models.lifting import Dropout
-from ..ops import epipolar_attention_cuda as attn
 from ..utils import tracing
 from ..utils.file_utils import pred_pickle_path
 from ..utils.metric_logger import MetricLogger
 from ..vis.visualization import dump_eval_frames
+from . import cuda_graph
 
 logger = logging.getLogger(__name__)
 
@@ -114,41 +112,24 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, device,
     """Eval-mode forward over one view group (V views as the batch); with
     `train_bn`, BatchNorm on batch statistics (TEST.TRAIN_BN).
 
-    On CUDA the forward becomes one CUDA graph (`_EvalGraph`) once a call
-    has the same key as the call before it, which ran eagerly and so warmed
-    up cuDNN and the attention's scratch: the input signature (keys; each
-    tensor's shape, dtype, strides and device), `model.training`,
-    `train_bn` and the address of every parameter and buffer that the
-    model held when the step was made.  That call captures the graph and
-    replays it, and later calls with the key replay it: the host enqueues a
-    copy of each input, the graph and a clone of each output, where it
-    enqueued the forward's kernels, and each call's outputs are its own.
-    The graph reads the weights in place, so a train step or
-    `load_state_dict` between calls is seen; a parameter or buffer replaced
-    by another tensor changes the key (set to None, it keeps the step
-    eager).  The step keeps one graph:
-    a call with another key runs eagerly (a last partial group, another
-    view count), and a second such call in a row captures in place of the
-    graph.  The step stays eager where a replay would skip what the forward
-    does (`_graphable`): on the CPU, under a process group or
-    DistributedDataParallel, with hooks or training-mode dropout in the
-    model, or while tracing is on (it captures once tracing is off; replays
-    may run with it on).
+    On CUDA the forward is one CUDA graph under engine/cuda_graph.py's
+    policy, keyed by the input signature, `model.training`, `train_bn` and
+    the address of every parameter and buffer that the model held when the
+    step was made.  The graph reads the weights in place, so a train step
+    or `load_state_dict` between calls is seen; a parameter or buffer
+    replaced by another tensor changes the key (set to None, it keeps the
+    step eager).
 
     Spans (utils/tracing.py): `eval_step` (one id a group), `eval.upload`,
     `eval.forward` (the eager forward, or the replay, which counts
     GRAPH_REPLAY_EVAL)."""
-    from .trainer import _signature  # trainer imports this module
-
     model.eval()
     held = [(d, n) for m in model.modules() for d in (m._parameters, m._buffers)
             for n, t in d.items() if t is not None]
     dicts, names = [d for d, _ in held], [n for _, n in held]
-    graph, graph_key = None, None  # the captured forward and its key
-    previous = None  # the last call's key
 
     def key_of(inputs: Dict[str, torch.Tensor]) -> Optional[tuple]:
-        signature = _signature(inputs)
+        signature = cuda_graph.signature(inputs)
         if signature is None:
             return None
         try:  # the addresses, read in C: a Python loop over them costs ~0.1 ms
@@ -157,86 +138,20 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, device,
             return None
         return signature, model.training, train_bn, addresses
 
+    def forward(inputs: Dict[str, torch.Tensor]):
+        return model(inputs, bn_train=train_bn)
+
+    graphed = cuda_graph.OneGraph(forward, forward, functools.partial(cuda_graph.graphable, model),
+                                  GRAPH_REPLAY_EVAL)
+
     def eval_step(group: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        nonlocal graph, graph_key, previous
         with tracing.step("eval_step"), torch.inference_mode():
             with tracing.span("eval.upload"):
                 inputs = to_model_inputs(group, device)
             with tracing.span("eval.forward"):
-                key = key_of(inputs)
-                repeated, previous = key is not None and key == previous, key
-                if graph is None or key != graph_key:
-                    if not (repeated and _graphable(model, inputs)):
-                        return model(inputs, bn_train=train_bn)
-                    graph = None  # its pool is freed before the new capture
-                    graph, graph_key = _EvalGraph(model, inputs, train_bn), key
-                tracing.count(GRAPH_REPLAY_EVAL)
-                return graph(inputs)
+                return graphed(key_of(inputs), inputs)
 
     return eval_step
-
-
-def _graphable(model: torch.nn.Module, inputs: Dict[str, torch.Tensor]) -> bool:
-    """Whether a replay would do all that the forward does: every input on
-    CUDA, no process group (inside `parallel.alone()` a rank runs as one
-    process) and no DistributedDataParallel, tracing off, and no Python
-    that runs per call inside the model (a module hook; training-mode
-    dropout drawing from its generator)."""
-    hooks = torch.nn.modules.module
-    if not (_on_cuda(inputs) and not parallel.distributed()
-            and not isinstance(model, DistributedDataParallel) and not tracing.enabled()
-            and not (hooks._global_forward_hooks or hooks._global_forward_pre_hooks
-                     or hooks._global_backward_hooks or hooks._global_backward_pre_hooks)):
-        return False
-    return not any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
-                   or m._backward_pre_hooks
-                   or (m.training and isinstance(m, (Dropout, torch.nn.Dropout)) and m.p)
-                   for m in model.modules())
-
-
-def _on_cuda(inputs: Dict[str, torch.Tensor]) -> bool:
-    return all(v.is_cuda for v in inputs.values())
-
-
-class _EvalGraph:
-    """The eval forward of one key as a CUDA graph, captured on a side
-    stream (`torch.cuda.graph`) over static copies of the inputs made with
-    their strides; every intermediate and output lives in the graph's
-    private pool.  The attention's launch counts
-    (ops/epipolar_attention_cuda.py), which its wrapper keeps on the host,
-    advance by the capture's on every replay: the capture ran the wrapper's
-    Python and no kernel, a replay the kernels and no Python."""
-
-    def __init__(self, model: torch.nn.Module, inputs: Dict[str, torch.Tensor],
-                 train_bn: bool):
-        self.inputs = {k: torch.empty_like(v) for k, v in inputs.items()}
-        counted = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = model(self.inputs, bn_train=train_bn)
-        self.launches = attn.LAUNCHES - counted[0], attn.BACKWARD_LAUNCHES - counted[1]
-        attn.LAUNCHES, attn.BACKWARD_LAUNCHES = counted
-
-    def __call__(self, inputs: Dict[str, torch.Tensor]):
-        """One forward: the inputs copied in, a replay, and the outputs
-        cloned."""
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        self.graph.replay()
-        attn.LAUNCHES += self.launches[0]
-        attn.BACKWARD_LAUNCHES += self.launches[1]
-        return _clone(self.outputs)
-
-
-def _clone(out):
-    """`out` (tensors in dicts, tuples and lists) with every tensor cloned."""
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    if isinstance(out, dict):
-        return {k: _clone(v) for k, v in out.items()}
-    if isinstance(out, (tuple, list)):
-        return type(out)(_clone(v) for v in out)
-    return out
 
 
 def predict(cfg: Config, model: torch.nn.Module, loader: Iterable,

@@ -55,14 +55,13 @@ from ..config import Config
 from ..data.pipeline import make_train_loader
 from ..models import ModelBuilder
 from ..models.layers import BatchNorm2d
-from ..models.lifting import Dropout
-from ..ops import epipolar_attention_cuda as attn
 from ..ops.synthetic_render import RENDER_PARAM_KEYS, make_batch_renderer
 from ..utils.checkpoint import Checkpointer
 from ..utils.metric_logger import MetricLogger, TensorboardWriter
 from ..utils.pretrained import apply_pretrained
 from ..utils import tracing
 from ..utils.profiling import DATALOADER_STAGES
+from . import cuda_graph
 from .solver import Optimizer, make_optimizer
 from .tester import MODEL_KEYS, to_model_inputs
 
@@ -131,26 +130,18 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     """(model inputs) -> {loss terms and metrics, as detached tensors}: one
     forward, backward and optimizer step, the model in train mode.
 
-    On CUDA the step becomes one CUDA graph (`_Graph`) once a call has the
-    same input signature (keys; each tensor's shape, dtype, strides and
-    device) as the call before it, which ran eagerly and so warmed up adam's
-    state and the libraries: that call captures the graph and replays it,
-    and later calls with the signature replay it: the host enqueues a copy
-    of each input, the graph and a clone of each output, where it enqueued
-    thousands of kernels.  The step keeps one graph: a call with another
-    signature runs eagerly (an epoch's smaller last batch), and a second
-    such call in a row captures in place of the graph.  A step stays eager
-    where a replay would skip what it must do (`_graphable`): on the CPU,
-    under a process group, with BATCH_MUL > 1, with hooks or dropout in the
-    model, or while tracing is on (it captures once tracing is off; replays
-    may run with it on).  A new rate of the schedule captures anew.
+    On CUDA the step is one CUDA graph of all three, keyed by the input
+    signature, under engine/cuda_graph.py's policy; the grads live in the
+    graph's pool.  Beside that policy's rules, the step stays eager with
+    parameters off CUDA (adam is not capturable there) and with BATCH_MUL
+    > 1 (its accumulation is host state).  The rate is the schedule's at
+    the capture: a new rate captures anew.
 
     Spans (utils/tracing.py): `train_step`; eagerly `train.forward`,
     `train.backward`, and `train.optimizer` around zero_grad and step; a
     replay `train.replay` (input copies, replay, output clones), which
     counts GRAPH_REPLAY."""
-    graph, graph_key = None, None  # the captured step and its signature
-    previous = None  # the last call's signature
+    lr, grads = None, []  # the captured step's rate and grads
 
     def eager(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with tracing.span("train.forward"):
@@ -163,102 +154,36 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
             optimizer.step()
         return {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
 
+    def body(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        # run once, at the capture: `grads` are then the graph's own
+        nonlocal lr
+        optimizer.zero_grad(set_to_none=True)
+        lr = optimizer.set_lr()
+        loss_dict, metric_dict, _ = model(inputs)
+        loss_dict["loss"].backward()
+        optimizer.inner.step()
+        grads[:] = [p.grad for p in optimizer.params]
+        return {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
+
+    def replayed() -> None:
+        optimizer.count += 1
+        if grads and optimizer.params[0].grad is not grads[0]:
+            for p, g in zip(optimizer.params, grads):  # an eager step set others
+                p.grad = g
+
+    def graphable(inputs: Dict[str, torch.Tensor]) -> bool:
+        return (optimizer.capturable and optimizer.batch_mul == 1
+                and cuda_graph.graphable(model, inputs))
+
+    graphed = cuda_graph.OneGraph(body, eager, graphable, GRAPH_REPLAY, "train.replay", replayed)
+
     def train_step(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        nonlocal graph, graph_key, previous
         with tracing.step("train_step"):
             model.train()
-            key = _signature(inputs)
-            repeated, previous = key is not None and key == previous, key
-            if (graph is None or key != graph_key
-                    or graph.lr != optimizer.schedule(optimizer.count)):
-                if not (repeated and _graphable(model, optimizer, inputs)):
-                    return eager(inputs)
-                graph = None  # its pool is freed before the new capture
-                graph, graph_key = _Graph(model, optimizer, inputs), key
-            with tracing.span("train.replay"):
-                tracing.count(GRAPH_REPLAY)
-                return graph(inputs, optimizer)
+            return graphed(cuda_graph.signature(inputs), inputs,
+                           stale=lr != optimizer.schedule(optimizer.count))
 
     return train_step
-
-
-def _signature(inputs: Dict[str, torch.Tensor]) -> Optional[tuple]:
-    """What a graph of the step is captured for; None with a value that is
-    not a tensor."""
-    if not all(isinstance(v, torch.Tensor) for v in inputs.values()):
-        return None
-    return tuple((k, v.shape, v.dtype, v.stride(), v.device) for k, v in inputs.items())
-
-
-def _graphable(model: torch.nn.Module, optimizer: Optimizer,
-               inputs: Dict[str, torch.Tensor]) -> bool:
-    """Whether a replay would do all that this step does: every input and
-    parameter on CUDA, one process (DistributedDataParallel's reducer runs
-    on the host), one update a step (BATCH_MUL's accumulation is host
-    state), tracing off, and no Python that runs per call inside the model
-    (a module hook; dropout drawing from its generator)."""
-    hooks = torch.nn.modules.module
-    if not (_on_cuda(optimizer, inputs) and not parallel.distributed()
-            and not isinstance(model, DistributedDataParallel)
-            and optimizer.batch_mul == 1 and not tracing.enabled()
-            and not (hooks._global_forward_hooks or hooks._global_forward_pre_hooks
-                     or hooks._global_backward_hooks or hooks._global_backward_pre_hooks)):
-        return False
-    return not any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
-                   or m._backward_pre_hooks
-                   or (m.training and isinstance(m, (Dropout, torch.nn.Dropout)) and m.p)
-                   for m in model.modules())
-
-
-def _on_cuda(optimizer: Optimizer, inputs: Dict[str, torch.Tensor]) -> bool:
-    """Every parameter (adam then keeps its step counts there) and input on
-    CUDA."""
-    return optimizer.capturable and all(v.is_cuda for v in inputs.values())
-
-
-class _Graph:
-    """One train step of one input signature as a CUDA graph: forward,
-    backward and the optimizer's update, captured on a side stream
-    (`torch.cuda.graph`) over static copies of the inputs made with their
-    strides; the grads and every intermediate live in the graph's private
-    pool.  The rate is the schedule's at the capture.  The attention's
-    launch counts (ops/epipolar_attention_cuda.py), which its wrapper keeps
-    on the host, advance by the capture's on every replay: the capture ran
-    the wrapper's Python and no kernel, a replay the kernels and no
-    Python."""
-
-    def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
-                 inputs: Dict[str, torch.Tensor]):
-        self.inputs = {k: torch.empty_like(v) for k, v in inputs.items()}
-        optimizer.zero_grad(set_to_none=True)
-        self.lr = optimizer.set_lr()
-        counted = attn.LAUNCHES, attn.BACKWARD_LAUNCHES
-        self.graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph empties the allocator's cache as it enters, so
-        # the graph's pool takes the place of the eager steps' blocks
-        with torch.cuda.graph(self.graph):
-            loss_dict, metric_dict, _ = model(self.inputs)
-            loss_dict["loss"].backward()
-            optimizer.inner.step()
-        self.launches = attn.LAUNCHES - counted[0], attn.BACKWARD_LAUNCHES - counted[1]
-        attn.LAUNCHES, attn.BACKWARD_LAUNCHES = counted
-        self.outputs = {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
-        self.grads = [p.grad for p in optimizer.params]
-
-    def __call__(self, inputs: Dict[str, torch.Tensor],
-                 optimizer: Optimizer) -> Dict[str, torch.Tensor]:
-        """One step: the inputs copied in, a replay, and the outputs cloned,
-        so that each call's tensors are its own."""
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        self.graph.replay()
-        optimizer.count += 1
-        attn.LAUNCHES += self.launches[0]
-        attn.BACKWARD_LAUNCHES += self.launches[1]
-        if optimizer.params and optimizer.params[0].grad is not self.grads[0]:
-            for p, g in zip(optimizer.params, self.grads):  # an eager step set others
-                p.grad = g
-        return {k: v.clone() for k, v in self.outputs.items()}
 
 
 def data_parallel(cfg: Config, model: torch.nn.Module, device: torch.device) -> torch.nn.Module:

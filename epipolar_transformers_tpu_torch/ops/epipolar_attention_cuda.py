@@ -40,6 +40,7 @@ entry written by the lane that owns its (query, sample).  The other configs
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -468,11 +469,29 @@ def _count_tiles(scratch, device, tiles: int, counts: dict = TILE_COUNTS) -> Non
         pair += scratch[:8].view(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernels' library (ops/_build.py), with the C signatures of its
+    launch and scratch-size entry points declared once."""
+    from ._build import load_library
+
+    lib = load_library("epipolar_attention")
+    lib.epipolar_attention_forward_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.epipolar_attention_backward_scratch_bytes.argtypes = [ctypes.c_int] * 6
+    lib.epipolar_attention_forward_scratch_bytes.restype = ctypes.c_longlong
+    lib.epipolar_attention_backward_scratch_bytes.restype = ctypes.c_longlong
+    lib.epipolar_attention_forward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.epipolar_attention_backward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.epipolar_attention_forward.restype = ctypes.c_int
+    lib.epipolar_attention_backward.restype = ctypes.c_int
+    return lib
+
+
 def _kernel_args(f1, f2k, f2v, locs, prior, params):
     """Check the inputs against what the kernels take; returns the library
     and the (pointers, sizes, flags) the C entry points share."""
-    from ._build import load_library
-
     B, K, HW, _ = locs.shape
     C = f1.shape[-1]
     if f1.dtype not in (torch.float32, torch.bfloat16):
@@ -481,7 +500,7 @@ def _kernel_args(f1, f2k, f2v, locs, prior, params):
         raise ValueError(
             f"the CUDA kernel takes equal query, key and value widths in "
             f"{KERNEL_CHANNELS}, got {f1.shape[-1]}, {f2k.shape[-1]}, {f2v.shape[-1]}")
-    lib = load_library("epipolar_attention")
+    lib = _library()
     if not 1 <= K <= lib.epipolar_attention_max_samples():
         raise ValueError(f"the CUDA kernel takes at most "
                          f"{lib.epipolar_attention_max_samples()} samples, got {K}")
@@ -512,20 +531,14 @@ def _kernel_core(f1, f2k, f2v, locs, prior, H, W, params):
         C = f1.shape[-1]
         out = torch.empty(B, HW, C, dtype=torch.float32, device=f1.device)
         depth = torch.empty(B, K, HW, dtype=torch.float32, device=f1.device)
-        size = lib.epipolar_attention_forward_scratch_bytes
-        size.argtypes = [ctypes.c_int] * 3
-        size.restype = ctypes.c_longlong
-        nbytes = size(B, H, W)
+        nbytes = lib.epipolar_attention_forward_scratch_bytes(B, H, W)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
-        fn = lib.epipolar_attention_forward
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
         tracing.launching()
-        err = fn(*pointers, out.data_ptr(), depth.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
-                 torch.cuda.current_stream(f1.device).cuda_stream)
+        err = lib.epipolar_attention_forward(
+            *pointers, out.data_ptr(), depth.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags,
+            torch.cuda.current_stream(f1.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"epipolar_attention_forward failed: CUDA error {err}")
     LAUNCHES += 1
@@ -573,23 +586,16 @@ def _kernel_backward(f1, f2k, f2v, locs, prior, dout, H, W, params,
             if need_prior else None
         partials = 0 if dother1 is None and dother2 is None else \
             2 if dother1 is not None and dother2 is not None else 1
-        size = lib.epipolar_attention_backward_scratch_bytes
-        size.argtypes = [ctypes.c_int] * 6
-        size.restype = ctypes.c_longlong
-        nbytes = size(B, H, W, K, C, partials)
+        nbytes = lib.epipolar_attention_backward_scratch_bytes(B, H, W, K, C, partials)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=f1.device) if nbytes else None
-        fn = lib.epipolar_attention_backward
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
         ptr = [None if t is None else t.data_ptr() for t in (dother1, dother2, dprior, scratch)]
         if fused:
             ptr[1] = ptr[0]
         tracing.launching()
-        err = fn(*pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
-                 B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags, max_union,
-                 torch.cuda.current_stream(f1.device).cuda_stream)
+        err = lib.epipolar_attention_backward(
+            *pointers, dout.data_ptr(), dfeat1.data_ptr(), *ptr,
+            B, H, W, K, C, int(f1.dtype == torch.bfloat16), *flags, max_union,
+            torch.cuda.current_stream(f1.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"epipolar_attention_backward failed: CUDA error {err}")
     BACKWARD_LAUNCHES += 1

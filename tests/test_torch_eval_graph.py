@@ -1,13 +1,9 @@
 """The eval forward as one CUDA graph (engine/tester.py:make_eval_step).
 
-On the CPU: the rule that keeps the eval step eager, where a replay would
-skip what the forward does (the CPU itself, a one-rank gloo group, a
-DistributedDataParallel model in it, a module or global forward hook,
-tracing on at the capture), on a toy model with the CUDA check forced and
-a recording stand-in for the graph: no capture and no `eval.graph_replay`,
-where the same calls without a rule capture once and replay; the one graph
-a step keeps (a lone other signature runs eagerly, a repeated one captures
-in its place); a flip of `model.training`, another `train_bn` and a
+The CPU tests of the capture policy that it shares with the train step
+(engine/cuda_graph.py) are in tests/test_torch_cuda_graph.py.  On the CPU
+here, on a toy model with the CUDA check forced and a recording stand-in
+for the graph: a flip of `model.training`, another `train_bn` and a
 replaced parameter never replay the old graph, while a weight changed in
 place does; and soft-argmax's cached window offsets, bit-equal to the
 `np.arange` they were made from and usable by autograd.
@@ -23,20 +19,15 @@ BN's statistics in place, gives the eager outputs; successive replays
 return tensors of their own.
 """
 
-import contextlib
-import socket
-
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 from torch import nn
-from torch.nn.parallel import DistributedDataParallel
 
 from epipolar_transformers_tpu_torch.config import flagship_cfg, update_from_dict
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
 from epipolar_transformers_tpu_torch.data.pipeline import collate
-from epipolar_transformers_tpu_torch.engine import tester, trainer
+from epipolar_transformers_tpu_torch.engine import cuda_graph, tester, trainer
 from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
 from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
 from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
@@ -68,27 +59,27 @@ class Toy(nn.Module):
 
 
 class Recorded:
-    """Stands in for tester._EvalGraph on the CPU: records each capture and
-    runs the forward eagerly with the capture's `train_bn`."""
+    """Stands in for cuda_graph.Graph on the CPU: records each capture's
+    view count and runs the body eagerly at each replay."""
 
     made = []
     replayed = []
 
-    def __init__(self, model, inputs, train_bn):
-        Recorded.made.append((inputs["KRT"].shape[0], train_bn))
-        self.model, self.train_bn = model, train_bn
+    def __init__(self, inputs, body):
+        Recorded.made.append(inputs["KRT"].shape[0])
+        self.body = body
 
     def __call__(self, inputs):
         Recorded.replayed.append(inputs["KRT"].shape[0])
-        return self.model(inputs, bn_train=self.train_bn)
+        return self.body(inputs)
 
 
 @pytest.fixture
 def recorded(monkeypatch):
     """The stand-in in place of the graph, and every input taken for CUDA."""
     Recorded.made, Recorded.replayed = [], []
-    monkeypatch.setattr(tester, "_EvalGraph", Recorded)
-    monkeypatch.setattr(tester, "_on_cuda", lambda inputs: True)
+    monkeypatch.setattr(cuda_graph, "Graph", Recorded)
+    monkeypatch.setattr(cuda_graph, "on_cuda", lambda inputs: True)
     return Recorded
 
 
@@ -105,83 +96,6 @@ def _replays():
                if name == tester.GRAPH_REPLAY_EVAL and i >= 0), {s.name for s in spans}
 
 
-@contextlib.contextmanager
-def one_rank_group():
-    """A gloo process group of one rank on localhost."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
-
-
-RULES = ["none", "cpu", "process_group", "ddp", "forward_hook", "forward_pre_hook",
-         "global_forward_hook", "tracing_on"]
-
-
-@pytest.mark.parametrize("rule", RULES)
-def test_the_step_stays_eager_where_a_replay_would_skip_work(rule, recorded, monkeypatch):
-    if rule == "cpu":
-        monkeypatch.setattr(tester, "_on_cuda", lambda inputs: all(v.is_cuda
-                                                                   for v in inputs.values()))
-    torch.manual_seed(0)
-    model = Toy()
-    if rule == "forward_hook":
-        model.register_forward_hook(lambda module, args, output: None)
-    if rule == "forward_pre_hook":
-        model.lin.register_forward_pre_hook(lambda module, args: None)
-    handle = (nn.modules.module.register_module_forward_hook(lambda m, a, o: None)
-              if rule == "global_forward_hook" else None)
-    group = _group()
-    try:
-        with one_rank_group() if rule in ("process_group", "ddp") else contextlib.nullcontext():
-            net = DistributedDataParallel(model) if rule == "ddp" else model
-            step = tester.make_eval_step(None, net, "cpu")
-            if rule == "tracing_on":
-                tracing.enable()
-            first = step(group)
-            step(group)  # the call that would capture
-            tracing.enable()  # a replay may run with tracing on
-            out = step(group)
-            tracing.disable()
-    finally:
-        if handle is not None:
-            handle.remove()
-    replays, names = _replays()
-    assert torch.equal(out["y"], first["y"])
-    assert "eval.forward" in names
-    if rule == "none":
-        assert recorded.made == [(4, False)] and replays == 1
-        assert recorded.replayed == [4, 4]
-    else:
-        assert recorded.made == [] and replays == 0
-
-
-def test_a_call_with_another_signature_runs_eagerly(recorded):
-    """Only a key seen on the call before captures: a lone other view
-    count (an epoch's last partial group) stays eager and keeps the graph."""
-    step = tester.make_eval_step(None, Toy(), "cpu")
-    full, last = _group(4), _group(3)
-    for group in (full, full, last, full):
-        step(group)
-    assert recorded.made == [(4, False)] and recorded.replayed == [4, 4]
-
-
-def test_a_repeated_other_signature_captures_in_place_of_the_graph(recorded):
-    """The step keeps one graph: a second call in a row with another
-    signature captures that signature's, and the first signature's calls
-    then run eagerly until one repeats."""
-    step = tester.make_eval_step(None, Toy(), "cpu")
-    four, three = _group(4), _group(3)
-    for group in (four, four, three, three, four, three, four, four):
-        step(group)
-    assert [n for n, _ in recorded.made] == [4, 3, 4]
-    assert recorded.replayed == [4, 3, 3, 4]
-
-
 def test_a_flip_of_training_never_replays_the_old_graph(recorded):
     model = Toy()
     step = tester.make_eval_step(None, model, "cpu")
@@ -195,7 +109,7 @@ def test_a_flip_of_training_never_replays_the_old_graph(recorded):
     assert _replays()[0] == 0 and torch.equal(out, want + 100.0)
     model.eval()
     assert torch.equal(step(group)["y"], want)  # the eval-mode graph again
-    assert recorded.made == [(4, False)] and recorded.replayed == [4, 4]
+    assert recorded.made == [4] and recorded.replayed == [4, 4]
 
 
 def test_each_train_bn_replays_its_own_graph(recorded):
@@ -207,7 +121,7 @@ def test_each_train_bn_replays_its_own_graph(recorded):
         step = tester.make_eval_step(None, model, "cpu", train_bn=bn)
         outs = [step(group)["y"] for _ in range(3)]
         assert all(torch.equal(o, eager[bn]) for o in outs)
-    assert recorded.made == [(4, False), (4, True)]
+    assert recorded.made == [4, 4]
 
 
 def test_a_replaced_parameter_captures_anew_and_an_in_place_change_replays(recorded):

@@ -1,14 +1,8 @@
 """The train step as one CUDA graph (engine/trainer.py:make_train_step).
 
-On the CPU: the rule that keeps a step eager, where a replay would skip
-what the step must do (the CPU itself, a DistributedDataParallel model in a
-one-rank gloo group, BATCH_MUL 2, a forward hook, dropout drawing from the
-lifting nets' generator, tracing on), on a toy model with the CUDA check
-forced and a recording stand-in for the graph: no capture and no
-`train.graph_replay`, where the same steps without a rule capture once and
-replay; the one graph a step keeps (a lone other signature runs eagerly, a
-repeated one captures in its place); and `tracing.enable()` zeroing the
-attention's tile counts in place.
+The CPU tests of the capture policy that it shares with the eval forward
+(engine/cuda_graph.py) are in tests/test_torch_cuda_graph.py.  On the CPU
+here: `tracing.enable()` zeroing the attention's tile counts in place.
 
 Marked `cuda` (on the card, python -m pytest --noconftest
 tests/test_torch_train_graph.py), with cuDNN deterministic: graphed steps
@@ -23,24 +17,18 @@ whose eager steps are not bit-reproducible, captures and matches eager's
 losses to 5e-2.  Two successive replays return loss tensors of their own.
 """
 
-import contextlib
-import socket
 from pathlib import Path
 
 import pytest
 import torch
-import torch.distributed as dist
-from torch import nn
-from torch.nn.parallel import DistributedDataParallel
 
 from epipolar_transformers_tpu_torch.config import flagship_cfg, load_config, update_from_dict
 from epipolar_transformers_tpu_torch.data.datasets.synthetic import SyntheticMultiview
 from epipolar_transformers_tpu_torch.data.pipeline import collate
 from epipolar_transformers_tpu_torch.engine import trainer
-from epipolar_transformers_tpu_torch.engine.solver import Optimizer, make_optimizer
+from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
 from epipolar_transformers_tpu_torch.engine.tester import TRAIN_KEYS, to_model_inputs
 from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
-from epipolar_transformers_tpu_torch.models.lifting import Dropout, _GeneratorSlot
 from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
 from epipolar_transformers_tpu_torch.utils import tracing
 
@@ -53,131 +41,6 @@ def fresh():
     yield
     tracing.disable()
     tracing.drain()
-
-
-class Toy(nn.Module):
-    """A linear fit with the model's (loss_dict, metric_dict, out) return."""
-
-    def __init__(self, dropout: bool = False):
-        super().__init__()
-        self.lin = nn.Linear(4, 1)
-        self.drop = Dropout(0.5 if dropout else 0.0, _GeneratorSlot(0))
-
-    def forward(self, inputs):
-        y = self.lin(self.drop(inputs["x"]))
-        return {"loss": ((y - inputs["y"]) ** 2).mean()}, {"mean": y.mean().detach()}, {}
-
-
-class Recorded:
-    """Stands in for trainer._Graph on the CPU: records each capture and
-    steps eagerly."""
-
-    made = []
-
-    def __init__(self, model, optimizer, inputs):
-        Recorded.made.append(model)
-        self.model, self.lr = model, optimizer.set_lr()
-
-    def __call__(self, inputs, optimizer):
-        loss_dict, metric_dict, _ = self.model(inputs)
-        optimizer.zero_grad(set_to_none=True)
-        loss_dict["loss"].backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in {**loss_dict, **metric_dict}.items()}
-
-
-@contextlib.contextmanager
-def one_rank_group():
-    """A gloo process group of one rank on localhost."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
-
-
-RULES = ["none", "cpu", "ddp", "batch_mul2", "forward_hook", "dropout", "tracing_on"]
-
-
-@pytest.mark.parametrize("rule", RULES)
-def test_the_step_stays_eager_where_a_replay_would_skip_work(rule, monkeypatch):
-    Recorded.made = []
-    monkeypatch.setattr(trainer, "_Graph", Recorded)
-    if rule != "cpu":  # as if every parameter and input were on CUDA
-        monkeypatch.setattr(trainer, "_on_cuda", lambda optimizer, inputs: True)
-    torch.manual_seed(0)
-    model = Toy(dropout=rule == "dropout").train()
-    if rule == "forward_hook":
-        model.register_forward_hook(lambda module, args, output: None)
-    optimizer = Optimizer(model.parameters(), "adam", lambda count: 1e-3,
-                          batch_mul=2 if rule == "batch_mul2" else 1)
-    inputs = {"x": torch.randn(8, 4), "y": torch.randn(8, 1)}
-    with one_rank_group() if rule == "ddp" else contextlib.nullcontext():
-        net = DistributedDataParallel(model) if rule == "ddp" else model
-        step = trainer.make_train_step(None, net, optimizer)
-        if rule == "tracing_on":
-            tracing.enable()
-        step(inputs)
-        step(inputs)  # the call that would capture
-        tracing.enable()  # a replay may run with tracing on
-        out = step(inputs)
-        tracing.disable()
-    spans, counters = tracing.drain()
-    names = {s.name for s in spans}
-    replays = sum(n for (_, name), n in counters.items() if name == trainer.GRAPH_REPLAY)
-    assert torch.isfinite(out["loss"])
-    if rule == "none":
-        assert len(Recorded.made) == 1 and replays == 1
-        assert "train.replay" in names and "train.forward" not in names
-    else:
-        assert Recorded.made == [] and replays == 0
-        assert "train.forward" in names and "train.replay" not in names
-
-
-def test_a_call_with_another_signature_runs_eagerly(monkeypatch):
-    """Only a signature seen on the call before captures: a lone other
-    shape (an epoch's smaller last batch) stays eager and keeps the graph."""
-    Recorded.made = []
-    monkeypatch.setattr(trainer, "_Graph", Recorded)
-    monkeypatch.setattr(trainer, "_on_cuda", lambda optimizer, inputs: True)
-    model = Toy().train()
-    optimizer = Optimizer(model.parameters(), "adam", lambda count: 1e-3)
-    step = trainer.make_train_step(None, model, optimizer)
-    full = {"x": torch.randn(8, 4), "y": torch.randn(8, 1)}
-    last = {"x": torch.randn(3, 4), "y": torch.randn(3, 1)}
-    for inputs in (full, full, last, full):
-        step(inputs)
-    assert len(Recorded.made) == 1 and optimizer.count == 4
-
-
-def test_a_repeated_other_signature_captures_in_place_of_the_graph(monkeypatch):
-    """The step keeps one graph: a second call in a row with another
-    signature captures that signature's, and the first signature's calls
-    then run eagerly until one repeats."""
-    made, replayed = [], []
-
-    class Counted(Recorded):
-        def __init__(self, model, optimizer, inputs):
-            made.append(inputs["x"].shape[0])
-            super().__init__(model, optimizer, inputs)
-
-        def __call__(self, inputs, optimizer):
-            replayed.append(inputs["x"].shape[0])
-            return super().__call__(inputs, optimizer)
-
-    monkeypatch.setattr(trainer, "_Graph", Counted)
-    monkeypatch.setattr(trainer, "_on_cuda", lambda optimizer, inputs: True)
-    model = Toy().train()
-    optimizer = Optimizer(model.parameters(), "adam", lambda count: 1e-3)
-    step = trainer.make_train_step(None, model, optimizer)
-    full = {"x": torch.randn(8, 4), "y": torch.randn(8, 1)}
-    small = {"x": torch.randn(3, 4), "y": torch.randn(3, 1)}
-    for inputs in (full, full, small, small, full, small, full, full):
-        step(inputs)
-    assert made == [8, 3, 8] and replayed == [8, 3, 3, 8] and optimizer.count == 8
 
 
 def test_enable_zeroes_the_tile_counts_in_place():
