@@ -13,7 +13,12 @@ branch starts as an exact identity under the residual add.
 In training, BatchNorm follows flax's `nn.BatchNorm`, not torch's: both
 normalize with the biased batch variance, but flax also moves the running
 variance with the biased one where torch uses the unbiased one (a factor
-n / (n - 1): 8/7 for a 1x1 map at batch 8).
+n / (n - 1): 8/7 for a 1x1 map at batch 8).  On one process the running
+statistics move with the moments that the normalization itself saves for
+its backward (cuDNN's on the card): the batch mean, and the inverse
+standard deviation 1 / sqrt(var + eps), from which the biased variance is
+`invstd**-2 - eps`.  So the input is read once, by the normalization, and
+no second statistics pass runs over it.
 
 Under a process group (parallel/; one of a single rank too, which runs
 the collectives as each rank of a larger group does), every BatchNorm in
@@ -101,15 +106,17 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.bias, False, 0.0, self.eps)
         if parallel.distributed() and (self.sync or parallel.world() > 1):
             return self._global_forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        # what F.batch_norm calls, with the moments it drops: same kernels
+        out, mean, invstd, _, _ = torch.ops.aten._batch_norm_impl_index(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+            torch.backends.cudnn.enabled)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self._move_running(mean, var)
+            self._move_running(mean, invstd.pow(-2).sub_(self.eps))
         return out
 
     def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.lerp_(mean, self.momentum)
-        self.running_var.lerp_(var, self.momentum)
+        torch._foreach_lerp_([self.running_mean, self.running_var], [mean, var],
+                             self.momentum)
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
         """Training on the moments of every rank's items."""
