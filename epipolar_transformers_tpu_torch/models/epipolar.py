@@ -28,6 +28,11 @@ is built (`route`), as EPIPOLAR.ATTENTION_IMPL asks:
     whose `depth` is the JAX streaming path's (N, 1, H, W) best-rank
     placeholder unless a consumer reads the stack (the reprojection loss,
     WARPEDHEATMAP, VIS.EPIPOLAR_LINE, SAVE_PRED at eval).
+With POOLING the attention runs in the `epipolar.pooled_attention` span,
+between the device marks `epipolar_pooled_*` (ops/trace_marks.py: forward
+and backward, so that a replayed CUDA graph shows the interval in the
+device trace), and adds its bilinear samples to `attn.pooled_samples`
+(ops/epipolar_attention_pooled.py:count_samples).
 An impl that cannot express the config raises where the JAX layer raises
 (`ValueError`), 'pallas' under training too.  On the card the features
 are channels_last, so the (N, H, W, C) views the kernels read need no
@@ -51,7 +56,9 @@ from ..ops.epipolar_attention import (AttentionParams, epipolar_attention,
                                       supports_matmul_attention)
 from ..ops.epipolar_attention_cuda import (KERNEL_CHANNELS, epipolar_attention_batch,
                                            supports_fused_attention)
-from ..ops.epipolar_attention_pooled import epipolar_attention_pooled, supports_pooled_attention
+from ..ops import trace_marks
+from ..ops.epipolar_attention_pooled import (count_samples, epipolar_attention_pooled,
+                                             supports_pooled_attention)
 from ..ops.epipolar_sampling import EpipolarGeometry, epipolar_sample_locs
 from ..utils import tracing
 from .layers import Conv2d, ZeroInitBatchNorm, bn_momentum, compute_dtype
@@ -239,6 +246,12 @@ class Epipolar(nn.Module):
         params = self.attention_params
         if self.route == "kernel":
             return self.attention(q, k, v, sample_locs, params, prior)
+        if params.pooling:
+            return self._pooled(q, k, v, sample_locs, prior)
+        return self._plain(q, k, v, sample_locs, prior)
+
+    def _plain(self, q, k, v, sample_locs, prior):
+        params = self.attention_params
         if self.route == "pooled":
             return epipolar_attention_pooled(q, k, v, sample_locs, params, prior,
                                              shared_kv=self.shared_kv)
@@ -246,6 +259,18 @@ class Epipolar(nn.Module):
                       else "weights")
         return epipolar_attention(q, k, v, sample_locs, params, prior,
                                   shared_kv=self.shared_kv, depth=depth_kind)
+
+    def _pooled(self, q, k, v, sample_locs, prior):
+        """The POOLING routes ('pooled', 'streaming'), bracketed and counted
+        (the module docstring)."""
+        with tracing.span("epipolar.pooled_attention"):
+            shared = v is k or self.shared_kv
+            N, K, H, W, _ = sample_locs.shape
+            count_samples(q.device, N * K * H * W * (1 if shared else 2))
+            q, k, *rest = trace_marks.enter("epipolar_pooled", q, k, *(() if v is k else (v,)))
+            out, corr_pos, depth = self._plain(q, k, rest[0] if rest else k, sample_locs, prior)
+            (out,) = trace_marks.leave("epipolar_pooled", out)
+            return out, corr_pos, depth
 
     def forward(self, feat1, feat2, P1, P2, camera=None, other_camera=None, ref1=None, ref2=None):
         """

@@ -98,8 +98,16 @@ def sample_stack(image: torch.Tensor, locs: torch.Tensor, H: int, W: int,
     """Bilinear samples of images (N, H*W, C) at locations (N, K, H*W, 2),
     in f32 (f64 for f64 images): (N, K, H*W, C), or with pooling
     (N, K/2, H*W, C), the pairs (k, k + K/2) max-reduced (reference
-    epipolar.py:200-203)."""
+    epipolar.py:200-203).
+
+    A corner of zero weight reads its query's own row.  `corner_data`
+    clamps it to the image's corner, the same row for every sample of a
+    line that misses the image, and the gather's backward (`index_put`
+    with accumulate) adds all of those into that one row in turn: on the
+    param recipe's H36M crops that one run set the step's time."""
     rows, wc = corner_data(locs, H, W)
+    own = torch.arange(locs.shape[2], device=rows.device)[:, None]
+    rows = torch.where(wc != 0, rows, own)
     items = torch.arange(image.shape[0], device=image.device)[:, None, None]
     image = image.to(_compute(image))
     out = None

@@ -13,11 +13,25 @@ nor the CUDA kernel applies; no TPU kernel exists for it either.  The
 schedule is ops/epipolar_attention.py's, which this entry calls with
 pooling on.  Peak memory is the (N, K, H, W, C) sample stack of the keys,
 and of the values unless they are the keys.
+
+`count_samples` adds a call's bilinear samples (keys, and values apart
+from them) to `POOLED_SAMPLES`, on the device: utils/tracing.py zeroes it
+when tracing turns on and reports its sum as the counter
+`attn.pooled_samples`, and a CUDA graph's replay adds into the tensor its
+capture added into.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..utils import tracing
 from .epipolar_attention import AttentionParams, epipolar_attention
+
+# the POOLING route's bilinear samples, summed on each device into an int64
+# (1,) tensor keyed by the device
+POOLED_SAMPLES: dict = {}
+tracing.register_device_counts(POOLED_SAMPLES, ("attn.pooled_samples",))
 
 
 def supports_pooled_attention(params: AttentionParams) -> bool:
@@ -41,3 +55,14 @@ def epipolar_attention_pooled(feat1, other1, other2, sample_locs, params: Attent
                          f"dot/cos similarity, not {params}")
     return epipolar_attention(feat1, other1, other2, sample_locs, params, prior,
                               shared_kv=shared_kv, depth=depth)
+
+
+def count_samples(device: torch.device, samples: int) -> None:
+    """Add `samples` bilinear samples to `POOLED_SAMPLES[device]`, on the device."""
+    total = POOLED_SAMPLES.get(device)
+    if total is None:
+        # a normal tensor even under inference_mode, so that later forwards
+        # with autograd may add to it
+        with torch.inference_mode(False):
+            total = POOLED_SAMPLES[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    total += samples

@@ -33,12 +33,12 @@ innermost open span, without printing it; `disable()` restores both.  A
 sync on autograd's thread reaches Python when `backward()` returns, inside
 the span around it.
 
-Device counts: a module registers a dict of per-device int64 (2,) tensors
-(`register_device_counts`, the attention's tiles on each path); enable()
-zeroes each tensor in place (a CUDA graph that adds into one keeps adding
-into it) and the first drain() after it sums them (that syncs), as two
-counters under no span (index -1), and leaves them for their other
-readers.
+Device counts: a module registers a dict of per-device int64 tensors
+with a name for each element (`register_device_counts`: the attention's
+tiles on each path, the pooled attention's samples); enable() zeroes each
+tensor in place (a CUDA graph that adds into one keeps adding into it) and
+the first drain() after it sums them (that syncs), as counters under no
+span (index -1), and leaves them for their other readers.
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ _counters: Dict[Tuple[int, str], int] = {}
 _innermost = -1  # index of the innermost open span
 _step = -1
 _generation = 0  # of the buffers, new at each drain
-_device_counts: List[Tuple[dict, Tuple[str, str]]] = []
+_device_counts: List[Tuple[dict, Tuple[str, ...]]] = []
 _counts_due = False  # the device counts not yet summed since enable()
 _restore: Optional[tuple] = None  # the sync debug mode and warnings to put back
 
@@ -176,9 +176,10 @@ def launching() -> None:
         events[0].record()
 
 
-def register_device_counts(counts: dict, names: Tuple[str, str]) -> None:
-    """Zero `counts` ({device: int64 (2,) tensor}) when tracing turns on,
-    and sum it into the counters `names` at the first drain after that."""
+def register_device_counts(counts: dict, names: Tuple[str, ...]) -> None:
+    """Zero `counts` ({device: int64 tensor of len(names) elements}) when
+    tracing turns on, and sum it into the counters `names` at the first
+    drain after that."""
     _device_counts.append((counts, names))
 
 
