@@ -91,8 +91,11 @@ run, each printed on its own lines:
      through the command line with only the synthetic datasets, no ImageNet
      file and 17 joints as overrides: 3 train steps with finite losses,
      `test` on 2 groups with finite metrics, one f32 step against the plain
-     oracle route, ms per train step, peak memory and the pooled attention
-     alone; (b) the learned prior through the kernels at the flagship
+     oracle route, ms per train step, peak memory, and the pooled kernels
+     alone at the param cell's shape (bf16) on the rig: out, rank and the
+     three gradients against their plain twin (one bf16 step plus 1e-4 of
+     the largest value; rank 1e-4), then forward and backward timed in
+     turns with it beside their bound; (b) the learned prior through the kernels at the flagship
      attention shape, f32 and bf16, in each prior mode, forward and the
      backward's gradients (the prior's included) against the plain version
      ([2]/[5]'s tolerances), dprior exactly 0 on queries out of range, two
@@ -215,7 +218,11 @@ the forward's over the forwards of phases 3, 6, 7(a), 8, 9, 11, 12(b),
 13(c), 14, 15 and 16, the backward's over the backwards of phases 6, 8,
 9, 11, 12(b), 13(c), 14 and 15 (most on the tile path, or the script
 fails); the backward's also `prior_gradient`, its time with and without
-the prior's gradient at the flagship shape; `param_recipe` holds [11](a)'s times,
+the prior's gradient at the flagship shape.  Two more entries,
+`epipolar_attention_pooled` and its backward, hold [11](a)'s pooled
+kernels: their calls on the main path (the param recipe's command line),
+errors against the plain chain, times and bounds (`pooled_bound`) at the
+param cell's shape.  `param_recipe` holds [11](a)'s times,
 `lifting_tasks` [12]'s, `h36m_path` [13]'s, `r152_recipes` [14]'s,
 `a11d_recipes` [15]'s, `last_modules` [16]'s.  No
 single PyTorch call
@@ -439,6 +446,9 @@ A11D_ATTENTION_RECIPES = (
 REPLACES = "epipolar_transformers_tpu/ops/epipolar_attention_pallas.py:66"
 BACKWARD_REPLACES = ("jax.grad of epipolar_transformers_tpu/ops/"
                      "epipolar_attention_matmul.py:158 (no TPU backward kernel)")
+POOLED_REPLACES = ("none: the plain gathers and einsums of epipolar_transformers_tpu/ops/"
+                   "epipolar_attention_pooled.py (no TPU kernel)")
+POOLED_BACKWARD_REPLACES = "none: jax.grad of the same plain chain (no TPU kernel)"
 # published H100 SXM peaks: f32 outside the tensor cores, HBM
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -1977,8 +1987,8 @@ def param_recipe_phase(device):
     from epipolar_transformers_tpu_torch.engine import trainer
     from epipolar_transformers_tpu_torch.engine.solver import make_optimizer
     from epipolar_transformers_tpu_torch.ops import epipolar_attention_cuda as attn
-    from epipolar_transformers_tpu_torch.ops.epipolar_attention_pooled import \
-        epipolar_attention_pooled
+    from epipolar_transformers_tpu_torch.ops import epipolar_attention_pooled_cuda as pk
+    from epipolar_transformers_tpu_torch.ops.epipolar_attention import epipolar_attention
 
     captured, losses = [], []
     make_step, test = trainer.make_train_step, cli.test
@@ -2003,6 +2013,7 @@ def param_recipe_phase(device):
                     "--max-eval-batches", str(PARAM_EVAL_GROUPS), *PARAM_OVERRIDES,
                     "OUTPUT_DIR", out_dir]
             attn.LAUNCHES = attn.BACKWARD_LAUNCHES = 0
+            pk.LAUNCHES = pk.BACKWARD_LAUNCHES = 0
             t0 = time.perf_counter()
             results = cli.main(argv)
             torch.cuda.synchronize(device)
@@ -2014,9 +2025,12 @@ def param_recipe_phase(device):
     if len(losses) != PARAM_TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"(a) train losses {losses}")
     finite_metrics("(a) test", results)
-    if sampler.route != "streaming" or attn.LAUNCHES or attn.BACKWARD_LAUNCHES:
-        raise AssertionError(f"(a) route {sampler.route}, kernel launches {attn.LAUNCHES}, "
-                             f"{attn.BACKWARD_LAUNCHES}")
+    if sampler.route != "streaming" or not sampler.pooled_kernel or attn.LAUNCHES \
+            or attn.BACKWARD_LAUNCHES or not pk.LAUNCHES or not pk.BACKWARD_LAUNCHES:
+        raise AssertionError(f"(a) route {sampler.route}, pooled kernels {sampler.pooled_kernel}, "
+                             f"kernel launches {attn.LAUNCHES}, {attn.BACKWARD_LAUNCHES}, pooled "
+                             f"{pk.LAUNCHES}, {pk.BACKWARD_LAUNCHES}")
+    main_launches = (pk.LAUNCHES, pk.BACKWARD_LAUNCHES)
     cfg = load_config(PARAM_RECIPE, PARAM_OVERRIDES)
     log(f"  (a) main(--cfg {PARAM_RECIPE} " + " ".join(PARAM_OVERRIDES) + " OUTPUT_DIR <tmp>) "
         f"in {wall:.1f} s: the rig's datasets, no ImageNet file, and 17 joints (the rig renders "
@@ -2024,7 +2038,8 @@ def param_recipe_phase(device):
         f"{cfg.SOLVER.IMS_PER_BATCH}, K={cfg.EPIPOLAR.SAMPLESIZE} pooled to "
         f"{cfg.EPIPOLAR.SAMPLESIZE // 2}, C={cfg.KEYPOINT.NFEATS // cfg.EPIPOLAR.BOTTLENECK} after "
         f"the bottleneck, {cfg.KEYPOINT.TRIANGULATION}; attention route {sampler.route} "
-        f"(pooled, plain PyTorch: no kernel, {attn.LAUNCHES} launches); {PARAM_TRAIN_STEPS} "
+        f"through the pooled kernels ({pk.LAUNCHES} forward and {pk.BACKWARD_LAUNCHES} backward "
+        f"calls from Python: the replayed graph makes the others); {PARAM_TRAIN_STEPS} "
         f"train losses {', '.join(f'{v:.5g}' for v in losses)}; test() on {PARAM_EVAL_GROUPS} "
         f"groups: " + ", ".join(f"{k} {v:.4g}" for k, v in results.items()
                                 if not k.startswith("PCK@") or k in ("PCK@5", "PCK@20")))
@@ -2073,29 +2088,72 @@ def param_recipe_phase(device):
     if not all(torch.isfinite(v) for v in step_losses):
         raise AssertionError(f"(a) losses {step_losses}")
 
+    # the pooled kernels at the param cell's shape and type (bf16) on the
+    # rig's lines at the recipe's normalization: held against their plain
+    # twin (tests/test_torch_pooled_kernel.py's tolerances), then timed in
+    # turns with it
     H, W = cfg.KEYPOINT.HEATMAP_SIZE
+    K = cfg.EPIPOLAR.SAMPLESIZE
     C = cfg.KEYPOINT.NFEATS // cfg.EPIPOLAR.BOTTLENECK
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    q, k, v = (torch.randn(B, H, W, C, device=device, generator=gen) for _ in range(3))
-    locs = rig_sample_locs(cfg, B, device)
+    q, k, v = (torch.randn(B, H, W, C, device=device, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    locs = rig_sample_locs(cfg, B, device).contiguous()
     params = sampler.attention_params
-    fwd_ms = cuda_ms(lambda: epipolar_attention_pooled(q, k, v, locs, params, depth="rank"),
-                     iters=10)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    r = torch.randn(B, H, W, C, device=device, generator=gen)
+    r = torch.randn(B, H, W, C, device=device, generator=gen).to(torch.bfloat16)
 
-    def forward_backward():
-        out = epipolar_attention_pooled(*leaves, locs, params, depth="rank")[0]
-        torch.autograd.grad(out, leaves, r)
+    def graph(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, _, rank = fn(*leaves, locs, params, depth="rank")
+        return leaves, out, rank
 
-    fb_ms = cuda_ms(forward_backward, iters=10)
+    got, want = ((out.detach(), rank.detach(), *torch.autograd.grad(out, leaves, r))
+                 for leaves, out, rank in (graph(pk.epipolar_attention_pooled_kernel),
+                                           graph(epipolar_attention)))
+    errs = {}
+    for i, name in enumerate(("out", "rank", "dq", "dk", "dv")):
+        a, b = got[i].float(), want[i].float()
+        if name == "rank":  # f32 from f32 sums in another order
+            errs[name] = close(f"(a) pooled {name}", a, b, 1e-4, 1e-6)
+        else:  # rounded to bf16 at the end by both: one bf16 step, 1e-4 of the largest
+            errs[name] = close(f"(a) pooled {name}", a, b, 2 ** -7, 1e-4 * float(b.abs().max()))
+    del got, want
+
+    def forward(fn):
+        return lambda: fn(q, k, v, locs, params, depth="rank")
+
+    def backward_only(fn):
+        leaves, out, _ = graph(fn)
+        return lambda: torch.autograd.grad(out, leaves, r, retain_graph=True)
+
+    plain_fwd, fwd_ms = in_turns(forward(epipolar_attention),
+                                 forward(pk.epipolar_attention_pooled_kernel), iters=5)
+    plain_bwd, bwd_ms = in_turns(backward_only(epipolar_attention),
+                                 backward_only(pk.epipolar_attention_pooled_kernel), iters=5)
+    fwd_bound = pooled_bound(locs, C, 2, backward=False)
+    bwd_bound = pooled_bound(locs, C, 2, backward=True)
     log(f"  (a) train step at batch {B} (forward, backward, adam; host-rendered inputs): "
         f"{step_ms:.3f} ms (CUDA events, mean of {PARAM_TRAIN_STEPS} after 2: an eager step "
-        f"and the capture), peak memory "
-        f"{peak:.3f} GiB; the pooled attention alone, B={B} {H}x{W} "
-        f"K={cfg.EPIPOLAR.SAMPLESIZE}->{cfg.EPIPOLAR.SAMPLESIZE // 2} C={C} f32, keys and values "
-        f"apart: forward {fwd_ms:.3f} ms, forward and backward {fb_ms:.3f} ms")
-    return dict(step_ms=step_ms, peak_gib=peak, pooled_ms=fwd_ms, pooled_fwd_bwd_ms=fb_ms)
+        f"and the capture), peak memory {peak:.3f} GiB; the pooled kernels, B={B} {H}x{W} "
+        f"K={K}->{K // 2} C={C} bf16, keys and values apart, against the plain chain: max abs "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; CUDA events in turns (plain, kernels, kernels, plain): forward {fwd_ms:.3f} ms "
+        f"(bound {fwd_bound[0]:.4f}, plain {plain_fwd:.3f}), backward {bwd_ms:.3f} ms (bound "
+        f"{bwd_bound[0]:.4f}, plain autograd {plain_bwd:.3f}); main-path calls {main_launches[0]} "
+        f"forward, {main_launches[1]} backward")
+    shape = f"bf16 B={B} {H}x{W} K={K} C={C}, the rig"
+    entry = {"route": "cuda", "source": "epipolar_transformers_tpu_torch/csrc/"
+             "epipolar_attention_pooled.cu", "library_ms": None, "shape": shape}
+    entries = (
+        {"name": "epipolar_attention_pooled", **entry, "replaces": POOLED_REPLACES,
+         "launches": main_launches[0], "max_abs_err": max(errs["out"], errs["rank"]),
+         "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": fwd_bound[0],
+         "bound_by": fwd_bound[1]},
+        {"name": "epipolar_attention_pooled_backward", **entry,
+         "replaces": POOLED_BACKWARD_REPLACES, "launches": main_launches[1],
+         "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]), "ms": bwd_ms,
+         "plain_ms": plain_bwd, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]})
+    return {"numbers": dict(step_ms=step_ms, peak_gib=peak), "kernels": entries}
 
 
 def prior_phase(cfg, device):
@@ -4171,6 +4229,34 @@ def bound(feats, locs, backward: bool, distinct: bool = True, prior: bool = Fals
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def pooled_bound(locs, C: int, element_bytes: int, backward: bool):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    the pooled attention forward, or its backward with all three gradients,
+    at these locations with (B, HW, C) queries, keys and values apart of
+    `element_bytes` a value.  The operations, in f32 outside the tensor
+    cores as the kernels compute, with D = 2 B HW S C (S = K/2): 2C flops
+    per distinct live (query, key row) pair for the keys and for the values
+    (the forward's gathers, the backward's scatter); the forward's pair max
+    of both stacks (D) and its two einsums over the slots (2D); the
+    backward's routing of both stacks' gradients through the max (D) and
+    the four products of the einsums' gradients (4D).  The bytes read each
+    input once and write each output once: the forward queries, keys,
+    values, locations and out; the backward queries, keys, values,
+    locations, dout and the three gradients (the f32 weights and ranks left
+    out)."""
+    B, K, H, W, _ = locs.shape
+    S = K // 2
+    feature = B * H * W * C * element_bytes
+    dense = 2 * B * H * W * S * C
+    rows = 2 * live_pairs(locs) * 2 * C
+    if backward:
+        flops, nbytes = rows + 5 * dense, 7 * feature + locs.numel() * 4
+    else:
+        flops, nbytes = rows + 3 * dense, 4 * feature + locs.numel() * 4
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def peak_step_memory(train_step, plain: bool) -> float:
     """Peak device memory of one eager train step, GiB (a graph's replay
     calls no allocator)."""
@@ -4349,7 +4435,7 @@ def main() -> int:
         "a11d_shapes": a11d["backward_entries"],
         "prior_gradient": {**prior["prior_grad"], "bound_ms": prior_bound[0],
                            "bound_by": prior_bound[1]},
-    }], "param_recipe": param, "lifting_tasks": {
+    }, *param["kernels"]], "param_recipe": param["numbers"], "lifting_tasks": {
         k: {kk: vv for kk, vv in v.items() if kk not in ("launches", "backward_launches", "tiles")}
         if k == "multiview_img_lifting_rot" else v for k, v in lifting.items()},
         "h36m_path": {k: v for k, v in h36m.items()

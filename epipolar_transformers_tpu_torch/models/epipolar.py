@@ -27,7 +27,12 @@ is built (`route`), as EPIPOLAR.ATTENTION_IMPL asks:
   * 'streaming': 'auto' with POOLING, and 'streaming': the plain path,
     whose `depth` is the JAX streaming path's (N, 1, H, W) best-rank
     placeholder unless a consumer reads the stack (the reprojection loss,
-    WARPEDHEATMAP, VIS.EPIPOLAR_LINE, SAVE_PRED at eval).
+    WARPEDHEATMAP, VIS.EPIPOLAR_LINE, SAVE_PRED at eval).  Under 'auto',
+    where the pooled kernels cover the config (`pooled_kernel`: avg
+    attention, dot similarity, the softmax on, no PRIOR, K <= 64, queries,
+    keys and values 128 wide), the route runs them instead:
+    ops/epipolar_attention_pooled_cuda.py, the CUDA kernels on the card and
+    the same plain path on the CPU, with the same `depth`.
 With POOLING the attention runs in the `epipolar.pooled_attention` span,
 between the device marks `epipolar_pooled_*` (ops/trace_marks.py: forward
 and backward, so that a replayed CUDA graph shows the interval in the
@@ -59,6 +64,8 @@ from ..ops.epipolar_attention_cuda import (KERNEL_CHANNELS, epipolar_attention_b
 from ..ops import trace_marks
 from ..ops.epipolar_attention_pooled import (count_samples, epipolar_attention_pooled,
                                              supports_pooled_attention)
+from ..ops.epipolar_attention_pooled_cuda import (epipolar_attention_pooled_kernel, kernel_shape,
+                                                  supports_pooled_kernel)
 from ..ops.epipolar_sampling import EpipolarGeometry, epipolar_sample_locs
 from ..utils import tracing
 from .layers import Conv2d, ZeroInitBatchNorm, bn_momentum, compute_dtype
@@ -144,6 +151,11 @@ class Epipolar(nn.Module):
         self.shared_kv = (not rgb and "phi" not in e.PARAMETERIZED and "g" not in e.PARAMETERIZED
                           and ("other1" in e.OTHER_GRAD) == ("other2" in e.OTHER_GRAD))
         self.route = self._route({query_width, key_width, value_width})
+        self.pooled_kernel = (e.ATTENTION_IMPL == "auto" and self.route == "streaming"
+                              and not e.PRIOR
+                              and supports_pooled_kernel(self.attention_params)
+                              and kernel_shape(e.SAMPLESIZE, (query_width, key_width,
+                                                              value_width)))
 
     def _route(self, widths) -> str:
         """The attention route of this config (the module docstring)."""
@@ -251,12 +263,17 @@ class Epipolar(nn.Module):
         return self._plain(q, k, v, sample_locs, prior)
 
     def _plain(self, q, k, v, sample_locs, prior):
+        """The attention without the POOLING routes' span, marks and count:
+        the plain paths, or the pooled kernels where `pooled_kernel`."""
         params = self.attention_params
         if self.route == "pooled":
             return epipolar_attention_pooled(q, k, v, sample_locs, params, prior,
                                              shared_kv=self.shared_kv)
         depth_kind = ("rank" if self.route == "streaming" and not self._need_depth()
                       else "weights")
+        if self.route == "streaming" and self.pooled_kernel:
+            return epipolar_attention_pooled_kernel(q, k, v, sample_locs, params,
+                                                    shared_kv=self.shared_kv, depth=depth_kind)
         return epipolar_attention(q, k, v, sample_locs, params, prior,
                                   shared_kv=self.shared_kv, depth=depth_kind)
 

@@ -5,17 +5,19 @@ and backward, and the `attn.pooled_samples` counter, on the tiny flagship
 recut to the param recipe's fusion (theta/phi/g at NFEATS / 2, K samples
 pooled in pairs, z + BN without residual, the uncorrected normalization).
 
-On the CPU: the marks are issued once each a call, in the order forward
-begin, forward end, backward begin, backward end, around the attention
-alone; the brackets change no value and no gradient; the counter counts
-the keys' and the values' samples once a call; the kernel route (the tiny
-flagship) has none of them.
+On the CPU, on the pooled kernels' route (their plain twin there) and on
+the plain streaming route: the marks are issued once each a call, in the
+order forward begin, forward end, backward begin, backward end, around the
+attention alone; the brackets change no value and no gradient; the counter
+counts the keys' and the values' samples once a call; the kernel route
+(the tiny flagship) has none of them.
 
 Marked `cuda` (on the card, python -m pytest --noconftest
 tests/test_torch_pooled_marks.py), with cuDNN deterministic: the tiny param
-model's graphed train steps bit-equal to eager steps; each replayed step
-runs each mark once, in order, in a profiler's device trace (in a process
-of its own); and replays advance the counter as eager steps do.
+model's graphed train steps, through the pooled kernels, bit-equal to eager
+steps; each replayed step runs each mark once, in order, in a profiler's
+device trace (in a process of its own); and replays advance the counter as
+eager steps do.
 """
 
 import json
@@ -98,10 +100,16 @@ def issued(monkeypatch):
     return seen
 
 
-def test_marks_bracket_the_pooled_attention_once_a_call(issued):
-    cfg = _cfg()
+# the pooled kernels' route (ops/epipolar_attention_pooled_cuda.py; on the
+# CPU its plain twin) and the plain streaming route (cos similarity)
+ROUTES = [({}, True), ({"SIMILARITY": "cos"}, False)]
+
+
+@pytest.mark.parametrize("epipolar,kernel", ROUTES, ids=["kernel", "plain"])
+def test_marks_bracket_the_pooled_attention_once_a_call(issued, epipolar, kernel):
+    cfg = update_from_dict(_cfg(), {"EPIPOLAR": epipolar})
     layer = _layer(cfg)
-    assert layer.route == "streaming"
+    assert layer.route == "streaming" and layer.pooled_kernel == kernel
     feat, other, P1, P2 = _fusion_inputs(cfg, torch.Generator().manual_seed(0))
     tracing.enable()
     fused, *_ = layer(feat, other, P1, P2)
@@ -116,9 +124,11 @@ def test_marks_bracket_the_pooled_attention_once_a_call(issued):
     assert counters == {(-1, COUNTER): N * K * h * w * 2}  # keys and values
 
 
-def test_the_brackets_change_no_value_and_no_gradient(monkeypatch):
-    cfg = _cfg()
+@pytest.mark.parametrize("epipolar,kernel", ROUTES, ids=["kernel", "plain"])
+def test_the_brackets_change_no_value_and_no_gradient(monkeypatch, epipolar, kernel):
+    cfg = update_from_dict(_cfg(), {"EPIPOLAR": epipolar})
     layer = _layer(cfg)
+    assert layer.pooled_kernel == kernel
     runs = []
     for bracketed in (True, False):
         if not bracketed:  # the layer's plain call, without marks, span or count
