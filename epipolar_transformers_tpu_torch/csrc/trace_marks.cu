@@ -13,6 +13,10 @@ extern "C" __global__ void epipolar_pooled_forward_begin() {}
 extern "C" __global__ void epipolar_pooled_forward_end() {}
 extern "C" __global__ void epipolar_pooled_backward_begin() {}
 extern "C" __global__ void epipolar_pooled_backward_end() {}
+extern "C" __global__ void hourglass_fusion_forward_begin() {}
+extern "C" __global__ void hourglass_fusion_forward_end() {}
+extern "C" __global__ void hourglass_fusion_backward_begin() {}
+extern "C" __global__ void hourglass_fusion_backward_end() {}
 
 // Launch mark `which` (an index into MARKS) on `stream`; returns the CUDA
 // error of the launch, 0 on success.
@@ -23,9 +27,13 @@ extern "C" int trace_mark(int which, void* stream) {
     case 1: epipolar_pooled_forward_end<<<1, 1, 0, s>>>(); break;
     case 2: epipolar_pooled_backward_begin<<<1, 1, 0, s>>>(); break;
     case 3: epipolar_pooled_backward_end<<<1, 1, 0, s>>>(); break;
+    case 4: hourglass_fusion_forward_begin<<<1, 1, 0, s>>>(); break;
+    case 5: hourglass_fusion_forward_end<<<1, 1, 0, s>>>(); break;
+    case 6: hourglass_fusion_backward_begin<<<1, 1, 0, s>>>(); break;
+    case 7: hourglass_fusion_backward_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int trace_mark_count() { return 4; }
+extern "C" int trace_mark_count() { return 8; }

@@ -18,11 +18,11 @@ modeling/model.py:25-493), every task of it:
     ResNet's pooled features, and `multiview_img_lifting_rot` on the
     epipolar fusion's heatmaps (the sibling runs the other view under
     no-grad, unconditionally, its BN moving first).
-The sibling's `features` feed the reference's fusion: one map for a
-PoseResNet (its `trunk_features`), a tuple with one map per merge point for
-an hourglass (its forward without the decode).  At eval with shared
-weights, the late merge, running-stat BN and a backbone with
-`trunk_features`, both views of `multiview_keypoint` go through ONE
+The sibling's `features` feed the reference's fusion, from its
+`trunk_features`: one map for a PoseResNet, a tuple with one map per merge
+point for an hourglass.  At eval with shared weights, the late merge,
+running-stat BN and a backbone with `head_from_features` (a PoseResNet),
+both views of `multiview_keypoint` go through ONE
 2N-batch trunk call, which is numerically the two passes; the hourglass
 runs two.  `forward(inputs, bn_train=True)` in eval mode is TEST.TRAIN_BN
 (the JAX builder's `bn_train`): the eval outputs, with every BatchNorm on
@@ -142,18 +142,15 @@ class ModelBuilder(nn.Module):
         c = self.cfg
         return (not self.training and not bn_train and c.EPIPOLAR.SHARE_WEIGHTS
                 and c.EPIPOLAR.MERGE == "late" and not c.EPIPOLAR.WARPEDHEATMAP
-                and hasattr(self.reference, "trunk_features"))
+                and hasattr(self.reference, "head_from_features"))
 
     def _other_features(self, other_img, grad: bool):
         """The sibling's features of the other view, detached unless `grad`:
         a PoseResNet's trunk (its deconv output), an hourglass's
-        per-merge-point tuple from its forward."""
-        sibling = self.sibling
+        per-merge-point tuple."""
         with tracing.span("model.other_trunk"), \
                 torch.set_grad_enabled(bool(grad) and torch.is_grad_enabled()):
-            if hasattr(sibling, "trunk_features"):
-                return sibling.trunk_features(other_img)
-            return sibling(other_img, decode_peaks=False).features
+            return self.sibling.trunk_features(other_img)
 
     @contextlib.contextmanager
     def _bn_batch_stats(self, on: bool):

@@ -8,9 +8,19 @@ intermediate supervision (`trsfea`/`trstmp`) and the per-stack fusion:
 'epipolar' (the shared `Epipolar` layer, models/epipolar.py), 'meta' (the
 hypernetwork, models/meta.py), 'simple' (a plain add) or none, merged
 'late', 'early', 'both' or 'none'.  `features` is a tuple with one map per
-merge point: what a sibling net hands to the multiview net's fusion.
+merge point: what a sibling net hands to the multiview net's fusion, from
+`trunk_features` (the stacks with no fusion and without the last stack's
+head, which no feature reads), as a PoseResNet's.  `final_layer` is the
+last stack's head, `tmpOut{n_stack - 1}`, under the PoseResNet's name.
 SOLVER.FINETUNE stops the gradient at the fusion boundary, and
 EPIPOLAR.OTHER_ONLY keeps the fused map without the residual add.
+
+Tracing (utils/tracing.py, ops/trace_marks.py): the stem runs in the
+`hourglass.stem` span and each stack in an `hourglass.stack` span; each
+merge point's whole fusion (the attention, `z` and BN, the residual adds)
+runs between the device marks `hourglass_fusion_*`, forward and backward,
+so that a replayed CUDA graph shows each fusion's interval in the device
+trace.
 
 Child names are the flax module names (`stem_conv0`, `ress0`,
 `hg0.res0.bnA`, `tower0_mod0`, `tmpOut0`, `epipolar_sampler`, `meta0`, ...),
@@ -33,10 +43,12 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops import trace_marks
 from ..ops.epipolar_sampling import epipolar_sample_locs
 from ..ops.grid_sample import grid_sample_nhwc
 from ..ops.resize import resize_bilinear_align_corners
 from ..ops.soft_argmax import find_tensor_peak_batch
+from ..utils import tracing
 from .epipolar import Epipolar
 from .layers import BatchNorm2d, Conv2d, ZeroInitBatchNorm, bn_momentum
 from .meta import Meta
@@ -201,6 +213,13 @@ class HourglassNet(nn.Module):
                 _truncated_normal_(m.weight, 1.0, m.weight[0].numel(), generator)
                 m.bias.zero_()
 
+    @property
+    def final_layer(self) -> Conv2d:
+        """The last stack's head (`tmpOut{n_stack - 1}`), under the name a
+        PoseResNet gives its head; not a child of its own, so it adds no
+        key to the state_dict."""
+        return getattr(self, f"tmpOut{self.n_stack - 1}")
+
     def _tower(self, i, z):
         z = getattr(self, f"hg{i}")(z)
         for m in range(self.n_modules):
@@ -208,22 +227,72 @@ class HourglassNet(nn.Module):
         return torch.relu(getattr(self, f"tower{i}_bn")(getattr(self, f"tower{i}_conv")(z)))
 
     def _fuse(self, idx, feat, other_features, KRT, other_KRT, ids, refs):
-        """The idx-th merge point: (fused, corr_pos, depth, sample_locs)."""
+        """The idx-th merge point: (fused, corr_pos, depth, sample_locs),
+        between the `hourglass_fusion` marks."""
         if other_features is None:
             return feat, None, None, None
+        feat, other = trace_marks.enter("hourglass_fusion", feat, other_features[idx])
         cp = d = sl = None
         if self.fusion == "simple":
-            ret = other_features[idx]
+            ret = other
         elif self.fusion == "meta":
-            ret = getattr(self, f"meta{idx}")(KRT, other_KRT, other_features[idx])
+            ret = getattr(self, f"meta{idx}")(KRT, other_KRT, other)
         elif self.fusion == "epipolar":
-            ret, cp, d, sl = self.epipolar_sampler(feat, other_features[idx], KRT, other_KRT,
-                                                   *ids, *refs)
+            ret, cp, d, sl = self.epipolar_sampler(feat, other, KRT, other_KRT, *ids, *refs)
         else:
             raise NotImplementedError(self.cfg.BACKBONE.BODY)
-        if self.cfg.EPIPOLAR.OTHER_ONLY:
-            return ret, cp, d, sl
-        return ret + feat, cp, d, sl
+        fused = ret if self.cfg.EPIPOLAR.OTHER_ONLY else ret + feat
+        (fused,) = trace_marks.leave("hourglass_fusion", fused)
+        return fused, cp, d, sl
+
+    def trunk_features(self, x) -> tuple[torch.Tensor, ...]:
+        """One view's features with no fusion, one map per merge point (a
+        sibling's pass under the multiview net); the last stack's head is
+        left out, as no feature reads it."""
+        return tuple(self._stacks(x, lambda feat: feat, last_head=False)[1])
+
+    def _stacks(self, x, fuse, last_head: bool = True):
+        """The stem and the stacks on `x`, each merge point's map through
+        `fuse`: (heatmaps, features), the last stack's head left out unless
+        `last_head`."""
+        c = self.cfg
+        with tracing.span("hourglass.stem"):
+            h = torch.relu(self.stem_bn0(self.stem_conv0(x)))
+            h = torch.relu(self.stem_bn1(self.stem_conv1(h)))
+            h = torch.relu(self.stem_bn2(self.stem_conv2(h)))
+            h = self.ress2(self.ress1(self.pool(self.ress0(h))))
+
+        def cut(t):
+            return t.detach() if c.SOLVER.FINETUNE else t
+
+        heatmaps, features = [], []
+        merge = c.EPIPOLAR.MERGE
+        for i in range(self.n_stack):
+            with tracing.span("hourglass.stack"):
+                # the features list mirrors the reference (ProHG.py:242-279):
+                # early/none the stack input, late the fused tower output,
+                # both the two
+                if merge == "early":
+                    feature = self._tower(i, cut(fuse(h)))
+                    features.append(h)
+                elif merge == "both":
+                    fused = fuse(h)
+                    features.append(h)
+                    feature = fuse(self._tower(i, cut(fused)))
+                    features.append(feature)
+                elif merge == "late":
+                    feature = fuse(cut(self._tower(i, h)))
+                    features.append(feature)
+                else:  # 'none'
+                    feature = self._tower(i, h)
+                    features.append(h)
+                if i < self.n_stack - 1 or last_head:
+                    hm = getattr(self, f"tmpOut{i}")(feature)
+                    heatmaps.append(hm)
+                if i < self.n_stack - 1:
+                    h = h + getattr(self, f"trsfea{i}")(feature) + \
+                        getattr(self, f"trstmp{i}")(hm)
+        return heatmaps, features
 
     def forward(self, x, other_features=None, other_KRT=None, KRT=None, camera=None,
                 other_camera=None, other_img=None, other_heatmaps=None,
@@ -248,12 +317,6 @@ class HourglassNet(nn.Module):
             ds = c.BACKBONE.DOWNSAMPLE
             refs = tuple(torch.nn.functional.avg_pool2d(t, ds, ds).detach()
                          for t in (x, other_img))
-        h = torch.relu(self.stem_bn0(self.stem_conv0(x)))
-        h = torch.relu(self.stem_bn1(self.stem_conv1(h)))
-        h = torch.relu(self.stem_bn2(self.stem_conv2(h)))
-        h = self.ress2(self.ress1(self.pool(self.ress0(h))))
-
-        heatmaps, features = [], []
         corr_pos = depth = sample_locs = None
         n_fused = 0
 
@@ -264,32 +327,7 @@ class HourglassNet(nn.Module):
             n_fused += 1
             return fused
 
-        def cut(t):
-            return t.detach() if c.SOLVER.FINETUNE else t
-
-        merge = c.EPIPOLAR.MERGE
-        for i in range(self.n_stack):
-            # the features list mirrors the reference (ProHG.py:242-279):
-            # early/none the stack input, late the fused tower output, both
-            # the two
-            if merge == "early":
-                feature = self._tower(i, cut(fuse(h)))
-                features.append(h)
-            elif merge == "both":
-                fused = fuse(h)
-                features.append(h)
-                feature = fuse(self._tower(i, cut(fused)))
-                features.append(feature)
-            elif merge == "late":
-                feature = fuse(cut(self._tower(i, h)))
-                features.append(feature)
-            else:  # 'none'
-                feature = self._tower(i, h)
-                features.append(h)
-            hm = getattr(self, f"tmpOut{i}")(feature)
-            heatmaps.append(hm)
-            if i < self.n_stack - 1:
-                h = h + getattr(self, f"trsfea{i}")(feature) + getattr(self, f"trstmp{i}")(hm)
+        heatmaps, features = self._stacks(x, fuse)
 
         warped = None
         if c.EPIPOLAR.WARPEDHEATMAP and other_heatmaps is not None and depth is not None:

@@ -27,7 +27,9 @@ import torch
 
 # in csrc/trace_marks.cu's order
 MARKS = ("epipolar_pooled_forward_begin", "epipolar_pooled_forward_end",
-         "epipolar_pooled_backward_begin", "epipolar_pooled_backward_end")
+         "epipolar_pooled_backward_begin", "epipolar_pooled_backward_end",
+         "hourglass_fusion_forward_begin", "hourglass_fusion_forward_end",
+         "hourglass_fusion_backward_begin", "hourglass_fusion_backward_end")
 
 
 @functools.lru_cache(maxsize=None)

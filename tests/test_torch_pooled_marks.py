@@ -42,6 +42,8 @@ from epipolar_transformers_tpu_torch.utils import tracing
 PARAM = {"EPIPOLAR": {"PARAMETERIZED": ("z", "theta", "phi", "g"), "POOLING": True,
                       "BOTTLENECK": 2, "ZRESIDUAL": False, "USE_CORRECT_NORMALIZE": False}}
 COUNTER = "attn.pooled_samples"
+# the pooled attention's marks, in MARKS's order (the hourglass's follow them)
+POOLED = tuple(m for m in trace_marks.MARKS if m.startswith("epipolar_pooled_"))
 
 
 @pytest.fixture(autouse=True)
@@ -116,7 +118,7 @@ def test_marks_bracket_the_pooled_attention_once_a_call(issued, epipolar, kernel
     fused.square().sum().backward()
     tracing.disable()
     spans, counters = tracing.drain()
-    assert issued == list(trace_marks.MARKS)
+    assert issued == list(POOLED)
     names = [s.name for s in spans]
     assert names == ["epipolar.fusion", "epipolar.pooled_attention"]
     assert spans[1].parent == 0
@@ -264,4 +266,4 @@ def test_each_replayed_step_runs_each_mark_once_in_order(device):
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.splitlines()[-1])
     assert got["issued"] == []  # replays run no Python of the marks
-    assert got["marks"] == list(trace_marks.MARKS) * 3
+    assert got["marks"] == list(POOLED) * 3
