@@ -95,9 +95,11 @@ run, each printed on its own lines:
      alone at the param cell's shape (bf16) on the rig: out, rank and the
      three gradients against their plain twin (one bf16 step plus 1e-4 of
      the largest value; rank 1e-4), then forward and backward timed in
-     turns with it beside their bound; (b) the learned prior through the kernels at the flagship
-     attention shape, f32 and bf16, in each prior mode, forward and the
-     backward's gradients (the prior's included) against the plain version
+     turns with it beside their bound, and the backward's scatter_kernel
+     alone (the profiler's device time a call); (b) the learned prior
+     through the kernels at the flagship attention shape, f32 and bf16, in
+     each prior mode, forward and the backward's gradients (the prior's
+     included) against the plain version
      ([2]/[5]'s tolerances), dprior exactly 0 on queries out of range, two
      runs bit-equal, the backward's time with and without the prior
      gradient; `train` on the flagship with EPIPOLAR.PRIOR (one forward and
@@ -505,6 +507,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, name: str, calls: int = 10) -> float:
+    """Mean device milliseconds a call of `fn` spends in the kernels whose
+    name holds `name`: torch.profiler's device activity over `calls` calls
+    after one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.key_averages() if name in ev.key) / calls / 1e3
 
 
 def in_turns(a, b, iters: int = 20):
@@ -2130,6 +2148,8 @@ def param_recipe_phase(device):
                                  forward(pk.epipolar_attention_pooled_kernel), iters=5)
     plain_bwd, bwd_ms = in_turns(backward_only(epipolar_attention),
                                  backward_only(pk.epipolar_attention_pooled_kernel), iters=5)
+    # the backward's scatter alone: its device time in each backward call
+    scatter_ms = kernel_ms(backward_only(pk.epipolar_attention_pooled_kernel), "scatter_kernel")
     fwd_bound = pooled_bound(locs, C, 2, backward=False)
     bwd_bound = pooled_bound(locs, C, 2, backward=True)
     log(f"  (a) train step at batch {B} (forward, backward, adam; host-rendered inputs): "
@@ -2139,8 +2159,9 @@ def param_recipe_phase(device):
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; CUDA events in turns (plain, kernels, kernels, plain): forward {fwd_ms:.3f} ms "
         f"(bound {fwd_bound[0]:.4f}, plain {plain_fwd:.3f}), backward {bwd_ms:.3f} ms (bound "
-        f"{bwd_bound[0]:.4f}, plain autograd {plain_bwd:.3f}); main-path calls {main_launches[0]} "
-        f"forward, {main_launches[1]} backward")
+        f"{bwd_bound[0]:.4f}, plain autograd {plain_bwd:.3f}), of which scatter_kernel "
+        f"{scatter_ms:.3f} ms (the profiler's device time a call); main-path calls "
+        f"{main_launches[0]} forward, {main_launches[1]} backward")
     shape = f"bf16 B={B} {H}x{W} K={K} C={C}, the rig"
     entry = {"route": "cuda", "source": "epipolar_transformers_tpu_torch/csrc/"
              "epipolar_attention_pooled.cu", "library_ms": None, "shape": shape}
@@ -2152,7 +2173,8 @@ def param_recipe_phase(device):
         {"name": "epipolar_attention_pooled_backward", **entry,
          "replaces": POOLED_BACKWARD_REPLACES, "launches": main_launches[1],
          "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]), "ms": bwd_ms,
-         "plain_ms": plain_bwd, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]})
+         "scatter_ms": scatter_ms, "plain_ms": plain_bwd, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1]})
     return {"numbers": dict(step_ms=step_ms, peak_gib=peak), "kernels": entries}
 
 

@@ -15,6 +15,14 @@ epipolar_attention`), differentiated by autograd; on CUDA tensors it runs
 once a call in `LAUNCHES`) and whose backward launches the backward
 kernels (counted in `BACKWARD_LAUNCHES`), or raises.  The kernels take the
 param model's width, 128 channels, in f32 or bf16.
+
+Each backward adds the (sample, chunk) entries its scatter walks to
+`SCATTER_HITS`, on the device, from the per-item totals its bucketing
+leaves in the scratch: utils/tracing.py zeroes it when tracing turns on and
+reports its sum as the counter `attn.pooled_scatter_hits` (over
+`attn.pooled_samples`, the lists' expansion, which sets the scatter's
+gathers); a CUDA graph's replay adds into the tensor its capture added
+into.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import functools
 import torch
 
 from ..geometry.camera import denormalize_pixel
+from ..utils import tracing
 from .epipolar_attention import AttentionParams, epipolar_attention
 
 # kernel launches made by `epipolar_attention_pooled_kernel` in this
@@ -34,6 +43,11 @@ BACKWARD_LAUNCHES = 0
 
 POOLED_KERNEL_WIDTH = 128
 MAX_SAMPLES = 64
+
+# the scatter's entries, summed on each device into an int64 (1,) tensor
+# keyed by the device
+SCATTER_HITS: dict = {}
+tracing.register_device_counts(SCATTER_HITS, ("attn.pooled_scatter_hits",))
 
 
 def supports_pooled_kernel(params: AttentionParams) -> bool:
@@ -59,6 +73,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("epipolar_attention_pooled")
     lib.pooled_backward_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.pooled_backward_scratch_bytes.restype = ctypes.c_longlong
+    lib.pooled_scatter_hits_offset.argtypes = [ctypes.c_int] * 4
+    lib.pooled_scatter_hits_offset.restype = ctypes.c_longlong
+    lib.pooled_scatter_hits_stride.argtypes = [ctypes.c_int] * 3
+    lib.pooled_scatter_hits_stride.restype = ctypes.c_longlong
     lib.pooled_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.pooled_backward.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
@@ -127,6 +145,8 @@ def _backward(q, k, v, locs, weights, dout, H, W, scale):
     B, HW, C = q.shape
     K = locs.shape[1]
     dout = dout.to(q.dtype).contiguous()
+    if dout.data_ptr() % 16:  # the scatter copies its rows 16 bytes at a time
+        dout = dout.clone()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = None if v is None else torch.empty_like(v)
@@ -140,7 +160,24 @@ def _backward(q, k, v, locs, weights, dout, H, W, scale):
     if err != 0:
         raise RuntimeError(f"pooled_backward failed: CUDA error {err}")
     BACKWARD_LAUNCHES += 1
+    _count_hits(lib, scratch, B, H, W, K)
     return dq, dk, dv
+
+
+def _count_hits(lib, scratch, B, H, W, K) -> None:
+    """Add a backward's scatter entries, the per-item totals its bucketing
+    left in `scratch`, to `SCATTER_HITS[device]`, on the device."""
+    at = lib.pooled_scatter_hits_offset(B, H, W, K) // 4
+    stride = lib.pooled_scatter_hits_stride(H, W, K)
+    totals = scratch.view(torch.int32).as_strided((B,), (stride,), at)
+    total = SCATTER_HITS.get(scratch.device)
+    if total is None:
+        # a normal tensor even under inference_mode, so that later calls
+        # with autograd may add to it
+        with torch.inference_mode(False):
+            total = SCATTER_HITS[scratch.device] = torch.zeros(1, dtype=torch.int64,
+                                                               device=scratch.device)
+    total += totals.sum()
 
 
 class PooledAttentionFn(torch.autograd.Function):

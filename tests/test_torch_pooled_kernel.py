@@ -7,7 +7,11 @@ ATTENTION_IMPL 'auto' and leaves the POOLING configs they do not cover
 (cos, max, a prior, softmax off, K above 64, a width other than 128, a
 forced impl) on the plain chain; the wrapper on CPU tensors is the plain
 chain bit for bit and launches nothing; the wrapper calls only entry
-points the source defines.
+points the source defines, each with as many arguments as the source
+gives it; the backward's scratch at the param cell's shape is no larger
+than before the scatter's redesign; the scatter-hit counter reads 0 on the
+CPU route (no scatter runs there), and the plain model of the bucketing
+that the card's test holds the counter to counts a sample's chunks.
 
 Marked `cuda` (on the card, which has no JAX:
 python -m pytest --noconftest tests/test_torch_pooled_kernel.py), at the
@@ -16,7 +20,11 @@ kernels against the plain chain on the synthetic rig's lines at the
 recipe's uncorrected normalization, on random locations that cross the
 image's edges, with lines wholly outside the image, with exact ties
 between the members of a pair, and with keys equal to values; out,
-weights, rank, corr_pos and the three gradients.  Tolerances, and why:
+weights, rank, corr_pos and the three gradients; lines through one point
+inside the image, which crowd a few rows with most of their chunks' terms;
+the backward captured in a CUDA graph and replayed, bit-equal to the eager
+call; the scatter-hit counter against the plain model of the bucketing; the
+scratch's size.  Tolerances, and why:
 the kernels form every pooled vector with the plain path's products and
 sums in its order, so the pair max, its winners and the zero sentinel
 agree bit for bit; the dot products, the softmax and the sums over slots
@@ -29,6 +37,9 @@ than 1e-4 (a nearer tie may fall either way).  Two runs give the same
 bits.
 """
 
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -37,10 +48,16 @@ from epipolar_transformers_tpu_torch.models.epipolar import Epipolar
 from epipolar_transformers_tpu_torch.ops import epipolar_attention_pooled_cuda as pk
 from epipolar_transformers_tpu_torch.ops.epipolar_attention import (AttentionParams,
                                                                     epipolar_attention)
+from epipolar_transformers_tpu_torch.utils import tracing
 
 PARAM = {"EPIPOLAR": {"PARAMETERIZED": ("z", "theta", "phi", "g"), "POOLING": True,
                       "BOTTLENECK": 2, "ZRESIDUAL": False, "USE_CORRECT_NORMALIZE": False}}
 PARAMS = AttentionParams(softmax_scale=0.125, pooling=True, correct_normalize=False)
+SOURCE = (Path(pk.__file__).resolve().parents[1] / "csrc" /
+          "epipolar_attention_pooled.cu").read_text()
+# pooled_backward_scratch_bytes(16, 64, 64, 64), the param cell's shape, before
+# the scatter kept its sums in registers (read on an H100)
+SCRATCH_BEFORE = 234_881_280
 
 
 def _param_cfg(tiny=False, **epipolar):
@@ -134,6 +151,118 @@ def test_the_wrapper_calls_only_entry_points_the_source_defines():
     assert called and called <= defined, called - defined
 
 
+def test_the_wrapper_declares_each_entry_points_arguments(monkeypatch):
+    """Every argtypes list the wrapper declares has as many entries as the
+    C function has parameters (ctypes would pass a wrong count silently)."""
+    from types import SimpleNamespace
+
+    from epipolar_transformers_tpu_torch.ops import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "load_library", lambda name: Lib())
+    lib = pk._library.__wrapped__()
+    params = {name: len([p for p in args.split(",") if p.strip()])
+              for name, args in re.findall(r"^(?:int|long long) (pooled_\w+)\(([^)]*)\)",
+                                           SOURCE.split('extern "C"')[1], re.M)}
+    declared = {name: len(fn.argtypes) for name, fn in vars(lib).items()
+                if hasattr(fn, "argtypes")}
+    assert declared and declared == {name: params[name] for name in declared}
+
+
+def _constant(name):
+    return int(re.search(rf"\b{name} = (\d+)[;,]", SOURCE).group(1))
+
+
+def _scratch_bytes(B, H, W, K):
+    """pooled_backward_scratch_bytes as the source's carve_backward lays the
+    scratch out: ds, the two winner-bit sets, the samples' rows, the
+    bucketing's table (a count a chunk of kChunkH x kChunkW pixels and
+    segment of kSegment samples) and the lists, each piece 256-byte
+    aligned."""
+    HW, segment = H * W, _constant("kSegment")
+    chunks = -(-H // _constant("kChunkH")) * -(-W // _constant("kChunkW"))
+    slots, samples = B * HW * (K // 2), B * HW * K
+    table = B * (chunks * -(-HW * K // segment) + 1)
+    pieces = (slots * 4, slots * 32, slots * 32, samples * 4, table * 4, samples * 4 * 4)
+    return sum(-(-n // 256) * 256 for n in pieces)
+
+
+def test_the_scratch_is_no_larger_than_before():
+    assert _scratch_bytes(16, 64, 64, 64) <= SCRATCH_BEFORE
+
+
+def scatter_hits(locs, shape=(2, 4)):
+    """The (sample, chunk) entries of the backward's bucketing, in plain
+    torch: for each sample of (B, K, H, W, 2) locations, the distinct chunks
+    of `shape` pixels (rows by columns) among its live corners' pixels (the
+    kernels' bilinear weights, align_corners, a zero weight dead)."""
+    _, _, H, W, _ = locs.shape
+    locs = locs.float()
+
+    def axis(coord, size):
+        c0 = torch.floor(coord)
+        frac = coord - c0
+        hi = float(size - 1)
+        base = c0.clamp(0, hi).long()
+        valid0 = (c0 >= 0) & (c0 <= hi)
+        valid1 = (c0 + 1 >= 0) & (c0 + 1 <= hi)
+        zero = torch.zeros_like(frac)
+        w0 = torch.where(c0 < 0, torch.where(valid1, frac, zero),
+                         torch.where(valid0, 1 - frac, zero))
+        w1 = torch.where(c0 < 0, zero, torch.where(valid1, frac, zero))
+        return base, w0, w1
+
+    xb, x0, x1 = axis((locs[..., 0] + 1.0) / 2.0 * (W - 1), W)
+    yb, y0, y1 = axis((locs[..., 1] + 1.0) / 2.0 * (H - 1), H)
+    across = -(-W // shape[1])
+    chunk = torch.stack([(yb + dy) // shape[0] * across + (xb + dx) // shape[1]
+                         for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))])
+    live = torch.stack([y0 * x0, y0 * x1, y1 * x0, y1 * x1]) != 0
+    entries = 0
+    for j in range(4):
+        new = live[j]
+        for i in range(j):
+            new = new & ~(live[i] & (chunk[i] == chunk[j]))
+        entries += int(new.sum())
+    return entries
+
+
+def test_the_bucketing_model_counts_each_samples_chunks():
+    """17 x 17 keys in chunks of 2 x 4 pixels: a sample on a pixel has one
+    live corner; one between pixels 4, in 1 chunk where the 2 x 2 block lies
+    inside one, 2 where it crosses a chunk's rows, 4 where it crosses its
+    rows and columns; on the last image row 2 corners in 1 chunk; off the
+    image none (x, y in pixels, normalized by 16 = W - 1)."""
+    pixels = torch.tensor([[4.0, 3.0], [5.5, 2.5], [4.5, 3.5], [7.5, 3.5], [4.5, 16.0],
+                           [-9.0, -9.0]])
+    locs = (pixels / 8.0 - 1.0).reshape(1, 6, 1, 1, 2).expand(1, 6, 17, 17, 2)
+    each = [scatter_hits(locs[:, i:i + 1]) // (17 * 17) for i in range(6)]
+    assert each == [1, 1, 2, 4, 1, 0]
+    assert scatter_hits(locs) == 9 * 17 * 17
+
+
+def test_the_scatter_hits_counter_reads_0_on_the_cpu_route():
+    """On CPU tensors the wrapper runs the plain chain, which has no
+    scatter: tracing drains no `attn.pooled_scatter_hits`."""
+    tracing.disable()
+    tracing.drain()
+    feats, locs = _cpu_inputs(2)
+    tracing.enable()
+    try:
+        out = pk.epipolar_attention_pooled_kernel(*feats, locs, PARAMS)[0]
+        out.square().sum().backward()
+    finally:
+        tracing.disable()
+    counters = tracing.drain()[1]
+    assert counters.get((-1, "attn.pooled_scatter_hits"), 0) == 0
+    assert all(t.device.type != "cpu" for t in pk.SCATTER_HITS.values())
+
+
 # ---- on the card ---------------------------------------------------------------
 
 B, H, W, K, C = 16, 64, 64, 64, 128
@@ -190,6 +319,18 @@ def _case(name, device):
         locs[:, K // 2:, :, ::2] = locs[:, :K // 2, :, ::2]
     elif name == "shared":
         v = k
+    elif name == "crowded":
+        # every query's line runs through one point inside the image (an
+        # epipole in view), its samples closest there: the few rows around
+        # it take most of their chunks' terms
+        ys, xs = torch.meshgrid(torch.linspace(-1, 1, H, device=device),
+                                torch.linspace(-1, 1, W, device=device), indexing="ij")
+        pixel = torch.stack([xs, ys], -1)
+        epipole = torch.tensor([0.13, -0.21], device=device)
+        t = torch.linspace(-1, 1, K, device=device).sign() * torch.linspace(
+            -1, 1, K, device=device).square()
+        locs = (epipole + t[:, None, None, None] * (pixel - epipole)).expand(B, K, H, W, 2)
+        locs = locs.contiguous()
     return q, k, v, locs
 
 
@@ -211,7 +352,7 @@ def _close(name, got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rig", "edges", "outside", "ties", "shared"])
+@pytest.mark.parametrize("name", ["rig", "edges", "outside", "ties", "shared", "crowded"])
 def test_kernels_match_the_plain_chain(device, name):
     q, k, v, locs = _case(name, device)
     before = (pk.LAUNCHES, pk.BACKWARD_LAUNCHES)
@@ -256,7 +397,7 @@ def test_other_widths_and_sample_counts(device, dtype, samples):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rig", "edges"])
+@pytest.mark.parametrize("name", ["rig", "edges", "crowded"])
 def test_two_runs_are_bit_equal(device, name):
     q, k, v, locs = _case(name, device)
     first = _run(pk.epipolar_attention_pooled_kernel, q, k, v, locs, "rank")
@@ -279,3 +420,50 @@ def test_the_wrapper_refuses_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="widths of 128"):
         wide = torch.cat([v, v], -1)
         pk.epipolar_attention_pooled_kernel(q, k, wide, locs, PARAMS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["apart", "shared"])
+def test_a_captured_backward_replays_bit_equal_to_the_eager_call(device, shared):
+    """The forward runs eagerly on a side stream, so that autograd runs the
+    backward there: eagerly, then captured and replayed."""
+    q, k, v, locs = _case("shared" if shared else "rig", device)
+    leaves = [t.clone().requires_grad_() for t in ((q, k) if shared else (q, k, v))]
+    r = torch.randn(B, H, W, C, device=device,
+                    generator=torch.Generator(device=device).manual_seed(5)).to(q.dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = pk.epipolar_attention_pooled_kernel(leaves[0], leaves[1], leaves[-1], locs, PARAMS,
+                                                  shared_kv=shared)[0]
+
+        def backward():
+            return torch.autograd.grad(out, leaves, r, retain_graph=True)
+
+        eager = [t.clone() for t in backward()]
+        backward()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = backward()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rig", "edges", "crowded"])
+def test_the_scatter_hits_counter_is_the_bucketings_count(device, name):
+    q, k, v, locs = _case(name, device)
+    pk.SCATTER_HITS.clear()
+    _run(pk.epipolar_attention_pooled_kernel, q, k, v, locs, "weights")
+    assert int(pk.SCATTER_HITS[device].item()) == scatter_hits(locs.cpu())
+    pk.SCATTER_HITS.clear()
+
+
+@pytest.mark.cuda
+def test_the_scratch_size_is_the_layouts(device):
+    for shape in ((16, 64, 64, 64), (3, 12, 10, 8), (1, 1, 1, 2)):
+        assert pk._library().pooled_backward_scratch_bytes(*shape) == _scratch_bytes(*shape)
+    assert pk._library().pooled_backward_scratch_bytes(16, 64, 64, 64) <= SCRATCH_BEFORE
